@@ -1,0 +1,543 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA card (``python3 chip_smoke.py``).
+
+Phases — each raises on failure, so any failure exits non-zero:
+
+1. Print the card (``nvidia-smi`` name and power limit) and build every
+   CUDA kernel of the serving path from ``src/repro_torch`` with ``nvcc``
+   (one process per source, in parallel), printing the build time and
+   ptxas's register / shared-memory report.
+2. Hold each kernel against its plain PyTorch version on the card: the
+   paged decode (B1) and the fused paged prefill (B2), at the serving
+   path's shapes (TinyLlama: Hkv=4, G=8, D=64, page 16) and over a sweep
+   of shapes, page sizes, padded/length-0 rows, shared prefix pages and a
+   mid-page (copy-on-write) start; fp32 at 2e-5 and bf16 at 2e-2.  The
+   prefill must leave every pool byte outside its written slots as it
+   was, bit for bit.
+3. Serve full-width TinyLlama-1.1B (22 layers, random weights from a
+   seed) in fp32 through ``repro_torch.serving.Engine`` on the paged
+   plane: the shared-prefix workload of
+   ``repro_torch.launch.serve.smoke_server``, with prefix-registry hits
+   and recompute preemptions.  Every request's tokens must equal
+   ``generate_reference``, and the kernels' launch counts, zeroed just
+   before the run, must equal layers x prefill rounds (B2) and layers x
+   decode steps (B1).
+4. Serve the same workload in bf16 and report tokens/s; time both
+   kernels at the serving path's shapes with CUDA events (L2 flushed
+   before each launch, as the serving loop finds it), beside their plain
+   versions, ``scaled_dot_product_attention`` on pre-gathered dense K/V
+   (a yardstick only: the port never calls it) and the least time the
+   card could take (bytes over 3.35 TB/s or operations over the peak
+   rate of the inputs' type, whichever is larger; K/V bytes count each
+   distinct pool slot read once, however many rows map its page).
+
+The last two lines of standard output are the kernels' JSON line and
+``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
+measurement as JSON.  Without a CUDA device, or outside a checkout of the
+repository, the script exits with code 1 and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core bf16
+            "float32": 67e12}      # fp32 outside the tensor cores
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+SOURCE = "src/repro_torch/kernels/paged_attention/csrc/{}.cu"
+REPLACES = {"paged_decode": "src/repro/kernels/paged_attention/"
+                            "paged_attention.py:231",
+            "paged_prefill": "src/repro/kernels/paged_attention/"
+                             "paged_attention.py:168"}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    raise SystemExit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+# --------------------------------------------------------------------- #
+# inputs
+# --------------------------------------------------------------------- #
+
+class Inputs:
+    """Seeded random tensors on the card."""
+
+    def __init__(self, torch, seed: int):
+        self.torch = torch
+        self.gen = torch.Generator(device=DEVICE)
+        self.gen.manual_seed(seed)
+
+    def randn(self, *shape, dtype):
+        t = self.torch.randn(shape, generator=self.gen, device=DEVICE)
+        return t.to(getattr(self.torch, dtype))
+
+    def perm(self, n):
+        return self.torch.randperm(n, generator=self.gen, device=DEVICE)
+
+
+def tables(torch, inp: Inputs, need, maxp: int, P: int, shared=()):
+    """(B, maxp) int32 block tables: row b owns need[b] distinct pages of
+    the P-page pool (unused entries 0, as the engine leaves them);
+    ``shared`` = [(rows, npages)] makes those rows map the SAME first
+    npages (a prefix-registry attach)."""
+    pool = inp.perm(P).tolist()
+    bt = torch.zeros((len(need), maxp), dtype=torch.int32)
+    for rows, n in shared:
+        pages = [pool.pop() for _ in range(n)]
+        for b in rows:
+            bt[b, :n] = torch.tensor(pages)
+    shared_rows = {b: n for rows, n in shared for b in rows}
+    for b, nb in enumerate(need):
+        for j in range(shared_rows.get(b, 0), nb):
+            bt[b, j] = pool.pop()
+    return bt.to(DEVICE)
+
+
+def decode_case(torch, inp, B, H, Hkv, D, page, npages, dtype, ctx,
+                P=None, shared=()):
+    P = P or B * npages + 3
+    q = inp.randn(B, H, D, dtype=dtype)
+    kp = inp.randn(P, page, Hkv, D, dtype=dtype)
+    vp = inp.randn(P, page, Hkv, D, dtype=dtype)
+    need = [min(npages, -(-c // page)) for c in ctx]
+    bt = tables(torch, inp, need, npages, P, shared)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=DEVICE)
+    return q, kp, vp, bt, cl
+
+
+def prefill_case(torch, inp, B, c, H, Hkv, D, page, maxp, dtype, starts,
+                 lengths, P=None, shared=()):
+    P = P or B * maxp + 3
+    q = inp.randn(B, c, H, D, dtype=dtype)
+    k = inp.randn(B, c, Hkv, D, dtype=dtype)
+    v = inp.randn(B, c, Hkv, D, dtype=dtype)
+    kp = inp.randn(P, page, Hkv, D, dtype=dtype)
+    vp = inp.randn(P, page, Hkv, D, dtype=dtype)
+    need = [max(1, -(-(s + ln) // page)) for s, ln in zip(starts, lengths)]
+    bt = tables(torch, inp, need, maxp, P, shared)
+    st = torch.tensor(starts, dtype=torch.int32, device=DEVICE)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    return q, k, v, kp, vp, bt, st, ln
+
+
+# --------------------------------------------------------------------- #
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------- #
+
+def compare(torch, got, want, dtype, what) -> float:
+    err = (got.float() - want.float()).abs()
+    tol = TOL[dtype]
+    bad = err > tol["atol"] + tol["rtol"] * want.float().abs()
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite")
+    check(not bool(bad.any()), f"{what}: max abs err {err.max().item():.3g}"
+          f" beyond rtol=atol={tol['atol']}")
+    return err.max().item()
+
+
+def check_decode(torch, pa, ref, case, dtype, what) -> float:
+    got = pa.paged_decode_cuda(*case)
+    want = ref.paged_decode_reference(*case)
+    torch.cuda.synchronize()
+    return compare(torch, got, want, dtype, what)
+
+
+def check_prefill(torch, pa, ref, case, dtype, what) -> float:
+    q, k, v, kp, vp, bt, st, ln = case
+    kp0, vp0 = kp.clone(), vp.clone()
+    kp2, vp2 = kp.clone(), vp.clone()
+    got = pa.paged_prefill_cuda(q, k, v, kp, vp, bt, st, ln)
+    want = ref.paged_prefill_reference(q, k, v, kp2, vp2, bt, st, ln)
+    torch.cuda.synchronize()
+    c = q.shape[1]
+    valid = torch.arange(c, device=DEVICE)[None] < ln[:, None]
+    err = compare(torch, got[valid], want[valid], dtype, what)
+    check(torch.equal(kp, kp2) and torch.equal(vp, vp2),
+          f"{what}: pools differ from the plain version's")
+    # every byte outside the written slots is the input's, bit for bit
+    P, page = kp.shape[:2]
+    written = torch.zeros(P * page, dtype=torch.bool, device=DEVICE)
+    pos = st[:, None].long() + torch.arange(c, device=DEVICE)[None]
+    slot = torch.clamp(pos // page, 0, bt.shape[1] - 1)
+    dest = torch.gather(bt.long(), 1, slot) * page + pos % page
+    written[dest[valid]] = True
+    keep = ~written.view(P, page)
+    check(torch.equal(kp[keep], kp0[keep]) and torch.equal(vp[keep], vp0[keep]),
+          f"{what}: pool bytes outside the written slots changed")
+    return err
+
+
+def main_path_decode(torch, inp, dtype, P, ecfg):
+    """Decode at the serving shapes: 8 rows mid-generation (context ~270
+    of a 512-token budget), two prompt groups sharing 12 prefix pages."""
+    ns, page = ecfg.nslots, ecfg.page_size
+    ctx = [260 + 5 * b for b in range(ns)]
+    return decode_case(torch, inp, ns, 32, 4, 64, page,
+                       ecfg.cache_len // page, dtype, ctx, P=P,
+                       shared=[((0, 2, 4, 6), 12), ((1, 3, 5, 7), 12)])
+
+
+def main_path_prefill(torch, inp, dtype, P, ecfg):
+    """Prefill at the serving shapes: a 128-row bucket over 8 rows —
+    first and second chunks of 256-token prompts, and two rows resuming
+    after a 192-token attached prefix."""
+    starts = [0, 128, 0, 128, 192, 192, 0, 128]
+    lengths = [128, 128, 128, 128, 64, 64, 128, 128]
+    page = ecfg.page_size
+    return prefill_case(torch, inp, ecfg.nslots, ecfg.chunk, 32, 4, 64, page,
+                        ecfg.cache_len // page, dtype, starts, lengths, P=P,
+                        shared=[((4, 5), 12)])
+
+
+def phase_kernels(torch, pa, ref, P_main, ecfg):
+    inp = Inputs(torch, 1)
+    errs = {"paged_decode": {}, "paged_prefill": {}}
+    for dtype in ("float32", "bfloat16"):
+        e = errs["paged_decode"]
+        e[f"main_{dtype}"] = check_decode(
+            torch, pa, ref, main_path_decode(torch, inp, dtype, P_main, ecfg),
+            dtype, f"decode main path {dtype}")
+        for B, H, Hkv, D, page, npages in [(2, 8, 2, 64, 16, 4),
+                                           (4, 4, 4, 64, 32, 2),
+                                           (1, 8, 1, 128, 64, 3),
+                                           (3, 24, 4, 128, 8, 9),
+                                           (5, 7, 7, 64, 16, 3)]:
+            ctx = [1 + (b * 37) % (page * npages) for b in range(B)]
+            ctx[0] = page * npages              # a full table
+            name = f"decode B{B} H{H} Hkv{Hkv} D{D} page{page} {dtype}"
+            e[name] = check_decode(
+                torch, pa, ref, decode_case(torch, inp, B, H, Hkv, D, page,
+                                            npages, dtype, ctx), dtype, name)
+        # inactive engine rows: a zeroed table row with a stale context
+        # beyond the table's width reads page 0 only, never past the row
+        q, kp, vp, bt, cl = decode_case(torch, inp, 4, 16, 2, 64, 16, 4,
+                                        dtype, [10, 64, 30, 5])
+        bt[1] = 0
+        cl[1] = 10_000
+        e[f"stale_row_{dtype}"] = check_decode(
+            torch, pa, ref, (q, kp, vp, bt, cl), dtype, "decode stale row")
+
+        e = errs["paged_prefill"]
+        e[f"main_{dtype}"] = check_prefill(
+            torch, pa, ref, main_path_prefill(torch, inp, dtype, P_main, ecfg),
+            dtype, f"prefill main path {dtype}")
+        sweep = [
+            # (B, c, H, Hkv, D, page, maxp, starts, lengths, shared)
+            (2, 8, 4, 2, 64, 8, 3, [8, 0], [8, 8], ()),
+            (1, 16, 2, 2, 64, 8, 5, [8], [16], ()),
+            (2, 8, 4, 1, 128, 16, 2, [16, 0], [8, 8], ()),
+            (3, 8, 4, 2, 64, 8, 3, [0, 4, 0], [8, 3, 0], ()),   # padded
+            (2, 8, 4, 2, 64, 8, 3, [8, 8], [8, 8], [((0, 1), 1)]),
+            (1, 8, 4, 2, 64, 8, 2, [5], [3], ()),               # mid-page
+            (2, 32, 24, 4, 128, 32, 4, [64, 3], [32, 29], ()),
+        ] + [(2, c, 8, 2, 64, 16, -(-c // 16) + 1, [0, 16], [ln, max(1, ln - 1)],
+              ()) for c in (8, 16, 64, 128) for ln in (1, c - 1, c)
+             if ln >= 1]
+        for B, c, H, Hkv, D, page, maxp, st, ln, sh in sweep:
+            name = (f"prefill B{B} c{c} H{H} Hkv{Hkv} D{D} page{page} "
+                    f"starts{st} lengths{ln} shared{list(sh)} {dtype}")
+            e[name] = check_prefill(
+                torch, pa, ref,
+                prefill_case(torch, inp, B, c, H, Hkv, D, page, maxp, dtype,
+                             st, ln, shared=sh), dtype, name)
+    for k, e in errs.items():
+        print(f"{k}: {len(e)} comparisons with the plain version pass "
+              f"(rtol=atol 2e-5 fp32, 2e-2 bf16); main path max abs err "
+              f"fp32 {e['main_float32']:.3g}, bf16 {e['main_bfloat16']:.3g}")
+    return errs
+
+
+# --------------------------------------------------------------------- #
+# phases 3-4: serving
+# --------------------------------------------------------------------- #
+
+def phase_serve_fp32(torch, pa, cfg, params):
+    from repro_torch.launch.serve import SMOKE_ENGINE, smoke_server
+    from repro_torch.serving import generate_reference
+    eng, reqs = smoke_server(cfg, params, device=DEVICE)
+    torch.cuda.synchronize()
+    pa.paged_decode_cuda.launches = 0
+    pa.paged_prefill_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode": pa.paged_decode_cuda.launches,
+                "paged_prefill": pa.paged_prefill_cuda.launches}
+    L = cfg.num_layers
+    print(f"fp32 serve: {len(reqs)} requests, "
+          f"{sum(len(o) for o in res.outputs.values())} tokens in "
+          f"{wall:.3f} s; {eng.prefill_rounds} prefill rounds, "
+          f"{eng.decode_steps} decode steps, {len(res.metrics.batches)} "
+          f"batches, preemptions {res.metrics.num_preemptions}, "
+          f"prefix hits {res.swap_stats['trie_hits']}; launches {launches}")
+    check(launches["paged_prefill"] == L * eng.prefill_rounds > 0,
+          f"paged_prefill launched {launches['paged_prefill']} times, "
+          f"expected {L} x {eng.prefill_rounds}")
+    check(launches["paged_decode"] == L * eng.decode_steps > 0,
+          f"paged_decode launched {launches['paged_decode']} times, "
+          f"expected {L} x {eng.decode_steps}")
+    check(res.metrics.num_preemptions >= 1, "no recompute preemption")
+    check(res.swap_stats["trie_hits"] > 0, "no prefix-registry hit")
+    check(all(r.finished for r in reqs), "unfinished requests")
+    t0 = time.perf_counter()
+    mismatched = []
+    for r in reqs:
+        want = generate_reference(cfg, params, r.prompt, r.output_len,
+                                  cache_len=SMOKE_ENGINE.cache_len,
+                                  device=DEVICE)
+        got = res.outputs[r.rid]
+        if got != want:
+            first = next(i for i, (a, b) in enumerate(zip(got, want))
+                         if a != b)
+            mismatched.append((r.rid, first))
+    print(f"fp32 reference: {len(reqs) - len(mismatched)}/{len(reqs)} "
+          f"requests token-identical ({time.perf_counter() - t0:.1f} s)")
+    check(not mismatched, f"tokens differ from generate_reference "
+          f"(rid, first position): {mismatched}")
+    return {"wall_s": wall, "launches": launches,
+            "prefill_rounds": eng.prefill_rounds,
+            "decode_steps": eng.decode_steps,
+            "preemptions": res.metrics.num_preemptions,
+            "trie_hits": res.swap_stats["trie_hits"],
+            "tokens": sum(len(o) for o in res.outputs.values())}
+
+
+def phase_serve_bf16(torch, cfg, params):
+    from repro_torch.launch.serve import smoke_server
+    eng, reqs = smoke_server(cfg, params, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(o) for o in res.outputs.values())
+    print(f"bf16 serve: {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.1f} tok/s (phases {res.phase_stats})")
+    return {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
+            "phase_stats": res.phase_stats, "pool_pages":
+            int(eng.k_pools.shape[1])}
+
+
+# --------------------------------------------------------------------- #
+# phase 4: timing at the serving shapes
+# --------------------------------------------------------------------- #
+
+def time_ms(torch, fn, iters=30, warm=3) -> float:
+    """Mean device time of ``fn`` from CUDA events around each call,
+    with the 50 MB L2 flushed (a 256 MB write) before each."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
+    for _ in range(warm):
+        fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for s, e in ev:
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / iters
+
+
+def bound(nbytes: float, ops: float, dtype: str):
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def pool_slots_read(bt, lens, page: int) -> int:
+    """Distinct pool slots (page id, in-page offset) below each row's
+    length: the K/V positions the function must read.  Prefix pages that
+    several rows map (registry attaches) count once."""
+    slots = set()
+    for row, n in zip(bt.tolist(), lens):
+        for pos in range(min(n, len(row) * page)):
+            slots.add((row[pos // page], pos % page))
+    return len(slots)
+
+
+def time_decode(torch, pa, ref, case, dtype):
+    import torch.nn.functional as F
+    q, kp, vp, bt, cl = case
+    B, H, D = q.shape
+    P, page, Hkv, _ = kp.shape
+    G = H // Hkv
+    es = kp.element_size()
+    ctx = cl.tolist()
+    nbytes = (2 * q.numel() * es + bt.numel() * 4 + cl.numel() * 4
+              + pool_slots_read(bt, ctx, page) * Hkv * D * 2 * es)
+    ops = sum(ctx) * Hkv * G * D * 4
+    b_ms, b_by = bound(nbytes, ops, dtype)
+    ms = time_ms(torch, lambda: pa.paged_decode_cuda(*case))
+    plain = time_ms(torch, lambda: ref.paged_decode_reference(*case))
+    # library yardstick: SDPA over K/V gathered dense beforehand
+    S = -(-max(ctx) // page) * page
+    kd = kp[bt.long()].reshape(B, -1, Hkv, D)[:, :S].transpose(1, 2)
+    vd = vp[bt.long()].reshape(B, -1, Hkv, D)[:, :S].transpose(1, 2)
+    kd, vd = kd.contiguous(), vd.contiguous()
+    mask = (torch.arange(S, device=DEVICE)[None] < cl[:, None])[:, None, None]
+    qd = q[:, :, None, :]
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qd, kd, vd, attn_mask=mask, enable_gqa=True)
+    lib_ms = time_ms(torch, lib)
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, bytes=nbytes, ops=ops)
+
+
+def time_prefill(torch, pa, ref, case, dtype):
+    import torch.nn.functional as F
+    q, k, v, kp, vp, bt, st, ln = case
+    B, c, H, D = q.shape
+    P, page, Hkv, _ = kp.shape
+    G = H // Hkv
+    es = kp.element_size()
+    starts, lengths = st.tolist(), ln.tolist()
+    kv_rows = pool_slots_read(bt, starts, page) + sum(lengths)
+    nbytes = (2 * q.numel() * es + 2 * k.numel() * es
+              + kv_rows * Hkv * D * 2 * es + (bt.numel() + 2 * B) * 4)
+    ops = sum(sum(s + r + 1 for r in range(n)) for s, n in
+              zip(starts, lengths)) * Hkv * G * D * 4
+    b_ms, b_by = bound(nbytes, ops, dtype)
+    ms = time_ms(torch, lambda: pa.paged_prefill_cuda(*case))
+    plain = time_ms(torch, lambda: ref.paged_prefill_reference(*case))
+    # library yardstick: SDPA over [prefix pages ++ chunk] gathered dense
+    S = max(s + c for s in starts)
+    kg = kp[bt.long()].reshape(B, -1, Hkv, D).clone()
+    vg = vp[bt.long()].reshape(B, -1, Hkv, D).clone()
+    for b in range(B):
+        kg[b, starts[b]:starts[b] + c] = k[b]
+        vg[b, starts[b]:starts[b] + c] = v[b]
+    kd = kg[:, :S].transpose(1, 2).contiguous()
+    vd = vg[:, :S].transpose(1, 2).contiguous()
+    qd = q.transpose(1, 2).contiguous()
+    qpos = st[:, None] + torch.arange(c, device=DEVICE)[None]
+    mask = (torch.arange(S, device=DEVICE)[None, None] <= qpos[:, :, None])
+    mask = mask[:, None]
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qd, kd, vd, attn_mask=mask, enable_gqa=True)
+    lib_ms = time_ms(torch, lib)
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, bytes=nbytes, ops=ops)
+
+
+# --------------------------------------------------------------------- #
+
+def _tree_to(tree, dtype):
+    return {k: _tree_to(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--report", help="also write every measurement here")
+    args = ap.parse_args(argv)
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a card")
+    if not (ROOT / "src" / "repro_torch" / "serving").is_dir():
+        fail(f"no src/repro_torch next to {Path(__file__).name}: run it "
+             "from a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.launch.serve import SMOKE_ARCH, SMOKE_ENGINE, SMOKE_M
+    from repro_torch.models import model as M
+
+    t_start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{count} device(s)")
+
+    t0 = time.perf_counter()
+    pa.build_all()
+    build_s = time.perf_counter() - t0
+    print(f"nvcc build of {len(cuda_build.BUILD_REPORT)} sources in "
+          f"parallel: {build_s:.1f} s wall")
+    for stem, (secs, log) in sorted(cuda_build.BUILD_REPORT.items()):
+        print(f"  {stem}: {secs:.1f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
+
+    report = {"card": card, "kind": kind, "torch": torch.__version__,
+              "build_s": build_s}
+    ecfg = SMOKE_ENGINE
+    P_main = -(-SMOKE_M // ecfg.page_size) + 1   # allocator pages + sentinel
+    with torch.no_grad():
+        errs = phase_kernels(torch, pa, ref, P_main, ecfg)
+
+        cfg = dataclasses.replace(get_config(SMOKE_ARCH), dtype="float32")
+        params = M.init_params(cfg, seed=0, device=DEVICE)
+        fp32 = phase_serve_fp32(torch, pa, cfg, params)
+
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+        params16 = _tree_to(params, torch.bfloat16)
+        del params
+        bf16 = phase_serve_bf16(torch, cfg16, params16)
+        check(bf16["pool_pages"] == P_main, "pool size changed")
+
+        inp = Inputs(torch, 2)
+        times = {
+            "paged_decode": time_decode(
+                torch, pa, ref, main_path_decode(torch, inp, "bfloat16",
+                                                 P_main, ecfg), "bfloat16"),
+            "paged_prefill": time_prefill(
+                torch, pa, ref, main_path_prefill(torch, inp, "bfloat16",
+                                                  P_main, ecfg), "bfloat16")}
+    kernels = []
+    for name in ("paged_decode", "paged_prefill"):
+        t = times[name]
+        print(f"{name} (bf16, serving shapes): {t['ms']:.4f} ms; plain "
+              f"{t['plain_ms']:.4f} ms; sdpa {t['library_ms']:.4f} ms; "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+              f"{t['bytes']:.3g} B, {t['ops']:.3g} ops)")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCE.format(name),
+                        "replaces": REPLACES[name],
+                        "launches": fp32["launches"][name],
+                        "max_abs_err": errs[name]["main_float32"],
+                        "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"]})
+    report.update(errors=errs, serve_fp32=fp32, serve_bf16=bf16,
+                  timings=times, seconds=time.perf_counter() - t_start)
+    if args.report:
+        Path(args.report).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.report).write_text(json.dumps(report, indent=1,
+                                                default=float))
+    print(f"total {report['seconds']:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": kind, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

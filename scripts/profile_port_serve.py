@@ -1,0 +1,157 @@
+#!/usr/bin/env python3
+"""Where the time of the port's served run goes, on one NVIDIA card.
+
+    python3 scripts/profile_port_serve.py [--dtype bfloat16] [--report PATH]
+
+Serves the smoke workload of ``repro_torch.launch.serve.smoke_server``
+(full-width TinyLlama-1.1B, the paged engine, its two CUDA kernels)
+twice: once plainly, for the wall time per step, and once with engine
+steps 40-59 (decode steps, mostly) under
+``torch.profiler`` (CPU + CUDA activities, a device sync after each
+step), for the device time and launch counts by kernel name; the
+device's busy share is that device time over the unprofiled wall of the
+same steps (the schedule is deterministic).  It also times the host's
+cost of enqueuing one tiny eager op.  Prints a table of the top kernels
+and one JSON summary line; ``--report`` writes the summary as a file.
+Exits 1 without a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+WAIT, ACTIVE = 40, 20      # engine steps skipped, then profiled
+
+
+def instrument(torch, eng, after):
+    """Wrap ``eng.step``: synchronise after each step, record (time,
+    prefill rounds, decode steps) and call ``after``; returns the list
+    the records go to."""
+    marks = []
+    step = eng.step
+
+    def timed_step():
+        n = step()
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), eng.prefill_rounds,
+                      eng.decode_steps))
+        after()
+        return n
+
+    eng.step = timed_step
+    torch.cuda.synchronize()
+    return marks
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--report")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_port_serve: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.launch.serve import SMOKE_ARCH, smoke_server
+    from repro_torch.models import model as M
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    pa.build_all()
+    cfg = dataclasses.replace(get_config(SMOKE_ARCH), dtype=args.dtype)
+    out = {"dtype": args.dtype,
+           "card": torch.cuda.get_device_name(0)}
+    with torch.no_grad():
+        params = M.init_params(cfg, seed=0, device="cuda")
+
+        # host cost of one eager op on a tiny tensor (enqueue only)
+        x = torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            x.add_(1.0)
+        out["host_us_per_tiny_op"] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+
+        eng, reqs = smoke_server(cfg, params)
+        plain = instrument(torch, eng, lambda: None)
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        wall = time.perf_counter() - t0
+        steps = eng.prefill_rounds + eng.decode_steps
+        # wall of the steps that ran a decode and no prefill round
+        dec = [t1 - t0_ for (t0_, p0, d0), (t1, p1, d1)
+               in zip([(t0, 0, 0)] + plain[:-1], plain)
+               if p1 == p0 and d1 == d0 + 1]
+        out.update(wall_s=wall, prefill_rounds=eng.prefill_rounds,
+                   decode_steps=eng.decode_steps,
+                   wall_ms_per_step=wall / steps * 1e3,
+                   wall_ms_per_decode_step=sum(dec) / len(dec) * 1e3,
+                   prefill_s=eng.phase_stats["prefill_s"])
+
+        # profiled: engine steps WAIT..WAIT+ACTIVE only (mostly decode)
+        eng, reqs = smoke_server(cfg, params)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=WAIT - 1, warmup=1,
+                                       active=ACTIVE, repeat=1)) as prof:
+            marks = instrument(torch, eng, prof.step)
+            eng.run(reqs)
+        (t0, p0, d0), (t1, p1, d1) = marks[WAIT - 1], marks[WAIT + ACTIVE - 1]
+        # the schedule is deterministic: the same steps, unprofiled
+        window = {"steps": ACTIVE, "prefill_rounds": p1 - p0,
+                  "decode_steps": d1 - d0, "profiled_wall_s": t1 - t0,
+                  "wall_s": plain[WAIT + ACTIVE - 1][0] - plain[WAIT - 1][0]}
+
+    by_kernel = collections.defaultdict(lambda: [0, 0.0])
+    launches = 0
+    for e in prof.events():
+        if e.name.startswith("ProfilerStep"):
+            continue                  # the step annotation, not a kernel
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name][0] += 1
+            by_kernel[e.name][1] += e.device_time
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += 1
+    n_kernels = sum(c for c, _ in by_kernel.values())
+    device_s = sum(t for _, t in by_kernel.values()) / 1e6
+    out.update(window=window, kernels=n_kernels, launch_calls=launches,
+               device_s=device_s, kernels_per_step=n_kernels / ACTIVE,
+               device_ms_per_step=device_s / ACTIVE * 1e3,
+               device_busy_share=device_s / window["wall_s"])
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
+    out["top_kernels"] = [{"name": n[:90], "count": c, "ms": t / 1e3}
+                          for n, (c, t) in top]
+    print(f"{out['card']}, {args.dtype}: {steps} steps "
+          f"({eng.decode_steps} decode) in {wall:.3f} s unprofiled = "
+          f"{out['wall_ms_per_step']:.2f} ms/step, "
+          f"{out['wall_ms_per_decode_step']:.2f} ms per decode step; "
+          f"host enqueue of a tiny "
+          f"op {out['host_us_per_tiny_op']:.1f} us")
+    print(f"profiled window {window}: {n_kernels} kernels "
+          f"({out['kernels_per_step']:.0f}/step), {launches} launch calls, "
+          f"device busy {device_s:.4f} s ({out['device_ms_per_step']:.2f} "
+          f"ms/step = {out['device_busy_share']:.1%} of the same steps' "
+          f"unprofiled wall)")
+    for k in out["top_kernels"]:
+        print(f"  {k['ms']:10.2f} ms  {k['count']:7d}  {k['name']}")
+    print(json.dumps(out))
+    if args.report:
+        Path(args.report).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.report).write_text(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,19 @@
+"""Config registry: importing this package registers the dense
+architectures (the family this port serves)."""
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    applicable_shapes,
+    get_config,
+    list_configs,
+    pad_to,
+)
+from repro_torch.configs import (  # noqa: F401
+    starcoder2_3b,
+    smollm_360m,
+    tinyllama_1_1b,
+    qwen3_4b,
+    llama2_7b,
+    llama3_8b,
+)

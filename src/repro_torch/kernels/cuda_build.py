@@ -1,0 +1,97 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/*.cu`` file is compiled on its own into a shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds)
+for ``sm_90a``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
+
+The library name carries a hash of the sources and flags, so an edited
+kernel is rebuilt and a stale one is never loaded.  Builds run on first
+use (never at import), all missing sources in parallel, into a ``build/``
+directory next to the sources that ``.gitignore`` lists.  ``nvcc`` is
+looked up in ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``, then
+``PATH``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Tuple
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: loaded libraries by absolute .so path (a process-wide cache: a shared
+#: library is loaded once per process anyway)
+_LOADED: Dict[str, ctypes.CDLL] = {}
+#: build log lines (ptxas register/shared-memory reports) and seconds
+#: spent compiling, for the smoke script's report
+BUILD_REPORT: Dict[str, Tuple[float, str]] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
+                           "toolkit's bin/ on PATH")
+    return found
+
+
+def _lib_path(src: Path) -> Path:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(src.parent.glob("*.cuh")) + [src]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return src.parent.parent / "build" / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(sources: Iterable[Path]) -> Dict[str, Path]:
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all started together; returns {stem: library path}.  Raises
+    ``RuntimeError`` with the compiler's output if any build fails."""
+    sources = list(sources)
+    libs = {src.stem: _lib_path(src) for src in sources}
+    jobs: List[Tuple[str, Path, Path, subprocess.Popen, float]] = []
+    for src in sources:
+        lib = libs[src.stem]
+        if lib.exists():
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(src.parent), "-o",
+               str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src.stem, lib, tmp, proc, time.perf_counter()))
+    failed = []
+    for stem, lib, tmp, proc, t0 in jobs:
+        log, _ = proc.communicate()
+        BUILD_REPORT[stem] = (time.perf_counter() - t0, log)
+        if proc.returncode != 0:
+            failed.append(f"{stem}:\n{log}")
+            continue
+        os.replace(tmp, lib)          # atomic: readers never see half a file
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return libs
+
+
+def load(src: Path) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
+    lib = build([src])[src.stem]
+    key = str(lib)
+    if key not in _LOADED:
+        _LOADED[key] = ctypes.CDLL(key)
+    return _LOADED[key]

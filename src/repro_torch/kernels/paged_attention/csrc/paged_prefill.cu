@@ -1,0 +1,193 @@
+// Fused paged chunked prefill: write the chunk's K/V rows into the pool
+// pages the block table names, and attend each chunk query causally over
+// [the row's earlier positions in the pool ++ the chunk itself].
+//
+// Replaces the TPU kernel
+//   src/repro/kernels/paged_attention/paged_attention.py::paged_prefill_bhd
+//   (_pp_kernel): chunk row r < length[b] is written at position
+//   start[b] + r (pools updated in place, input_output_aliases there);
+//   queries attend over pool positions < start, then causally over the
+//   chunk's own rows taken from the k/v operands.
+//
+// What bounds it on an H100: at the engine's shapes (G = 8 query heads
+// per kv head, chunks of up to 128 rows over a few hundred cached
+// positions) each (query vector, visible key) pair costs 4*D operations,
+// against the bytes of q, the chunk, the prefix pages read once and the
+// rows written.  In bf16 the bytes bind (the tensor cores' 989 TFLOP/s
+// would finish the operations sooner); in fp32, whose peak outside the
+// tensor cores is 67 TFLOP/s, the operations do.  The smoke script
+// computes the bound from each call's own starts and lengths.  This
+// first kernel does the arithmetic on the fp32 CUDA cores, not the
+// tensor cores, so it sits well above the bf16 bound.
+//
+// Design.  The TPU grid is not carried over: there a sequential page axis
+// redirected stale tail steps at the last owned page (the `ipe` clamp) so
+// the pipeline would not flush stale bytes; here there is nothing to
+// flush.  Grid = (query tiles, kv heads, rows).  A query vector is
+// (chunk row r, query head g), numbered r*G + g; a block of 4 warps owns
+// a tile of consecutive query vectors and walks the keys in tiles of 32
+// positions staged as fp32 in shared memory -- keys below `start` come
+// from the pool through the block table, keys at or above it from the
+// chunk operands -- folding each into every warp's online softmax.
+//   * Exactly one block per (row, kv head), query tile 0, writes the
+//     chunk rows into the pool.  No block reads a pool position >= start,
+//     and every write lands at a position >= start, so blocks never race.
+//   * Padded rows (r >= length) and length-0 rows write nothing: every
+//     pool byte outside the written slots keeps its value bit for bit.
+//     Their outputs are zero.
+//   * Shared prefix pages (attached from the prefix registry) lie below
+//     start: they are read, never written.  The engine's copy-on-write
+//     guard makes the page a row writes into private first.
+// Launch contract: launches on the given stream, allocates nothing,
+// never synchronises; returns cudaGetLastError().
+#include "paged_common.cuh"
+
+namespace paged {
+
+template <int D>
+struct PrefillTile {
+  static constexpr int kQPW = (D == 128) ? 4 : 8;  // query vectors per warp
+  static constexpr int kQT = kQPW * kWarps;        // per block
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                         const T* __restrict__ vc, T* __restrict__ kp,
+                         T* __restrict__ vp,
+                         const int* __restrict__ block_tables,
+                         const int* __restrict__ starts,
+                         const int* __restrict__ lengths, T* __restrict__ out,
+                         int c, int Hkv, int G, int P, int page, int maxp) {
+  constexpr int kQPW = PrefillTile<D>::kQPW;
+  constexpr int kQT = PrefillTile<D>::kQT;
+  __shared__ float qs[kQT][D];
+  __shared__ float ks[kKeyTile][D + 1];
+  __shared__ float vs[kKeyTile][D];
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & (kWarp - 1), w = tid / kWarp;
+  const int H = Hkv * G;
+  const int start = starts[b];
+  const int len = max(0, min(lengths[b], c));
+  const int* bt = block_tables + (size_t)b * maxp;
+
+  // ---- write: query tile 0 of each (row, kv head) owns the pool writes
+  if (tile == 0) {
+    for (int i = tid; i < len * D; i += kThreads) {
+      const int r = i / D, d = i % D, pos = start + r;
+      const int pid = clampi(bt[clampi(pos / page, 0, maxp - 1)], 0, P - 1);
+      const size_t dst = (((size_t)pid * page + pos % page) * Hkv + h) * D + d;
+      const size_t src = (((size_t)b * c + r) * Hkv + h) * D + d;
+      kp[dst] = kc[src];
+      vp[dst] = vc[src];
+    }
+  }
+
+  // ---- attend
+  const int nqv = c * G;
+  const int qv0 = tile * kQT;
+  const int qv_last = min(qv0 + kQT, nqv) - 1;
+  const int r_first = qv0 / G;
+  const int nchunk = min(qv_last / G + 1, len);  // chunk keys any row sees
+  const int nkeys = r_first < len ? start + nchunk : 0;  // padded tile: none
+
+  for (int i = tid; i < kQT * D; i += kThreads) {
+    const int qi = i / D, d = i % D, qv = qv0 + qi;
+    float x = 0.f;
+    if (qv < nqv) {
+      const int r = qv / G, g = qv % G;
+      x = to_f(q[(((size_t)b * c + r) * H + h * G + g) * D + d]);
+    }
+    qs[qi][d] = x;
+  }
+
+  SoftmaxRow<D> rows[kQPW];
+#pragma unroll
+  for (int qi = 0; qi < kQPW; ++qi) rows[qi].init();
+  const float scale = 1.0f / sqrtf((float)D);
+
+  for (int j0 = 0; j0 < nkeys; j0 += kKeyTile) {
+    __syncthreads();  // q staged / previous tile consumed
+    for (int i = tid; i < kKeyTile * D; i += kThreads) {
+      const int jj = i / D, d = i % D, j = j0 + jj;
+      float kv = 0.f, vv = 0.f;
+      if (j < start) {
+        const int pid = clampi(bt[clampi(j / page, 0, maxp - 1)], 0, P - 1);
+        const size_t o = (((size_t)pid * page + j % page) * Hkv + h) * D + d;
+        kv = to_f(kp[o]);
+        vv = to_f(vp[o]);
+      } else if (j < nkeys) {
+        const size_t o = (((size_t)b * c + (j - start)) * Hkv + h) * D + d;
+        kv = to_f(kc[o]);
+        vv = to_f(vc[o]);
+      }
+      ks[jj][d] = kv;
+      vs[jj][d] = vv;
+    }
+    __syncthreads();
+    const int j = j0 + lane;
+#pragma unroll
+    for (int qi = 0; qi < kQPW; ++qi) {
+      const int qib = w * kQPW + qi, qv = qv0 + qib;
+      if (qv >= nqv) continue;  // warp-uniform
+      const int r = qv / G;
+      const bool valid = j < start || (j - start <= r && j - start < len);
+      rows[qi].fold(tile_score<D>(qs[qib], ks, lane) * scale, valid, vs, lane);
+    }
+  }
+
+#pragma unroll
+  for (int qi = 0; qi < kQPW; ++qi) {
+    const int qv = qv0 + w * kQPW + qi;
+    if (qv >= nqv) continue;
+    const int r = qv / G, g = qv % G;
+    T* orow = out + (((size_t)b * c + r) * H + h * G + g) * D;
+#pragma unroll
+    for (int e = 0; e < SoftmaxRow<D>::kE; ++e)
+      orow[lane + kWarp * e] = from_f<T>(r < len ? rows[qi].out(e) : 0.f);
+  }
+}
+
+template <typename T, int D>
+void launch(const void* q, const void* kc, const void* vc, void* kp, void* vp,
+            const void* bt, const void* starts, const void* lengths, void* out,
+            int B, int c, int Hkv, int G, int P, int page, int maxp,
+            cudaStream_t stream) {
+  constexpr int kQT = PrefillTile<D>::kQT;
+  dim3 grid((c * G + kQT - 1) / kQT, Hkv, B);
+  paged_prefill_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      (const T*)q, (const T*)kc, (const T*)vc, (T*)kp, (T*)vp, (const int*)bt,
+      (const int*)starts, (const int*)lengths, (T*)out, c, Hkv, G, P, page,
+      maxp);
+}
+
+}  // namespace paged
+
+// q (B, c, H, D), k/v (B, c, Hkv, D), pools (P, page, Hkv, D), out like q.
+// dtype: 0 = float32, 1 = bfloat16.  Validated by the Python wrapper.
+extern "C" int paged_prefill(const void* q, const void* k, const void* v,
+                             void* k_pool, void* v_pool,
+                             const void* block_tables, const void* starts,
+                             const void* lengths, void* out, int B, int c,
+                             int Hkv, int G, int D, int P, int page, int maxp,
+                             int dtype, void* stream) {
+  using namespace paged;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && D == 64)
+    launch<float, 64>(q, k, v, k_pool, v_pool, block_tables, starts, lengths,
+                      out, B, c, Hkv, G, P, page, maxp, st);
+  else if (dtype == 0 && D == 128)
+    launch<float, 128>(q, k, v, k_pool, v_pool, block_tables, starts, lengths,
+                       out, B, c, Hkv, G, P, page, maxp, st);
+  else if (dtype == 1 && D == 64)
+    launch<__nv_bfloat16, 64>(q, k, v, k_pool, v_pool, block_tables, starts,
+                              lengths, out, B, c, Hkv, G, P, page, maxp, st);
+  else if (dtype == 1 && D == 128)
+    launch<__nv_bfloat16, 128>(q, k, v, k_pool, v_pool, block_tables, starts,
+                               lengths, out, B, c, Hkv, G, P, page, maxp, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,122 @@
+"""Serving launcher: ``python -m repro_torch.launch.serve [--full]``.
+
+Runs the continuous-batching engine's paged plane on a workload with the
+selected scheduling / cache-replacement policy (the paper's deployment
+path) and prints the §5.1 metrics.  Runs on ``--device cuda`` (the
+default) through the hand-written paged-attention kernels; ``--device
+cpu`` runs their plain PyTorch versions.  Without ``--full`` the model is
+the config's ``reduced()`` variant widened to 64-dim heads (the smallest
+head the CUDA kernels take); weights are random, from ``--seed``.
+
+``smoke_server`` builds the card's fixed smoke workload (full-width
+TinyLlama-1.1B, a shared-prefix workload with registry hits and recompute
+preemptions) that ``chip_smoke.py`` and ``scripts/profile_port_serve.py``
+both serve.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+from dataclasses import replace
+
+from repro_torch.configs import get_config
+from repro_torch.core import TheoreticalCostModel, get_hardware, make_scheduler
+from repro_torch.data import (azureconv_like, fixed_grid, hetero_mix,
+                              longform_like, shared_prefix)
+from repro_torch.models import model as M
+from repro_torch.serving import Engine, EngineConfig
+
+log = logging.getLogger("repro_torch.serve")
+
+WORKLOADS = {
+    "fixed": lambda vocab: fixed_grid(12, 24, 8, vocab=vocab),
+    "hetero": lambda vocab: hetero_mix(["SISO", "SILO"], 12, vocab=vocab),
+    "azureconv": lambda vocab: azureconv_like(12, vocab=vocab),
+    "longform": lambda vocab: longform_like(12, vocab=vocab),
+    "shared_prefix": lambda vocab: shared_prefix(12, input_len=32,
+                                                 output_len=8, vocab=vocab,
+                                                 stagger=1e-6),
+}
+
+# the smoke workload: 16 requests of 256 prompt tokens (75 % shared in two
+# groups) and 48 output tokens on 8 slots over a 2048-token KV budget
+SMOKE_ARCH = "tinyllama-1.1b"
+SMOKE_M = 2048                     # scheduler M: KV capacity in tokens
+SMOKE_ENGINE = EngineConfig(nslots=8, cache_len=512, chunk=128,
+                            page_size=16)
+SMOKE_WORKLOAD = dict(n=16, input_len=256, prefix_frac=0.75, num_groups=2,
+                      output_len=48, vocab=32000, stagger=1e-6, seed=0)
+
+
+def smoke_server(cfg, params, device: str = "cuda"):
+    """A warmed ``Engine`` (vLLM scheduler, SRF replacement) and fresh
+    requests of the smoke workload, for ``cfg``/``params`` of
+    ``SMOKE_ARCH`` in any dtype."""
+    sched = make_scheduler("vllm", SMOKE_M, S=SMOKE_ENGINE.cache_len,
+                           replacement="srf")
+    eng = Engine(cfg, params, sched, SMOKE_ENGINE,
+                 cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
+                 device=device).warmup()
+    return eng, shared_prefix(**SMOKE_WORKLOAD)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--scheduler", default="vllm",
+                    choices=["vllm", "vllm_hy", "sarathi", "sarathi_cs",
+                             "orca", "vllm_pf", "sarathi_pf"])
+    ap.add_argument("--replacement", default="srf",
+                    choices=["nrf", "srf", "lrf", "pf"])
+    ap.add_argument("--histogram", action="store_true",
+                    help="SRF+Hist admission gating")
+    ap.add_argument("--cache-policy", default="lru",
+                    choices=["lru", "break_even"])
+    ap.add_argument("--workload", default="fixed", choices=sorted(WORKLOADS))
+    ap.add_argument("--M", type=int, default=128,
+                    help="KV cache size in tokens")
+    ap.add_argument("--nslots", type=int, default=8)
+    ap.add_argument("--cache-len", type=int, default=64)
+    ap.add_argument("--chunk", type=int, default=32)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--full", action="store_true",
+                    help="the published widths instead of reduced()")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = replace(cfg.reduced(), head_dim=64)
+    params = M.init_params(cfg, args.seed, device=args.device)
+    reqs = WORKLOADS[args.workload](cfg.vocab_size)
+    # crop requests to the engine's context budget
+    for r in reqs:
+        r.input_len = min(r.input_len, args.cache_len // 2)
+        r.output_len = min(r.output_len, args.cache_len // 2)
+        r.prompt = r.prompt[:r.input_len]
+
+    sched = make_scheduler(args.scheduler, args.M, S=args.cache_len,
+                           replacement=args.replacement,
+                           use_histogram=args.histogram)
+    cm = TheoreticalCostModel(cfg, get_hardware("h100"))
+    eng = Engine(cfg, params, sched,
+                 EngineConfig(nslots=args.nslots, cache_len=args.cache_len,
+                              chunk=args.chunk, page_size=args.page_size,
+                              cache_policy=args.cache_policy),
+                 cost_model=cm, device=args.device)
+    res = eng.run(reqs)
+    s = res.metrics.summary()
+    log.info("device=%s scheduler=%s replacement=%s workload=%s",
+             args.device, args.scheduler, args.replacement, args.workload)
+    for k, v in s.items():
+        log.info("  %-16s %.6g", k, v)
+    log.info("wall time %.2fs; trie hits %d; sample output rid=0: %s",
+             res.wall_time, res.swap_stats["trie_hits"],
+             res.outputs.get(0, [])[:16])
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

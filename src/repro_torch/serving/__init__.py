@@ -1,0 +1,11 @@
+"""Serving layer: continuous-batching engine on the paged data plane."""
+from repro_torch.serving.engine import (  # noqa: F401
+    Engine,
+    EngineConfig,
+    EngineResult,
+    generate_reference,
+)
+from repro_torch.serving.paged_plane import (  # noqa: F401
+    build_paged_fns,
+    paged_supported,
+)

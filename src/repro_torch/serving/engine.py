@@ -1,0 +1,661 @@
+"""Continuous-batching serving engine on PyTorch — the paper's deployment
+path (Fig. 1) with the paged data plane on hand-written CUDA kernels.
+
+The engine drives the unified ``Scheduler`` (Algorithm 1) against the
+real model.  Memory accounting (the scheduler's M) is backed by a
+``PagedAllocator`` at page granularity: the scheduler charges
+page-rounded occupancy against the allocator's page-rounded capacity
+(``ceil(M/page_size)`` pages), so a schedule the control plane admits is
+allocator-feasible by construction.
+
+Data plane (``plane="paged"``, the only plane of this port): attention
+KV lives in shared per-layer page pools (``serving.paged_plane``);
+prefill writes K/V through the block table into owned pages with the
+fused paged-prefill kernel, and decode appends one row per slot and runs
+the paged flash-decoding kernel.  On top of the pooled pages:
+
+* *shared-prefix reuse* (always on) — full prompt pages are published
+  to the radix-trie prefix registry; a new request whose prompt matches
+  maps the SAME physical pages (longest run, partial hits included; or all-or-nothing
+  under ``prefix_lookup="exact"``) and skips their prefill compute.  A
+  copy-on-write guard makes a shared page private before any in-page
+  append.  Registry pages are reclaimed in the order of the pluggable
+  replacement policy (``cache_policy``: ``lru`` or ``break_even``).
+* *bucket ladder + packed prefill grid* — every prefill sub-chunk is
+  padded up to a fixed ladder of bucket sizes, and each round's tokens,
+  lengths and starts ride ONE ``(nslots, bucket+2)`` int32 upload.
+* *dirty-row block-table mirror* — a persistent host copy of the block
+  tables is rewritten row by row from the allocator's dirty set and
+  uploaded once per change.
+* *device-resident decode cohort* — while the set of decoding requests
+  is unchanged, a decode step's inputs are the previous step's device
+  outputs: nothing is uploaded.
+
+Preemption is ``preempt_mode="recompute"``: a victim's pages are freed
+and its re-admission pays a full refill prefill (§3).  Sampling is fused
+on the device; only ``(nslots,)`` int32 ids reach the host each step.
+
+Differences from the JAX engine (``repro.serving.engine``):
+
+* No step transactions.  No fault can occur on this path (fault
+  injection, swap and the host tier are not ported), so nothing rolls
+  back, and the pools are updated in place.  In JAX, rollback of device
+  state is free only because arrays are immutable; the port will need
+  to journal the pages a step writes when faults come (ROADMAP A5).
+* ``num_compiles`` is 0: PyTorch runs eagerly and the CUDA kernels are
+  built once per source.  ``warmup()`` loads the kernels and runs every
+  ladder bucket and the decode step once with inert inputs.
+* Settings of other planes or paths raise ``ValueError`` naming the
+  ROADMAP item that will port them.
+
+Correctness contract (tested against the JAX engine on the CPU, and
+against ``generate_reference`` on the card): scheduling, chunking,
+batching, padding, prefix sharing and preemption never change the
+generated tokens, and the ``BatchLog`` schedule is the JAX engine's.
+The allocator's invariants are checked after every step.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field, replace
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cost_model import BatchSpec, CostModel
+from repro_torch.core.invariants import invariant
+from repro_torch.core.kvcache import (PagedAllocator, attach_prefix_run,
+                                      chain_keys)
+from repro_torch.core.policies import make_replacement_policy
+from repro_torch.core.request import Request
+from repro_torch.core.scheduler import Scheduler
+from repro_torch.core.simulator import BatchLog, SimResult
+from repro_torch.core import stat_keys as SK
+from repro_torch.models import model as M
+from repro_torch.serving.paged_plane import build_paged_fns, init_pools
+
+
+@dataclass
+class EngineConfig:
+    nslots: int = 8
+    cache_len: int = 256          # per-request context capacity (tokens)
+    chunk: int = 64               # chunked-prefill chunk size
+    page_size: int = 16           # allocator granularity = KV page size
+    plane: str = "paged"          # the pooled paged plane; "batched" and
+    #                               "legacy" are not ported (ROADMAP A5)
+    prefix_lookup: Optional[str] = None  # "trie" | "exact"; None keeps
+    #                               the SchedulerConfig's choice, set it is
+    #                               written through (like page_size)
+    cache_policy: Optional[str] = None   # "lru" | "break_even"; None
+    #                               keeps the SchedulerConfig's choice
+    cache_demotion: Optional[bool] = None  # host demotion tier: not
+    #                               ported (ROADMAP A5); only None/False
+    faults: Optional[Any] = None    # fault injection: ROADMAP A5
+    straggler_factor: Optional[float] = None  # ROADMAP A5
+
+
+MIN_BUCKET = 8                    # smallest tail bucket of the ladder
+
+
+def _bucket_ladder(chunk: int) -> List[int]:
+    """Fixed padding targets: powers of two in [MIN_BUCKET, chunk), plus
+    ``chunk`` itself.  Every prefill sub-chunk is padded UP to the
+    smallest bucket that holds it."""
+    b = 1
+    while b < min(MIN_BUCKET, chunk):
+        b *= 2
+    ladder = []
+    while b < chunk:
+        ladder.append(b)
+        b *= 2
+    ladder.append(chunk)
+    return ladder
+
+
+def _validate(cfg: ModelConfig, ecfg: EngineConfig,
+              scheduler: Scheduler) -> None:
+    """Refuse every setting this port does not run yet, naming the
+    ROADMAP item that ports it."""
+    scfg = scheduler.cfg
+    if ecfg.plane != "paged":
+        raise ValueError(f"plane {ecfg.plane!r} is not ported (ROADMAP A5); "
+                         "use plane='paged'")
+    M.check_supported(cfg)         # the dense family only (A7-A10)
+    if scfg.preempt_mode != "recompute":
+        raise ValueError(f"preempt_mode {scfg.preempt_mode!r} is not ported "
+                         "(ROADMAP A5); use 'recompute'")
+    if scfg.partial_preempt:
+        raise ValueError("partial_preempt is not ported (ROADMAP A5)")
+    if scfg.cache_demotion:
+        raise ValueError("cache_demotion is not ported (ROADMAP A5)")
+    if scfg.faults is not None:
+        raise ValueError("fault injection is not ported (ROADMAP A5)")
+    if ecfg.straggler_factor is not None:
+        raise ValueError("straggler_factor is not ported (ROADMAP A5)")
+    if scfg.cache_policy not in ("lru", "break_even"):
+        raise ValueError(f"cache_policy {scfg.cache_policy!r}: this port "
+                         "serves 'lru' and 'break_even'")
+    if scfg.prefix_lookup not in ("trie", "exact"):
+        raise ValueError(f"unknown prefix_lookup {scfg.prefix_lookup!r}")
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, params: Any, scheduler: Scheduler,
+                 ecfg: Optional[EngineConfig] = None,
+                 cost_model: Optional[CostModel] = None, *,
+                 device: str = "cuda"):
+        # copy the config: a shared default (or caller-reused) instance
+        # must not be mutated
+        ecfg = replace(ecfg) if ecfg is not None else EngineConfig()
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.device = torch.device(device)
+        self.params = params
+        self.sched = scheduler
+        self.cost_model = cost_model
+        if scheduler.cost_model is None:
+            scheduler.cost_model = cost_model
+        scheduler.cfg.max_running = ecfg.nslots
+        # page-rounded capacity on both sides (ceil, not floor): the
+        # scheduler is told the granularity so both round identically
+        scheduler.cfg.page_size = ecfg.page_size
+        # EngineConfig overrides are written through to the scheduler so
+        # the control plane and this data plane agree on one policy
+        if ecfg.cache_policy is not None:
+            scheduler.cfg.cache_policy = ecfg.cache_policy
+        if ecfg.prefix_lookup is not None:
+            scheduler.cfg.prefix_lookup = ecfg.prefix_lookup
+        if ecfg.cache_demotion is not None:
+            scheduler.cfg.cache_demotion = ecfg.cache_demotion
+        if ecfg.faults is not None:
+            scheduler.cfg.faults = ecfg.faults
+        _validate(cfg, ecfg, scheduler)
+        self.allocator = PagedAllocator(
+            num_pages=max(1, -(-scheduler.cfg.M // ecfg.page_size)),
+            page_size=ecfg.page_size,
+            policy=make_replacement_policy(scheduler.cfg.cache_policy,
+                                           cost_model=cost_model,
+                                           M=scheduler.cfg.M))
+        pg = ecfg.page_size
+        self.max_pages = -(-ecfg.cache_len // pg)
+        self.k_pools, self.v_pools = init_pools(
+            cfg, self.allocator.num_pages, pg, device=device)
+        self._paged_prefill, self._paged_decode = build_paged_fns(cfg)
+        # shared-prefix bookkeeping: chained page keys per rid and the
+        # per-grant data-plane skip from a registry hit
+        self._page_keys_of: Dict[int, List[int]] = {}
+        self._page_tokens_of: Dict[int, List[Tuple[int, ...]]] = {}
+        self._prefix_skip: Dict[int, int] = {}
+        # (allocator version, device tensor) — see _block_tables_device
+        self._bt_cache: Optional[Tuple[int, torch.Tensor]] = None
+        # persistent host mirror of the device block tables, refreshed
+        # row by row from the allocator's dirty-rid delta
+        self._bt_host: Optional[np.ndarray] = None
+        # device-resident decode inputs keyed by cohort
+        self._decode_state: Optional[Dict[str, Any]] = None
+        self.free_slots: List[int] = list(range(ecfg.nslots - 1, -1, -1))
+        self.slot_of: Dict[int, int] = {}
+        self.token_ids: Dict[int, List[int]] = {}
+        self.outputs: Dict[int, List[int]] = {}
+        self.buckets = _bucket_ladder(ecfg.chunk)
+        # wall-clock attribution of the step (prefix attach / prefill
+        # compute / host->device uploads)
+        self.phase_stats: Dict[str, float] = {
+            SK.ATTACH_S: 0.0, SK.PREFILL_S: 0.0, SK.UPLOAD_S: 0.0}
+        # radix-trie attach outcomes: attaches that reused at least one
+        # page, and the tokens reused by attaches that matched only PART
+        # of the queried chain
+        self.swap_stats: Dict[str, float] = {
+            SK.TRIE_HITS: 0, SK.PARTIAL_HIT_TOKENS: 0}
+        # kernel-path step counts: prefill rounds and decode steps run
+        # (each runs every layer's paged kernel once)
+        self.prefill_rounds = 0
+        self.decode_steps = 0
+        self.now = 0.0
+        self.wall = 0.0
+        self.batch_logs: List[BatchLog] = []
+
+    # ------------------------------------------------------------------ #
+    def warmup(self) -> "Engine":
+        """Load the kernels and run every ladder bucket and the decode
+        step once with inert inputs (zero lengths, no active row):
+        outputs are discarded, the allocator's pages stay bit-identical
+        (inactive decode rows write only the sentinel page), and the step
+        counters do not move."""
+        ns, dev = self.ecfg.nslots, self.device
+        zi = torch.zeros((ns,), dtype=torch.int32, device=dev)
+        za = torch.zeros((ns,), dtype=torch.bool, device=dev)
+        bt = torch.zeros((ns, self.max_pages), dtype=torch.int32, device=dev)
+        for b in self.buckets:
+            self._paged_prefill(self.params, self.k_pools, self.v_pools,
+                                torch.zeros((ns, b), dtype=torch.int32,
+                                            device=dev), zi, zi, bt)
+        self._paged_decode(self.params, self.k_pools, self.v_pools, zi, zi,
+                           bt, za)
+        return self
+
+    @property
+    def num_compiles(self) -> int:
+        """Always 0: nothing is traced or compiled per signature (the
+        CUDA kernels are built once per source, outside any step)."""
+        return 0
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"chunk step {n} exceeds ladder {self.buckets}")
+
+    # ------------------------------------------------------------------ #
+    def submit(self, r: Request) -> None:
+        if r.prompt is None:
+            raise ValueError("engine requests need real token ids")
+        if len(r.prompt) != r.input_len:
+            raise ValueError(
+                f"request {r.rid}: prompt length {len(r.prompt)} != "
+                f"input_len {r.input_len}")
+        if r.peak_kv > self.ecfg.cache_len:
+            raise ValueError(
+                f"request {r.rid} peak KV {r.peak_kv} > cache_len")
+        self.token_ids[r.rid] = list(r.prompt)
+        self.outputs[r.rid] = []
+        self.sched.add_request(r)
+
+    # ------------------------------------------------------------------ #
+    def _claim_slot(self, rid: int) -> int:
+        slot = self.free_slots.pop()
+        self.slot_of[rid] = slot
+        return slot
+
+    def _release(self, rid: int) -> None:
+        slot = self.slot_of.pop(rid, None)
+        if slot is not None:
+            self.free_slots.append(slot)
+            if self._bt_host is not None:
+                # the freed rid won't be in slot_of at the next delta
+                # rebuild, so its row must be cleared here
+                self._bt_host[slot, :] = 0
+        self.allocator.free(rid)  # repro: allow-unpriced-mutation(releasing pages moves no bytes; the preemption decision that led here was already charged - refill compute - by the scheduler)
+
+    # --- shared-prefix reuse -------------------------------------------- #
+    def _page_keys(self, r: Request) -> List[int]:
+        keys = self._page_keys_of.get(r.rid)
+        if keys is None:
+            keys = chain_keys(r.prompt, self.ecfg.page_size)
+            self._page_keys_of[r.rid] = keys
+        return keys
+
+    def _page_tokens(self, r: Request, n: int) -> List[Tuple[int, ...]]:
+        """Token ids of the first n full prompt pages (the registry's
+        collision-verification payload), memoized per rid."""
+        toks = self._page_tokens_of.get(r.rid)
+        if toks is None or len(toks) < n:
+            pg = self.ecfg.page_size
+            toks = [tuple(r.prompt[i * pg:(i + 1) * pg]) for i in range(n)]
+            self._page_tokens_of[r.rid] = toks
+        return toks[:n]
+
+    def _attach_prefix(self, r: Request, c: int) -> int:
+        """At a fresh claim, map the LONGEST cached run matching the
+        prompt's leading full pages into r's block table and return the
+        number of tokens whose prefill compute is SKIPPED.  At least one
+        granted token is always computed (the emitting batch needs real
+        logits), and only pages wholly inside this grant qualify."""
+        pg = self.ecfg.page_size
+        cap = min(r.input_len - 1, c - 1) // pg
+        if pg <= 1 or cap <= 0:
+            return 0
+        attached, _ = attach_prefix_run(
+            self.allocator, r.rid, self._page_keys(r)[:cap],
+            self._page_tokens(r, cap),
+            exact=self.sched.cfg.prefix_lookup == "exact")
+        if attached:
+            self.swap_stats[SK.TRIE_HITS] += 1
+            if attached < cap * pg:
+                self.swap_stats[SK.PARTIAL_HIT_TOKENS] += attached
+        return attached
+
+    def _register_prefix(self, r: Request, m_new: int) -> None:
+        """Publish the now-complete full PROMPT pages to the registry
+        (generated-token pages are never shared)."""
+        n = min(m_new, r.input_len) // self.ecfg.page_size
+        if n > 0 and self.allocator.has(r.rid):
+            # repro: allow-unpriced-mutation(registration moves no bytes - the pages already live on device, owned by rid)
+            self.allocator.register_prefix(r.rid, self._page_keys(r)[:n],
+                                           self._page_tokens(r, n))
+
+    def _cow_guard(self, rid: int, pos: int) -> None:
+        """Copy-on-write: an in-page append at token position ``pos``
+        writes into an existing page — remap + copy it first if shared
+        or registry-pinned.  The prefill kernel relies on this: it reads
+        shared pages and writes only private ones."""
+        pg = self.ecfg.page_size
+        if pos % pg == 0:
+            return                      # boundary: a fresh private page
+        moved = self.allocator.ensure_private(rid, pos // pg)  # repro: allow-unpriced-mutation(CoW remap is a device-side page copy with no host traffic; its cost rides the batch_time)
+        if moved is not None:
+            old, new = moved
+            self.k_pools[:, new] = self.k_pools[:, old]
+            self.v_pools[:, new] = self.v_pools[:, old]
+
+    def _block_tables_device(self) -> torch.Tensor:
+        """Device-side (nslots, max_pages) int32 block tables, cached
+        against the allocator's mutation version; on a bump only the
+        rows of rids whose page list changed (``consume_dirty``) are
+        rewritten in the host mirror, which then ships in ONE upload."""
+        v = self.allocator.version
+        if self._bt_cache is not None and self._bt_cache[0] == v:
+            return self._bt_cache[1]
+        t0 = time.perf_counter()
+        if self._bt_host is None:
+            self._bt_host = np.zeros((self.ecfg.nslots, self.max_pages),
+                                     np.int32)
+            self.allocator.consume_dirty()
+            dirty = set(self.slot_of)          # first build: all rows
+        else:
+            dirty = self.allocator.consume_dirty()
+        for rid in dirty:
+            slot = self.slot_of.get(rid)
+            if slot is None:
+                continue     # freed rid: _release already zeroed its row
+            row = self._bt_host[slot]
+            row[:] = 0
+            if self.allocator.has(rid):
+                pages = self.allocator.table(rid).pages
+                row[:len(pages)] = pages
+        # copy: the upload must not alias the mirror edited in place
+        self._bt_cache = (v, torch.from_numpy(self._bt_host.copy()).to(
+            self.device))
+        self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+        return self._bt_cache[1]
+
+    # ------------------------------------------------------------------ #
+    def _run_prefill_rounds(self, plans, emits, step_fn) -> Dict[int, int]:
+        """Bucketed round loop: one ``step_fn(toks, lens, starts)`` call
+        per round over the full slot grid, sub-chunks padded to the
+        bucket ladder.  Only (nslots,) sampled token ids are fetched, and
+        only on rounds where some emitting request finishes its batch
+        allotment.  ``plans`` rows are [request, slot, cursor, remaining]."""
+        nslots = self.ecfg.nslots
+        final_tok: Dict[int, int] = {}
+        while True:
+            steps = {p[1]: min(self.ecfg.chunk, p[3])
+                     for p in plans if p[3] > 0}
+            if not steps:
+                break
+            bucket = self._bucket_for(max(steps.values()))
+            toks = np.zeros((nslots, bucket), np.int32)
+            lens = np.zeros((nslots,), np.int32)
+            starts = np.zeros((nslots,), np.int32)
+            finishing: List[Tuple[Request, int]] = []
+            for p in plans:
+                r, slot, cursor, rem = p
+                if rem <= 0:
+                    continue
+                sc = steps[slot]
+                toks[slot, :sc] = self.token_ids[r.rid][cursor:cursor + sc]
+                lens[slot] = sc
+                starts[slot] = cursor
+                p[2] += sc
+                p[3] -= sc
+                if p[3] == 0:
+                    finishing.append((r, slot))
+            tok_ids = step_fn(toks, lens, starts)
+            if any(emits[r.rid] for r, _ in finishing):
+                host = tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
+                for r, slot in finishing:
+                    if emits[r.rid]:
+                        final_tok[r.rid] = int(host[slot])
+        return final_tok
+
+    def _run_prefills_paged(self, prefill_items) -> Dict[int, int]:
+        """The round loop over the fused paged prefill.  A grant's
+        leading registry-shared tokens (``_prefix_skip``) are satisfied by
+        page mapping and never computed (the cursor starts past them)."""
+        plans = []
+        for r, c in prefill_items:
+            skip = self._prefix_skip.pop(r.rid, 0)
+            plans.append([r, self.slot_of[r.rid], r.m + skip, c - skip])
+        emits = {r.rid: r.m + c == r.target_context for r, c in prefill_items}
+        block_tables = self._block_tables_device()
+
+        def step(toks, lens, starts):
+            # one coalesced upload per round: [toks | lens | starts]
+            t0 = time.perf_counter()
+            grid = torch.from_numpy(np.concatenate(
+                [toks, lens[:, None], starts[:, None]], axis=1)).to(
+                    self.device)
+            self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+            self.prefill_rounds += 1
+            return self._paged_prefill(self.params, self.k_pools,
+                                       self.v_pools, grid[:, :-2],
+                                       grid[:, -1], grid[:, -2],
+                                       block_tables)
+
+        return self._run_prefill_rounds(plans, emits, step)
+
+    def _run_decodes_paged(self, decode_items) -> np.ndarray:
+        """One fused decode step over all slots against the pooled KV.
+
+        Steady-state decode uploads NOTHING: the inputs of step N+1 are
+        step N's own device outputs — last step's argmax ids ARE this
+        step's tokens, and ctx advances by the active mask — so a stable
+        cohort runs entirely device-resident.  The cohort key is (rid,
+        slot, m, len(token_ids)) per row: any admission, finish,
+        preemption or recompute-refill perturbs it and forces one packed
+        re-upload.  Non-cohort rows carry garbage on a hit, harmlessly:
+        inactive rows write only the sentinel page and their outputs are
+        never read."""
+        nslots = self.ecfg.nslots
+        key = tuple(sorted(
+            (r.rid, self.slot_of[r.rid], r.m, len(self.token_ids[r.rid]))
+            for r, _ in decode_items))
+        st = self._decode_state
+        t0 = time.perf_counter()
+        if st is not None and st["key"] == key:
+            toks_dev, ctx_dev = st["toks"], st["ctx"]
+            active_dev, ones = st["active"], st["ones"]
+        else:
+            packed = np.zeros((3, nslots), np.int32)   # toks, ctx, active
+            for r, _ in decode_items:
+                slot = self.slot_of[r.rid]
+                packed[:, slot] = (self.token_ids[r.rid][-1], r.m, 1)
+            dev = torch.from_numpy(packed).to(self.device)  # ONE upload
+            toks_dev, ctx_dev, ones = dev[0], dev[1], dev[2]
+            active_dev = ones.bool()
+        self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+        self.decode_steps += 1
+        tok_ids = self._paged_decode(
+            self.params, self.k_pools, self.v_pools, toks_dev, ctx_dev,
+            self._block_tables_device(), active_dev)
+        nxt = tuple(sorted(
+            (r.rid, self.slot_of[r.rid], r.m + 1,
+             len(self.token_ids[r.rid]) + 1) for r, _ in decode_items))
+        self._decode_state = {"key": nxt, "toks": tok_ids,
+                              "ctx": ctx_dev + ones,
+                              "active": active_dev, "ones": ones}
+        return tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
+
+    # ------------------------------------------------------------------ #
+    def step(self) -> int:
+        """Run one scheduler batch.  Returns the number of items
+        executed."""
+        if not self.sched.has_work():
+            return 0
+        return self._step_attempt()
+
+    def _step_attempt(self) -> int:
+        """Preempt, claim/attach/allocate, price, then run the batch's
+        prefill rounds and its decode step."""
+        t0 = time.perf_counter()
+        self.allocator.now = self.now   # replacement-policy clock
+        batch = self.sched.get_next_batch()
+        invariant(not batch.partial_preempted,
+                  "partial preemption is not ported")
+        for victim in batch.preempted:
+            invariant(not victim.suspended, (victim.rid, "swap victim"))
+            self._release(victim.rid)
+        if not batch.items:
+            self.wall += time.perf_counter() - t0
+            return 0
+
+        # classify + virtual-time the batch up front
+        spec = BatchSpec()
+        prefill_items: List[Tuple[Request, int]] = []
+        decode_items: List[Tuple[Request, int]] = []
+        for r, c in batch.items:
+            invariant(not r.suspended and r.tail_suspended_m == 0,
+                      (r.rid, "suspended request in a recompute engine"))
+            if r.generated > 0 and c == 1 and r.remaining_prefill == 1:
+                decode_items.append((r, c))
+                spec.decodes.append((c, r.m))
+            else:
+                prefill_items.append((r, c))
+                spec.prefills.append((c, r.m))
+
+        # claim slots + control-plane allocation BEFORE pricing the batch
+        t_attach = time.perf_counter()
+        for r, c in prefill_items:
+            if r.rid not in self.slot_of:
+                self._claim_slot(r.rid)
+            skip = 0
+            if r.m == 0 and not self.allocator.has(r.rid):
+                skip = self._attach_prefix(r, c)
+            self._prefix_skip[r.rid] = skip
+            self.allocator.allocate(r.rid, c - skip)
+            self._cow_guard(r.rid, r.m + skip)
+        self.phase_stats[SK.ATTACH_S] += time.perf_counter() - t_attach
+        for r, _ in decode_items:
+            self.allocator.allocate(r.rid, 1)
+            self._cow_guard(r.rid, r.m)
+
+        dt = self.cost_model.batch_time(spec) if self.cost_model else 0.0
+        self.now += dt
+
+        # ---- prefills (one packed bucketed call per round) -------------- #
+        if prefill_items:
+            t_pf = time.perf_counter()
+            final_tok = self._run_prefills_paged(prefill_items)
+            self.phase_stats[SK.PREFILL_S] += time.perf_counter() - t_pf
+            for r, c in prefill_items:
+                m_new = r.m + c
+                generated = r.advance(c, self.now)
+                self._register_prefix(r, m_new)
+                if generated:
+                    tok = final_tok[r.rid]
+                    self.outputs[r.rid].append(tok)
+                    if r.finished:
+                        self.sched.complete(r)
+                        self._release(r.rid)
+                    else:
+                        self.token_ids[r.rid].append(tok)
+
+        # ---- decodes (one fused step over all slots) -------------------- #
+        if decode_items:
+            host = self._run_decodes_paged(decode_items)
+            for r, c in decode_items:
+                slot = self.slot_of[r.rid]
+                r.advance(c, self.now)
+                tok = int(host[slot])
+                self.outputs[r.rid].append(tok)
+                if r.finished:
+                    self.sched.complete(r)
+                    self._release(r.rid)
+                else:
+                    self.token_ids[r.rid].append(tok)
+
+        wall_s = time.perf_counter() - t0
+        self.wall += wall_s
+        self.allocator.check_invariants()
+        self._check_index_sync(batch)
+        kv_used = sum(r.m for r in self.sched.running)
+        self.batch_logs.append(BatchLog(
+            t_start=self.now - dt, t_end=self.now,
+            num_prefill=len(spec.prefills), num_decode=len(spec.decodes),
+            tokens=spec.total_tokens, kv_used=kv_used,
+            preempted=len(batch.preempted), swapped_out=0, swapped_in=0,
+            swap_s=0.0, wall_s=wall_s,
+            pages_used=self.allocator.table_pages))
+        return len(batch.items)
+
+    def _check_index_sync(self, batch) -> None:
+        """The allocator's token count is the position book — it must
+        track r.m exactly."""
+        for r, _ in batch.items:
+            if r.finished or r.rid not in self.slot_of:
+                continue
+            nt = (self.allocator.table(r.rid).num_tokens
+                  if self.allocator.has(r.rid) else 0)
+            invariant(nt == r.m, (r.rid, nt, r.m))
+
+    # ------------------------------------------------------------------ #
+    def run(self, requests: Sequence[Request],
+            max_batches: int = 100_000) -> "EngineResult":
+        pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
+        i = 0
+        for _ in range(max_batches):
+            while i < len(pending) and pending[i].arrival <= self.now + 1e-12:
+                self.submit(pending[i])
+                i += 1
+            if not self.sched.has_work():
+                if i >= len(pending):
+                    break
+                self.now = pending[i].arrival
+                continue
+            executed = self.step()
+            if executed == 0:
+                if i < len(pending):     # blocked until the next arrival
+                    self.now = max(self.now, pending[i].arrival)
+                    continue
+                raise RuntimeError(
+                    "engine deadlock: work remains but nothing schedulable")
+        else:
+            raise RuntimeError("engine did not converge")
+        sim = SimResult(requests=list(requests), batches=self.batch_logs,
+                        num_preemptions=self.sched.num_preemptions,
+                        num_partial_preempts=self.sched.num_partial_preempts,
+                        num_swaps=self.sched.num_swaps)
+        # repro: allow-async-drain(no transfer is ever in flight here - swap, suspend and the host demotion tier are not ported, so there is nothing to drain)
+        return EngineResult(outputs=dict(self.outputs), metrics=sim,
+                            wall_time=self.wall,
+                            swap_stats=dict(self.swap_stats),
+                            num_compiles=self.num_compiles,
+                            phase_stats=dict(self.phase_stats))
+
+
+@dataclass
+class EngineResult:
+    outputs: Dict[int, List[int]]
+    metrics: SimResult
+    wall_time: float
+    swap_stats: Dict[str, float] = field(default_factory=dict)
+    num_compiles: int = 0
+    # wall-clock attribution (attach_s / prefill_s / upload_s)
+    phase_stats: Dict[str, float] = field(default_factory=dict)
+
+
+# --------------------------------------------------------------------- #
+# reference generation (no scheduler) — the parity oracle
+# --------------------------------------------------------------------- #
+
+
+@torch.no_grad()
+def generate_reference(cfg: ModelConfig, params: Any, prompt: Sequence[int],
+                       num_tokens: int, *, cache_len: int,
+                       device: str = "cuda") -> List[int]:
+    """Greedy generation of one request: full prefill + sequential decode
+    through the plain attention of ``models`` (no pages, no kernels).
+    Sampling is on the device; only token ids reach the host."""
+    vocab = cfg.vocab_size
+    toks = torch.tensor([list(prompt)], dtype=torch.long, device=device)
+    logits, cache = M.prefill(cfg, params, {"tokens": toks},
+                              cache_len=cache_len)
+    cur = torch.argmax(logits[:, :vocab], dim=-1)
+    out: List[int] = [int(cur[0])]
+    for _ in range(num_tokens - 1):
+        logits, cache = M.decode_step(cfg, params, cur, cache)
+        cur = torch.argmax(logits[:, :vocab], dim=-1)
+        out.append(int(cur[0]))
+    return out

@@ -1,0 +1,132 @@
+"""Pooled-KV model steps for the engine's ``plane="paged"``.
+
+Attention KV lives in per-layer page pools stacked over layers,
+``(L, num_pages + 1, page_size, Hkv, D)``; a request's pages are named
+by the ``PagedAllocator`` block table, passed in as a ``(B, max_pages)``
+int32 tensor.  The last page of every pool is a SENTINEL that no block
+table names: the decode append aims the rows of inactive slots at it,
+which is how this port gets the JAX version's out-of-range "drop" write
+without a boolean mask (a host sync) and without clamped indices (which
+would make inactive rows collide with live rows' slots).
+
+* ``prefill``: the chunk's K/V are projected, then ONE fused kernel per
+  layer — ``kernels.paged_attention.ops.paged_prefill`` — writes the
+  chunk's real rows through the block table into the pools (padded rows
+  write nothing) and attends causally over [own pages ++ the chunk].
+* ``decode``: the new token's K/V row is written into its page (or the
+  sentinel), then ``ops.paged_decode`` flash-decodes over the pages.
+
+A Python loop over the stacked layer params replaces ``lax.scan``.  The
+pools are updated IN PLACE (the JAX steps return new pools): the engine
+holds one copy of them.  Sampling is fused: greedy argmax over the real
+vocabulary on the device, and only ``(B,)`` int32 ids are returned.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention.ref import scatter_rows
+from repro_torch.models import attention as attn
+from repro_torch.models import model as M
+from repro_torch.models.common import gated_mlp, rms_norm
+
+#: pages every pool carries beyond the allocator's: the drop target
+SENTINEL_PAGES = 1
+
+
+def paged_supported(cfg: ModelConfig) -> bool:
+    """True iff the family's attention KV is unbounded dense (the only
+    state worth paging)."""
+    return (cfg.num_heads > 0 and not cfg.window
+            and cfg.family not in ("ssm", "hybrid"))
+
+
+def init_pools(cfg: ModelConfig, num_pages: int, page_size: int, *,
+               device: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed K and V pools for ``num_pages`` allocator pages plus the
+    sentinel: ``(L, num_pages + SENTINEL_PAGES, page, Hkv, D)``."""
+    shape = (cfg.num_layers, num_pages + SENTINEL_PAGES, page_size,
+             cfg.num_kv_heads, cfg.head_dim_)
+    dtype = getattr(torch, cfg.dtype)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def build_paged_fns(cfg: ModelConfig) -> Tuple[Callable, Callable]:
+    """Returns ``(prefill_fn, decode_fn)`` over pooled KV.
+
+    prefill_fn(params, k_pools, v_pools, tokens (B, bucket),
+               starts (B,), lengths (B,), block_tables (B, maxp))
+        -> greedy ids (B,) int32
+    decode_fn(params, k_pools, v_pools, tokens (B,), ctx (B,),
+              block_tables (B, maxp), active (B,) bool)
+        -> greedy ids (B,) int32
+
+    Integer inputs are int32 on the pools' device; the pools are
+    updated in place.
+    """
+    if not paged_supported(cfg):
+        raise ValueError("paged pools need unbounded dense attention, "
+                         f"got {cfg.family!r}")
+    M.check_supported(cfg)
+    vocab = cfg.vocab_size
+
+    def _finish(params: Any, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        logits = M._logits(cfg, params, x)
+        return torch.argmax(logits[:, :vocab], dim=-1).to(torch.int32)
+
+    def prefill_fn(params, k_pools, v_pools, tokens, starts, lengths,
+                   block_tables):
+        B, c = tokens.shape
+        starts = starts.contiguous()
+        lengths = lengths.contiguous()
+        positions = starts[:, None] + torch.arange(c, device=tokens.device,
+                                                   dtype=torch.int32)
+        x = M._embed(cfg, params, tokens.long())
+        for l in range(cfg.num_layers):
+            lp = M.layer_params(params, l)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = attn._project_qkv(lp["attn"], cfg, h, positions)
+            out = pa_ops.paged_prefill(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                k_pools[l], v_pools[l], block_tables, starts, lengths)
+            x = x + out.reshape(B, c, cfg.q_dim) @ lp["attn"]["wo"]
+            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + gated_mlp(lp["mlp"], h)
+        last = torch.clamp(lengths.long() - 1, min=0)
+        x_last = x[torch.arange(B, device=x.device), last]
+        return _finish(params, x_last)
+
+    def decode_fn(params, k_pools, v_pools, tokens, ctx, block_tables,
+                  active):
+        B = tokens.shape[0]
+        P1, pg = k_pools.shape[1], k_pools.shape[2]
+        maxp = block_tables.shape[1]
+        ctx = ctx.long()
+        page_idx = torch.gather(
+            block_tables.long(), 1,
+            torch.clamp(ctx // pg, 0, maxp - 1)[:, None])[:, 0]
+        dest = torch.where(active, page_idx * pg + ctx % pg,
+                           (P1 - SENTINEL_PAGES) * pg)
+        # write-then-attend: context_lens = ctx + 1 includes the new token
+        ctx_lens = (ctx + 1).to(torch.int32)
+        x = M._embed(cfg, params, tokens.long()[:, None])
+        for l in range(cfg.num_layers):
+            lp = M.layer_params(params, l)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = attn._project_qkv(lp["attn"], cfg, h, ctx[:, None])
+            scatter_rows(k_pools[l], dest, k[:, 0])
+            scatter_rows(v_pools[l], dest, v[:, 0])
+            out = pa_ops.paged_decode(q[:, 0].contiguous(), k_pools[l],
+                                      v_pools[l], block_tables, ctx_lens)
+            x = x + (out.reshape(B, cfg.q_dim) @ lp["attn"]["wo"])[:, None]
+            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + gated_mlp(lp["mlp"], h)
+        return _finish(params, x[:, 0])
+
+    return prefill_fn, decode_fn

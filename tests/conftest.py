@@ -18,6 +18,10 @@ def pytest_configure(config):
         "slow: heaviest cross-plane parity tests — the tier-1 suite "
         "(plain pytest) always runs them; scripts/check.sh skips them "
         "by default (CHECK_FULL=1 opts back in)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card with nvcc (the port's CUDA kernels "
+        "have no CPU mode); skips with a reason where there is none")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,251 @@
+"""The port's ``Engine(..., device="cpu")`` against the JAX ``Engine``
+(``plane="paged"``) on the same workloads: token-identical outputs, the
+same ``BatchLog`` schedule (every field but the measured ``wall_s``),
+the same preemption and prefix-hit counts, and tokens equal to both
+packages' ``generate_reference``.  Requests are built from one numpy
+spec into each package's own ``Request``."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import Request as JRequest
+from repro.core import TheoreticalCostModel as JCost
+from repro.core import get_hardware as j_hw
+from repro.core import make_scheduler as j_sched
+from repro.data.workloads import shared_prefix as j_shared_prefix
+from repro.serving import Engine as JEngine
+from repro.serving import EngineConfig as JEngineConfig
+from repro.serving import generate_reference as j_reference
+from repro_torch.core import Request as TRequest
+from repro_torch.core import TheoreticalCostModel as TCost
+from repro_torch.core import get_hardware as t_hw
+from repro_torch.core import make_scheduler as t_sched
+from repro_torch.serving import Engine as TEngine
+from repro_torch.serving import EngineConfig as TEngineConfig
+from repro_torch.serving import generate_reference as t_reference
+
+from _torch_parity import params_pair, reduced_pair
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CACHE_LEN = 64
+
+
+def requests_spec(vocab, n=5, seed=0, max_i=25, max_o=9):
+    """``tests/test_paged_plane.requests_for``'s mixed lengths, as
+    (rid, input_len, output_len, arrival, prompt) rows."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        I, O = int(rs.randint(4, max_i)), int(rs.randint(3, max_o))
+        out.append((i, I, O, 0.0, rs.randint(0, vocab, size=I).tolist()))
+    return out
+
+
+def shared_prefix_spec(vocab):
+    return [(r.rid, r.input_len, r.output_len, r.arrival, list(r.prompt))
+            for r in j_shared_prefix(n=8, input_len=32, prefix_frac=0.75,
+                                     output_len=6, vocab=vocab,
+                                     stagger=1e-6, seed=3)]
+
+
+#: workload -> (spec builder, scheduler/engine settings, expectations)
+WORKLOADS = {
+    "mixed_page8": (lambda v: requests_spec(v),
+                    dict(M_kv=60, nslots=4, page_size=8), {}),
+    "shared_prefix_trie": (shared_prefix_spec,
+                           dict(M_kv=400, nslots=8, page_size=8, S=512,
+                                cache_policy="break_even"),
+                           {"trie_hits": 7}),
+    "churn_small_M": (lambda v: requests_spec(v, n=8, seed=3, max_i=30,
+                                              max_o=10),
+                      dict(M_kv=40, nslots=4, page_size=8),
+                      {"preemptions": 1}),
+    "mixed_page16": (lambda v: requests_spec(v, n=6, seed=5, max_i=30),
+                     dict(M_kv=96, nslots=4, page_size=16,
+                          prefix_lookup="exact"), {}),
+}
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg, tcfg = reduced_pair()
+    jp, tp = params_pair(jcfg)
+    return jcfg, tcfg, jp, tp
+
+
+def _engine(pkg, models, M_kv, nslots, page_size, S=128, **ekw):
+    jcfg, tcfg, jp, tp = models
+    if pkg == "jax":
+        sched = j_sched("vllm", M_kv, S=S, replacement="srf")
+        return JEngine(jcfg, jp, sched,
+                       JEngineConfig(nslots=nslots, cache_len=CACHE_LEN,
+                                     chunk=16, plane="paged",
+                                     page_size=page_size, **ekw),
+                       cost_model=JCost(jcfg, j_hw("tpu_v5e")))
+    sched = t_sched("vllm", M_kv, S=S, replacement="srf")
+    return TEngine(tcfg, tp, sched,
+                   TEngineConfig(nslots=nslots, cache_len=CACHE_LEN,
+                                 chunk=16, plane="paged",
+                                 page_size=page_size, **ekw),
+                   cost_model=TCost(tcfg, t_hw("tpu_v5e")), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def runs(models):
+    """Each workload run once per package (a JAX engine compiles for
+    seconds; every test below reads these results)."""
+    out = {}
+    vocab = models[0].vocab_size
+    for name, (spec_fn, kw, _) in WORKLOADS.items():
+        spec = spec_fn(vocab)
+        res = {}
+        for pkg, R in (("jax", JRequest), ("torch", TRequest)):
+            reqs = [R(rid=i, input_len=I, output_len=O, arrival=a,
+                      prompt=list(p)) for i, I, O, a, p in spec]
+            res[pkg] = _engine(pkg, models, **kw).run(reqs)
+        out[name] = (spec, res)
+    return out
+
+
+def _strip(b):
+    d = dataclasses.asdict(b)
+    d.pop("wall_s")
+    return d
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_outputs_identical_to_jax_engine(runs, name):
+    _, res = runs[name]
+    assert res["torch"].outputs == res["jax"].outputs
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_batch_schedule_identical_to_jax_engine(runs, name):
+    _, res = runs[name]
+    jb, tb = res["jax"].metrics.batches, res["torch"].metrics.batches
+    assert len(tb) == len(jb)
+    assert [_strip(b) for b in tb] == [_strip(b) for b in jb]
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_preemption_and_prefix_counts_identical(runs, name):
+    _, res = runs[name]
+    j, t = res["jax"], res["torch"]
+    assert t.metrics.num_preemptions == j.metrics.num_preemptions
+    for key in ("trie_hits", "partial_hit_tokens"):
+        assert t.swap_stats[key] == j.swap_stats[key], key
+    want = WORKLOADS[name][2]
+    assert t.metrics.num_preemptions >= want.get("preemptions", 0)
+    assert t.swap_stats["trie_hits"] >= want.get("trie_hits", 0)
+    assert t.num_compiles == 0
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_tokens_equal_both_references(runs, models, name):
+    jcfg, tcfg, jp, tp = models
+    spec, res = runs[name]
+    for rid, _, O, _, prompt in spec:
+        want = t_reference(tcfg, tp, prompt, O, cache_len=CACHE_LEN,
+                           device="cpu")
+        assert res["torch"].outputs[rid] == want, rid
+        assert j_reference(jcfg, jp, prompt, O, cache_len=CACHE_LEN) == want
+
+
+@pytest.mark.parametrize("ekw,skw,item", [
+    (dict(plane="batched"), {}, "A5"),
+    (dict(cache_demotion=True), {}, "A5"),
+    (dict(faults=object()), {}, "A5"),
+    (dict(straggler_factor=3.0), {}, "A5"),
+    (dict(plane="legacy"), {}, "A5"),
+    ({}, dict(preempt_mode="swap"), "A5"),
+    ({}, dict(preempt_mode="auto"), "A5"),
+    ({}, dict(partial_preempt=True), "A5"),
+])
+def test_unported_settings_raise(models, ekw, skw, item):
+    _, tcfg, _, tp = models
+    sched = t_sched("vllm", 64, S=128, page_size=8, **skw)
+    with pytest.raises(ValueError, match=item):
+        TEngine(tcfg, tp, sched, TEngineConfig(page_size=8, **ekw),
+                device="cpu")
+
+
+@pytest.mark.parametrize("over,item", [
+    (dict(family="moe", num_experts=4, experts_per_token=2, moe_d_ff=32),
+     "A7"),
+    (dict(window=32), "A8"),
+])
+def test_non_dense_family_raises(models, over, item):
+    _, tcfg, _, tp = models
+    sched = t_sched("vllm", 64, S=128)
+    with pytest.raises(ValueError, match=item):
+        TEngine(dataclasses.replace(tcfg, **over), tp, sched, device="cpu")
+
+
+def test_warmup_leaves_allocator_pages_untouched(models):
+    eng = _engine("torch", models, M_kv=60, nslots=4, page_size=8)
+    n = eng.allocator.num_pages
+    eng.k_pools[:, :n].normal_()
+    before = eng.k_pools[:, :n].clone(), eng.v_pools[:, :n].clone()
+    eng.warmup()
+    assert torch.equal(eng.k_pools[:, :n], before[0])
+    assert torch.equal(eng.v_pools[:, :n], before[1])
+    assert (eng.prefill_rounds, eng.decode_steps) == (0, 0)
+
+
+def test_cow_copy_preserves_owner_pages(models):
+    """Forcing a write into a registry-pinned page copies it, leaving the
+    registry page (and every sharer) intact."""
+    eng = _engine("torch", models, M_kv=400, nslots=8, page_size=8, S=512)
+    r = TRequest(rid=0, input_len=16, output_len=2, arrival=0.0,
+                 prompt=list(range(100, 116)))
+    eng.submit(r)
+    eng.step()                 # full prefill: both prompt pages register
+    pinned = eng.allocator.table(0).pages[1]
+    old = eng.k_pools[:, pinned].clone()
+    eng._cow_guard(0, 12)      # mid-page write landing in a pinned page
+    assert eng.allocator.stats["cow_copies"] == 1
+    new_page = eng.allocator.table(0).pages[1]
+    assert new_page != pinned
+    assert torch.equal(eng.k_pools[:, new_page], old)
+    assert torch.equal(eng.k_pools[:, pinned], old)
+    eng.allocator.check_invariants()
+
+
+def test_step_counters_count_plane_calls(models):
+    """``prefill_rounds`` / ``decode_steps`` count the paged plane's
+    prefill and decode calls — each runs every layer's kernel once, which
+    is what the smoke script holds the kernels' launch counts against."""
+    eng = _engine("torch", models, M_kv=60, nslots=4, page_size=8)
+    calls = {"prefill": 0, "decode": 0}
+
+    def counted(kind, fn):
+        def wrapped(*a):
+            calls[kind] += 1
+            return fn(*a)
+        return wrapped
+
+    eng._paged_prefill = counted("prefill", eng._paged_prefill)
+    eng._paged_decode = counted("decode", eng._paged_decode)
+    spec = requests_spec(models[1].vocab_size, n=4, seed=1)
+    eng.run([TRequest(rid=i, input_len=I, output_len=O, arrival=a,
+                      prompt=p) for i, I, O, a, p in spec])
+    assert calls == {"prefill": eng.prefill_rounds,
+                     "decode": eng.decode_steps}
+    assert eng.prefill_rounds > 0 and eng.decode_steps > 0
+
+
+def test_serve_cli_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--workload", "shared_prefix"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "trie hits" in proc.stderr
