@@ -4,9 +4,9 @@
 Phases — each raises on failure, so any failure exits non-zero:
 
 1. Print the card (``nvidia-smi`` name and power limit) and build every
-   CUDA kernel of the serving path from ``src/repro_torch`` with ``nvcc``
-   (one process per source, in parallel), printing the build time and
-   ptxas's register / shared-memory report.
+   CUDA kernel of the port from ``src/repro_torch`` with ``nvcc`` (one
+   process per source, all three in parallel), printing the build time
+   and ptxas's register / shared-memory report.
 2. Hold each kernel against its plain PyTorch version on the card: the
    paged decode (B1) and the fused paged prefill (B2), at the serving
    path's shapes (TinyLlama: Hkv=4, G=8, D=64, page 16) and over a sweep
@@ -30,6 +30,26 @@ Phases — each raises on failure, so any failure exits non-zero:
    card could take (bytes over 3.35 TB/s or operations over the peak
    rate of the inputs' type, whichever is larger; K/V bytes count each
    distinct pool slot read once, however many rows map its page).
+5. Hold the full-sequence flash-attention kernel (B3) against its plain
+   version: the sweep of ``tests/test_kernels.py`` (fp32 at 2e-5, bf16
+   at 2e-2), windows 16 and 64, a 32-token prefix, ``causal=False`` on a
+   ragged S, and both models' full widths (TinyLlama H=32/Hkv=4,
+   SmolLM H=15/Hkv=5) at S=512.
+6. Full prefill at full width: TinyLlama-1.1B in fp32 (random weights
+   from seed 0), ``prefill(impl="flash")`` against ``impl="reference"``
+   at B=2, S=512 (logits and cache), and ``generate_reference`` tokens
+   of both impls for a few prompts.  B3's launch count, zeroed just
+   before, must equal layers x prefill calls.
+7. The trainer at full width (SmolLM-360M): bf16 steps through
+   ``repro_torch.launch.train``'s own loop with fp32 AdamW state (loss
+   and grad norm finite at every step, the loss falling); one fp32 step
+   with 2 microbatches reporting the loss of 1; ``train_loss`` on the
+   flash kernel (no grad) equal to the reference attention's.
+8. Time B3 at the full prefill's shapes (bf16 and fp32, B=2, S=512) and
+   at S=2048 (bf16), beside its plain version, ``scaled_dot_product_
+   attention`` (a yardstick only) and its bound (bytes over 3.35 TB/s or
+   the operations of the visible (query, key) pairs over the peak rate,
+   whichever is larger); and the train step's tokens/s.
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
@@ -41,6 +61,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -54,11 +75,18 @@ PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core bf16
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
-SOURCE = "src/repro_torch/kernels/paged_attention/csrc/{}.cu"
-REPLACES = {"paged_decode": "src/repro/kernels/paged_attention/"
-                            "paged_attention.py:231",
-            "paged_prefill": "src/repro/kernels/paged_attention/"
-                             "paged_attention.py:168"}
+#: name -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "paged_decode": (
+        "src/repro_torch/kernels/paged_attention/csrc/paged_decode.cu",
+        "src/repro/kernels/paged_attention/paged_attention.py:231"),
+    "paged_prefill": (
+        "src/repro_torch/kernels/paged_attention/csrc/paged_prefill.cu",
+        "src/repro/kernels/paged_attention/paged_attention.py:168"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:87"),
+}
 
 
 def fail(msg: str) -> None:
@@ -436,6 +464,212 @@ def time_prefill(torch, pa, ref, case, dtype):
 
 
 # --------------------------------------------------------------------- #
+# phase 5: the flash-attention kernel against its plain version
+# --------------------------------------------------------------------- #
+
+def flash_case(inp, B, S, H, Hkv, D, dtype):
+    return (inp.randn(B, S, H, D, dtype=dtype),
+            inp.randn(B, S, Hkv, D, dtype=dtype),
+            inp.randn(B, S, Hkv, D, dtype=dtype))
+
+
+def check_flash(torch, fa, fref, case, dtype, what, **kw) -> float:
+    got = fa.flash_attention_cuda(*case, **kw)
+    want = fref.attention_reference(*case, **kw)
+    torch.cuda.synchronize()
+    check(got.dtype == case[0].dtype and got.shape == case[0].shape,
+          f"{what}: output {got.dtype} {tuple(got.shape)}")
+    return compare(torch, got, want, dtype, what)
+
+
+#: (B, S, H, Hkv, D) of the full prefill: TinyLlama-1.1B at S=512
+FLASH_MAIN = (2, 512, 32, 4, 64)
+
+
+def phase_flash_kernel(torch, fa, fref):
+    inp = Inputs(torch, 3)
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        for shape in [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64),
+                      (1, 128, 8, 1, 128), (2, 100, 4, 2, 64),
+                      (1, 512, 2, 2, 128), FLASH_MAIN,
+                      (2, 512, 15, 5, 64)]:       # SmolLM-360M, G = 3
+            name = "flash B{} S{} H{} Hkv{} D{} {}".format(*shape, dtype)
+            errs[name] = check_flash(torch, fa, fref,
+                                     flash_case(inp, *shape, dtype), dtype,
+                                     name)
+        for S, kw in [(256, dict(window=16)), (256, dict(window=64)),
+                      (128, dict(prefix_len=32)),
+                      (256, dict(prefix_len=200)),    # above the diagonal
+                      (256, dict(window=16, prefix_len=48)),
+                      (100, dict(causal=False))]:
+            name = f"flash S{S} {kw} {dtype}"
+            errs[name] = check_flash(torch, fa, fref,
+                                     flash_case(inp, 1, S, 4, 2, 64, dtype),
+                                     dtype, name, **kw)
+    main = "flash B{} S{} H{} Hkv{} D{}".format(*FLASH_MAIN)
+    errs["main_float32"] = errs[main + " float32"]
+    errs["main_bfloat16"] = errs[main + " bfloat16"]
+    print(f"flash_attention: {len(errs) - 2} comparisons with the plain "
+          f"version pass (rtol=atol 2e-5 fp32, 2e-2 bf16); full-prefill "
+          f"shapes max abs err fp32 {errs['main_float32']:.3g}, bf16 "
+          f"{errs['main_bfloat16']:.3g}")
+    return errs
+
+
+# --------------------------------------------------------------------- #
+# phase 6: full prefill at full width
+# --------------------------------------------------------------------- #
+
+#: fp32 logits and cache of the 22-layer model, flash against reference:
+#: the two sum each softmax in another order, and the difference grows
+#: through the layers; 1e-3 is ~100x what a layer contributes
+PREFILL_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def phase_full_prefill(torch, fa, M, cfg, params):
+    from repro_torch.serving import generate_reference
+    B, S = FLASH_MAIN[:2]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEVICE)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device=DEVICE).tolist() for n in (37, 200, 448)]
+    new_tokens, cache_len = 16, 512
+    torch.cuda.synchronize()
+    fa.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    fl_logits, fl_cache = M.prefill(cfg, params, {"tokens": toks},
+                                    cache_len=cache_len, impl="flash")
+    flash_tokens = [generate_reference(cfg, params, p, new_tokens,
+                                       cache_len=cache_len, impl="flash",
+                                       device=DEVICE) for p in prompts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention_cuda.launches
+    prefill_calls = 1 + len(prompts)
+    L = cfg.num_layers
+    check(launches == L * prefill_calls,
+          f"flash_attention launched {launches} times, expected {L} x "
+          f"{prefill_calls}")
+    ref_logits, ref_cache = M.prefill(cfg, params, {"tokens": toks},
+                                      cache_len=cache_len)
+    ref_tokens = [generate_reference(cfg, params, p, new_tokens,
+                                     cache_len=cache_len, device=DEVICE)
+                  for p in prompts]
+    err = {}
+    for name, got, want in [("logits", fl_logits, ref_logits),
+                            ("k", fl_cache["k"], ref_cache["k"]),
+                            ("v", fl_cache["v"], ref_cache["v"])]:
+        d = (got - want).abs()
+        bad = d > PREFILL_TOL["atol"] + PREFILL_TOL["rtol"] * want.abs()
+        check(bool(torch.isfinite(got).all()), f"prefill {name} non-finite")
+        check(not bool(bad.any()), f"prefill {name}: flash vs reference max "
+              f"abs err {d.max().item():.3g}")
+        err[name] = d.max().item()
+    check(torch.equal(fl_cache["index"], ref_cache["index"]), "cache index")
+    same = torch.equal(torch.argmax(fl_logits, -1), torch.argmax(ref_logits,
+                                                                 -1))
+    check(same, "prefill argmax differs between flash and reference")
+    check(flash_tokens == ref_tokens, "generate_reference tokens differ: "
+          f"flash {flash_tokens} reference {ref_tokens}")
+    print(f"full prefill (TinyLlama-1.1B fp32, B={B}, S={S}): flash vs "
+          f"reference max abs err logits {err['logits']:.3g}, k "
+          f"{err['k']:.3g}, v {err['v']:.3g} (rtol=atol 1e-3); "
+          f"generate_reference tokens identical for prompts of "
+          f"{[len(p) for p in prompts]} tokens ({new_tokens} new each); "
+          f"flash_attention launches {launches} = {L} x {prefill_calls}; "
+          f"{wall:.2f} s")
+    return {"max_abs_err": err, "launches": launches,
+            "prefill_calls": prefill_calls, "wall_s": wall,
+            "tokens": flash_tokens}
+
+
+# --------------------------------------------------------------------- #
+# phase 7: the trainer at full width
+# --------------------------------------------------------------------- #
+
+def phase_train(torch):
+    import logging
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.training import (AdamWConfig, init_adamw,
+                                      make_train_step)
+    logging.getLogger("repro_torch.train").setLevel(logging.WARNING)
+    args = T.parse_args(T.SMOKE_ARGS + ["--device", DEVICE])
+    hist = T.train(args)
+    losses = [h["loss"] for h in hist]
+    for h in hist:
+        check(all(math.isfinite(h[k]) for k in ("loss", "grad_norm")),
+              f"non-finite training step: {h}")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    steady = sorted(h["seconds"] for h in hist[1:])
+    step_s = steady[len(steady) // 2]
+    tok_s = args.batch * args.seq / step_s
+    print(f"train (SmolLM-360M bf16, fp32 AdamW, B={args.batch}, "
+          f"S={args.seq}): losses {[round(x, 4) for x in losses]}, grad "
+          f"norms {[round(h['grad_norm'], 3) for h in hist]}; median "
+          f"step {step_s:.3f} s after the first = {tok_s:.0f} tokens/s")
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), dtype="float32")
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=8)
+    batch = {k: torch.from_numpy(v).to(DEVICE, torch.long)
+             for k, v in batch_for_step(dc, 0).items()}
+    opt = AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=1)
+    mb_loss = {}
+    for mb in (1, 2):
+        _, _, m = make_train_step(cfg, opt, microbatches=mb)(
+            params, init_adamw(params), batch)
+        mb_loss[mb] = float(m["loss"])
+    check(abs(mb_loss[2] - mb_loss[1]) <= 1e-4 * abs(mb_loss[1]),
+          f"microbatch losses differ: {mb_loss}")
+    with torch.no_grad():
+        two = {k: v[:2] for k, v in
+               batch_for_step(DataConfig(cfg.vocab_size, 512, 2), 1).items()}
+        two = {k: torch.from_numpy(v).to(DEVICE, torch.long)
+               for k, v in two.items()}
+        fl = float(M.train_loss(cfg, params, two, impl="flash"))
+        ref = float(M.train_loss(cfg, params, two))
+    check(abs(fl - ref) <= 1e-4 * abs(ref),
+          f"train_loss flash {fl} vs reference {ref}")
+    print(f"train fp32: loss with 1 / 2 microbatches {mb_loss[1]:.7f} / "
+          f"{mb_loss[2]:.7f} (rtol 1e-4); train_loss flash {fl:.7f} vs "
+          f"reference {ref:.7f} (rtol 1e-4)")
+    return {"losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+            "step_s": [h["seconds"] for h in hist], "tok_per_s": tok_s,
+            "microbatch_loss": mb_loss, "train_loss_flash": fl,
+            "train_loss_reference": ref}
+
+
+# --------------------------------------------------------------------- #
+# phase 8: timing the flash-attention kernel
+# --------------------------------------------------------------------- #
+
+def time_flash(torch, fa, fref, case, dtype):
+    import torch.nn.functional as F
+    q, k, v = case
+    B, S, H, D = q.shape
+    es = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * es
+    pairs = int(fref.visible(S, device=DEVICE).sum())
+    ops = 4 * D * pairs * B * H
+    b_ms, b_by = bound(nbytes, ops, dtype)
+    ms = time_ms(torch, lambda: fa.flash_attention_cuda(*case))
+    plain = time_ms(torch, lambda: fref.attention_reference(*case))
+    qt, kt, vt = (t.transpose(1, 2) for t in case)      # views, no copy
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_ms = time_ms(torch, lib)
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, bytes=nbytes, ops=ops, shape=list(q.shape),
+                kv_heads=k.shape[2], dtype=dtype)
+
+
+# --------------------------------------------------------------------- #
 
 def _tree_to(tree, dtype):
     return {k: _tree_to(v, dtype) if isinstance(v, dict) else v.to(dtype)
@@ -460,6 +694,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.paged_attention import ref
     from repro_torch.launch.serve import SMOKE_ARCH, SMOKE_ENGINE, SMOKE_M
@@ -475,8 +711,13 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{count} device(s)")
 
+    def lap(what):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
+
     t0 = time.perf_counter()
+    cuda_build.build([pa.DECODE_SRC, pa.PREFILL_SRC, fa.SRC])
     pa.build_all()
+    fa.build_all()
     build_s = time.perf_counter() - t0
     print(f"nvcc build of {len(cuda_build.BUILD_REPORT)} sources in "
           f"parallel: {build_s:.1f} s wall")
@@ -492,17 +733,29 @@ def main(argv=None) -> int:
     P_main = -(-SMOKE_M // ecfg.page_size) + 1   # allocator pages + sentinel
     with torch.no_grad():
         errs = phase_kernels(torch, pa, ref, P_main, ecfg)
+        errs["flash_attention"] = phase_flash_kernel(torch, fa, fref)
+        lap("kernel checks")
 
         cfg = dataclasses.replace(get_config(SMOKE_ARCH), dtype="float32")
         params = M.init_params(cfg, seed=0, device=DEVICE)
         fp32 = phase_serve_fp32(torch, pa, cfg, params)
+        lap("fp32 serve")
+        prefill = phase_full_prefill(torch, fa, M, cfg, params)
+        lap("full prefill")
 
         cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
         params16 = _tree_to(params, torch.bfloat16)
         del params
         bf16 = phase_serve_bf16(torch, cfg16, params16)
         check(bf16["pool_pages"] == P_main, "pool size changed")
+        del params16
+        lap("bf16 serve")
 
+    train = phase_train(torch)
+    torch.cuda.empty_cache()
+    lap("train")
+
+    with torch.no_grad():
         inp = Inputs(torch, 2)
         times = {
             "paged_decode": time_decode(
@@ -510,24 +763,47 @@ def main(argv=None) -> int:
                                                  P_main, ecfg), "bfloat16"),
             "paged_prefill": time_prefill(
                 torch, pa, ref, main_path_prefill(torch, inp, "bfloat16",
-                                                  P_main, ecfg), "bfloat16")}
+                                                  P_main, ecfg), "bfloat16"),
+            "flash_attention": time_flash(
+                torch, fa, fref, flash_case(inp, *FLASH_MAIN, "bfloat16"),
+                "bfloat16")}
+        flash_more = {
+            "float32": time_flash(torch, fa, fref,
+                                  flash_case(inp, *FLASH_MAIN, "float32"),
+                                  "float32"),
+            "bfloat16_S2048": time_flash(
+                torch, fa, fref, flash_case(inp, 1, 2048, 32, 4, 64,
+                                            "bfloat16"), "bfloat16")}
+        lap("timing")
+    launches = dict(fp32["launches"], flash_attention=prefill["launches"])
+    shapes = {"paged_decode": "serving shapes",
+              "paged_prefill": "serving shapes",
+              "flash_attention": "full-prefill shapes B2 S512 H32 Hkv4"}
     kernels = []
-    for name in ("paged_decode", "paged_prefill"):
+    for name in ("paged_decode", "paged_prefill", "flash_attention"):
         t = times[name]
-        print(f"{name} (bf16, serving shapes): {t['ms']:.4f} ms; plain "
+        print(f"{name} (bf16, {shapes[name]}): {t['ms']:.4f} ms; plain "
               f"{t['plain_ms']:.4f} ms; sdpa {t['library_ms']:.4f} ms; "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
               f"{t['bytes']:.3g} B, {t['ops']:.3g} ops)")
         kernels.append({"name": name, "route": "cuda",
-                        "source": SOURCE.format(name),
-                        "replaces": REPLACES[name],
-                        "launches": fp32["launches"][name],
+                        "source": KERNELS[name][0],
+                        "replaces": KERNELS[name][1],
+                        "launches": launches[name],
                         "max_abs_err": errs[name]["main_float32"],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
+    for what, t in flash_more.items():
+        print(f"flash_attention ({t['dtype']}, shape {t['shape']}, Hkv "
+              f"{t['kv_heads']}): {t['ms']:.4f} ms; plain {t['plain_ms']:.4f}"
+              f" ms; sdpa {t['library_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.3g} B, "
+              f"{t['ops']:.3g} ops)")
+    times["flash_attention_more"] = flash_more
     report.update(errors=errs, serve_fp32=fp32, serve_bf16=bf16,
-                  timings=times, seconds=time.perf_counter() - t_start)
+                  full_prefill=prefill, train=train, timings=times,
+                  seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(report, indent=1,

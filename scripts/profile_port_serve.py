@@ -29,6 +29,42 @@ ROOT = Path(__file__).resolve().parent.parent
 WAIT, ACTIVE = 40, 20      # engine steps skipped, then profiled
 
 
+def kernel_summary(prof):
+    """({kernel name: [count, device us]}, host launch calls) of a
+    finished ``torch.profiler.profile``."""
+    from torch.autograd import DeviceType
+    by_kernel = collections.defaultdict(lambda: [0, 0.0])
+    launches = 0
+    for e in prof.events():
+        if e.name.startswith("ProfilerStep"):
+            continue                  # the step annotation, not a kernel
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name][0] += 1
+            by_kernel[e.name][1] += e.device_time
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += 1
+    return by_kernel, launches
+
+
+def top_kernels(by_kernel, n: int = 12):
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:n]
+    return [{"name": name[:90], "count": c, "ms": t / 1e3}
+            for name, (c, t) in top]
+
+
+def host_us_per_tiny_op(torch) -> float:
+    """Host cost of enqueuing one eager op on a tiny tensor."""
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1.0)
+    us = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def instrument(torch, eng, after):
     """Wrap ``eng.step``: synchronise after each step, record (time,
     prefill rounds, decode steps) and call ``after``; returns the list
@@ -64,7 +100,6 @@ def main(argv=None) -> int:
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.launch.serve import SMOKE_ARCH, smoke_server
     from repro_torch.models import model as M
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     pa.build_all()
@@ -74,14 +109,7 @@ def main(argv=None) -> int:
     with torch.no_grad():
         params = M.init_params(cfg, seed=0, device="cuda")
 
-        # host cost of one eager op on a tiny tensor (enqueue only)
-        x = torch.zeros(1, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2000):
-            x.add_(1.0)
-        out["host_us_per_tiny_op"] = (time.perf_counter() - t0) / 2000 * 1e6
-        torch.cuda.synchronize()
+        out["host_us_per_tiny_op"] = host_us_per_tiny_op(torch)
 
         eng, reqs = smoke_server(cfg, params)
         plain = instrument(torch, eng, lambda: None)
@@ -113,26 +141,14 @@ def main(argv=None) -> int:
                   "decode_steps": d1 - d0, "profiled_wall_s": t1 - t0,
                   "wall_s": plain[WAIT + ACTIVE - 1][0] - plain[WAIT - 1][0]}
 
-    by_kernel = collections.defaultdict(lambda: [0, 0.0])
-    launches = 0
-    for e in prof.events():
-        if e.name.startswith("ProfilerStep"):
-            continue                  # the step annotation, not a kernel
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name][0] += 1
-            by_kernel[e.name][1] += e.device_time
-        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                        "cuLaunchKernel", "cuLaunchKernelEx"):
-            launches += 1
+    by_kernel, launches = kernel_summary(prof)
     n_kernels = sum(c for c, _ in by_kernel.values())
     device_s = sum(t for _, t in by_kernel.values()) / 1e6
     out.update(window=window, kernels=n_kernels, launch_calls=launches,
                device_s=device_s, kernels_per_step=n_kernels / ACTIVE,
                device_ms_per_step=device_s / ACTIVE * 1e3,
                device_busy_share=device_s / window["wall_s"])
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
-    out["top_kernels"] = [{"name": n[:90], "count": c, "ms": t / 1e3}
-                          for n, (c, t) in top]
+    out["top_kernels"] = top_kernels(by_kernel)
     print(f"{out['card']}, {args.dtype}: {steps} steps "
           f"({eng.decode_steps} decode) in {wall:.3f} s unprofiled = "
           f"{out['wall_ms_per_step']:.2f} ms/step, "

@@ -1,0 +1,7 @@
+"""Distributed layer of the port: so far the fault-tolerance primitives
+(the mesh, sharding and collectives wait for ROADMAP A13)."""
+from repro_torch.distributed.fault_tolerance import (  # noqa: F401
+    StragglerEvent,
+    StragglerMonitor,
+    run_with_retries,
+)

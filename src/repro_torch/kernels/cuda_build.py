@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA sources with ``nvcc``, load them with ctypes, and
+the checks every kernel wrapper makes before a launch.
 
 Each ``csrc/*.cu`` file is compiled on its own into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds)
@@ -23,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Tuple
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -95,3 +96,42 @@ def load(src: Path) -> ctypes.CDLL:
     if key not in _LOADED:
         _LOADED[key] = ctypes.CDLL(key)
     return _LOADED[key]
+
+
+_FNS: Dict[Tuple[Path, str], Any] = {}
+
+
+def c_function(src: Path, fn: str, nptrs: int, nints: int):
+    """The C entry ``fn`` of ``src``'s library, typed: ``nptrs`` device
+    pointers, ``nints`` ints, then the stream (all pointers and the
+    stream as ``c_void_p``, so none is cut to 32 bits); returns int."""
+    key = (src, fn)
+    if key not in _FNS:
+        f = getattr(load(src), fn)
+        f.argtypes = [ctypes.c_void_p] * nptrs + [ctypes.c_int] * nints \
+            + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _FNS[key] = f
+    return _FNS[key]
+
+
+def check_tensor(name: str, t, dev, dtype, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-dim CUDA tensor of
+    ``dtype`` on ``dev``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a tensor on a CUDA device, got "
+                         f"{t.device}")
+    if t.device != dev:
+        raise ValueError(f"{name}: expected a tensor on {dev}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -25,12 +25,12 @@ tensors' device.
 """
 from __future__ import annotations
 
-import ctypes
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.cuda_build import check_tensor
 
 CSRC = Path(__file__).parent / "csrc"
 DECODE_SRC = CSRC / "paged_decode.cu"
@@ -41,47 +41,17 @@ PAGE_SIZES = (8, 16, 32, 64)
 MAX_GROUPS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-_FNS = {}
-
-
-def _lib(src: Path, fn: str, nptrs: int, nints: int):
-    """The C entry ``fn`` of ``src``'s library, typed: ``nptrs`` device
-    pointers, ``nints`` ints, then the stream (all pointers and the
-    stream as ``c_void_p``, so none is cut to 32 bits)."""
-    key = (src, fn)
-    if key not in _FNS:
-        f = getattr(cuda_build.load(src), fn)
-        f.argtypes = [_P] * nptrs + [_I] * nints + [_P]
-        f.restype = _I
-        _FNS[key] = f
-    return _FNS[key]
-
 
 def build_all() -> None:
     """Compile (in parallel) and load every kernel of this module."""
     cuda_build.build([DECODE_SRC, PREFILL_SRC])
-    _lib(DECODE_SRC, "paged_decode", 6, 8)
-    _lib(PREFILL_SRC, "paged_prefill", 9, 9)
-
-
-def _check(name: str, t: torch.Tensor, dev: torch.device, dtype, ndim: int):
-    if not t.is_cuda or t.device != dev:
-        raise ValueError(f"{name}: expected a tensor on {dev}, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    cuda_build.c_function(DECODE_SRC, "paged_decode", 6, 8)
+    cuda_build.c_function(PREFILL_SRC, "paged_prefill", 9, 9)
 
 
 def _check_pools(k_pool, v_pool, dev, dtype, Hkv_D):
-    _check("k_pool", k_pool, dev, dtype, 4)
-    _check("v_pool", v_pool, dev, dtype, 4)
+    check_tensor("k_pool", k_pool, dev, dtype, 4)
+    check_tensor("v_pool", v_pool, dev, dtype, 4)
     if v_pool.shape != k_pool.shape:
         raise ValueError(f"pool shapes differ: {tuple(k_pool.shape)} vs "
                          f"{tuple(v_pool.shape)}")
@@ -103,11 +73,6 @@ def _groups(H: int, Hkv: int) -> int:
     return H // Hkv
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                       v_pool: torch.Tensor, block_tables: torch.Tensor,
                       context_lens: torch.Tensor) -> torch.Tensor:
@@ -118,13 +83,13 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     dtype = q.dtype
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"q: dtype {dtype} not in {list(_DTYPE_CODE)}")
-    _check("q", q, dev, dtype, 3)
+    check_tensor("q", q, dev, dtype, 3)
     B, H, D = q.shape
     P, page, Hkv, _ = _check_pools(k_pool, v_pool, dev, dtype,
                                    (k_pool.shape[2], D))
     G = _groups(H, Hkv)
-    _check("block_tables", block_tables, dev, torch.int32, 2)
-    _check("context_lens", context_lens, dev, torch.int32, 1)
+    check_tensor("block_tables", block_tables, dev, torch.int32, 2)
+    check_tensor("context_lens", context_lens, dev, torch.int32, 1)
     npages = block_tables.shape[1]
     if block_tables.shape[0] != B or context_lens.shape[0] != B \
             or npages < 1:
@@ -134,7 +99,7 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    fn = _lib(DECODE_SRC, "paged_decode", 6, 8)
+    fn = cuda_build.c_function(DECODE_SRC, "paged_decode", 6, 8)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         paged_decode_cuda.launches += 1
@@ -142,7 +107,7 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                  block_tables.data_ptr(), context_lens.data_ptr(),
                  out.data_ptr(), B, Hkv, G, D, P, page, npages,
                  _DTYPE_CODE[dtype], stream)
-    _raise_on(err, "paged_decode")
+    cuda_build.raise_on(err, "paged_decode")
     return out
 
 
@@ -162,19 +127,19 @@ def paged_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype = q.dtype
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"q: dtype {dtype} not in {list(_DTYPE_CODE)}")
-    _check("q", q, dev, dtype, 4)
+    check_tensor("q", q, dev, dtype, 4)
     B, c, H, D = q.shape
-    _check("k", k, dev, dtype, 4)
-    _check("v", v, dev, dtype, 4)
+    check_tensor("k", k, dev, dtype, 4)
+    check_tensor("v", v, dev, dtype, 4)
     if k.shape != v.shape or k.shape[:2] != (B, c) or k.shape[3] != D:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     P, page, Hkv, _ = _check_pools(k_pool, v_pool, dev, dtype,
                                    (k.shape[2], D))
     G = _groups(H, Hkv)
-    _check("block_tables", block_tables, dev, torch.int32, 2)
-    _check("starts", starts, dev, torch.int32, 1)
-    _check("lengths", lengths, dev, torch.int32, 1)
+    check_tensor("block_tables", block_tables, dev, torch.int32, 2)
+    check_tensor("starts", starts, dev, torch.int32, 1)
+    check_tensor("lengths", lengths, dev, torch.int32, 1)
     maxp = block_tables.shape[1]
     if block_tables.shape[0] != B or starts.shape[0] != B \
             or lengths.shape[0] != B or maxp < 1:
@@ -183,7 +148,7 @@ def paged_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or c == 0:
         return out
-    fn = _lib(PREFILL_SRC, "paged_prefill", 9, 9)
+    fn = cuda_build.c_function(PREFILL_SRC, "paged_prefill", 9, 9)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         paged_prefill_cuda.launches += 1
@@ -192,7 +157,7 @@ def paged_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  block_tables.data_ptr(), starts.data_ptr(),
                  lengths.data_ptr(), out.data_ptr(), B, c, Hkv, G, D, P,
                  page, maxp, _DTYPE_CODE[dtype], stream)
-    _raise_on(err, "paged_prefill")
+    cuda_build.raise_on(err, "paged_prefill")
     return out
 
 

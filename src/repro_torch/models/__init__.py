@@ -4,4 +4,5 @@ from repro_torch.models.model import (  # noqa: F401
     init_params,
     params_from_jax,
     prefill,
+    train_loss,
 )

@@ -1,16 +1,19 @@
-"""GQA attention with a dense KV cache: the reference branches of
-``repro.models.attention`` for unbounded dense attention.
+"""GQA attention with a dense KV cache: ``repro.models.attention`` for
+unbounded dense attention.
 
-* full-sequence (prefill): causal attention over the whole batch,
-  optionally emitting a cache padded to ``cache_len``.
+* full-sequence (train / prefill): causal (+ optional prefix-LM)
+  attention over the whole batch, optionally emitting a cache padded to
+  ``cache_len``.  ``impl="flash"`` runs the hand-written flash-attention
+  kernel (``kernels.flash_attention``, forward-only); every other
+  ``impl`` the plain reference branch, as in the JAX package.
 * decode: one query token against a dense cache ``(B, S, Hkv, D)`` with
-  a per-request length mask.
+  a per-request length mask (the reference branch).
 
-These are the token oracle (``serving.engine.generate_reference``) and
-the model-level parity surface.  The serving engine's paged plane runs
-the hand-written paged kernels instead (``kernels.paged_attention``).
-Sliding windows, prefix-LM masks and the kernel/sequence-sharded decode
-backends are not part of this port yet.
+These are the token oracle (``serving.engine.generate_reference``), the
+trainer's attention and the model-level parity surface.  The serving
+engine's paged plane runs the hand-written paged kernels instead
+(``kernels.paged_attention``).  Sliding windows (ROADMAP A8) and the
+kernel/sequence-sharded decode backends are not part of this port yet.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import (Params, apply_rope, causal_mask,
                                        dense_init, rms_norm)
 
@@ -75,18 +79,29 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_full(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor, *, cache_len: int = 0
+                   positions: torch.Tensor, *, prefix_len: int = 0,
+                   impl: str = "reference", cache_len: int = 0
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Prefill attention.  Returns (out, cache_or_None); ``cache_len`` >=
-    S also emits a KV cache zero-padded to that length."""
+    """Train / prefill attention.  Returns (out, cache_or_None);
+    ``cache_len`` >= S also emits a KV cache zero-padded to that length.
+    ``impl="flash"`` assumes ``positions`` are ``0..S-1`` on every row,
+    as the JAX kernel does."""
+    if cfg.window:
+        raise ValueError(f"{cfg.name}: sliding-window attention is not "
+                         "ported yet (ROADMAP A8)")
     B, S, _ = x.shape
+    if cache_len and cache_len < S:
+        raise ValueError(f"cache_len {cache_len} < prompt length {S}: only "
+                         "the sliding-window ring crops (ROADMAP A8)")
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = _sdpa(q, k, v, causal_mask(positions, positions))
+    if impl == "flash":
+        out = fa_ops.flash_attention(q, k, v, prefix_len=prefix_len)
+    else:
+        out = _sdpa(q, k, v, causal_mask(positions, positions,
+                                         prefix_len=prefix_len))
     out = out.reshape(B, S, cfg.q_dim) @ params["wo"]
     cache = None
     if cache_len:
-        if cache_len < S:
-            raise ValueError(f"cache_len {cache_len} < prompt length {S}")
         pad = (0, 0, 0, 0, 0, cache_len - S)
         cache = {"k": torch.nn.functional.pad(k, pad),
                  "v": torch.nn.functional.pad(v, pad)}

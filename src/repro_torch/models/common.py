@@ -85,7 +85,31 @@ def gated_mlp(params: Params, x: torch.Tensor,
     return (act_out * up) @ params["wo"]
 
 
-def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-    """Boolean (..., Sq, Sk) causal mask (no window, no prefix-LM: the
-    families that need those are not part of this port yet)."""
-    return q_pos[..., :, None] >= k_pos[..., None, :]
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                window: int = 0, prefix_len: int = 0) -> torch.Tensor:
+    """Boolean (..., Sq, Sk) mask.  prefix-LM: keys with pos <
+    prefix_len are visible to every query (bidirectional within the
+    prefix, and always-visible context for the suffix)."""
+    m = q_pos[..., :, None] >= k_pos[..., None, :]
+    if window:
+        m &= (q_pos[..., :, None] - k_pos[..., None, :]) < window
+    if prefix_len:
+        m |= k_pos[..., None, :] < prefix_len
+    return m
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab_size: int) -> torch.Tensor:
+    """Mean token loss; labels < 0 are masked.  logits (..., Vpad): the
+    padded vocab entries are set to -1e9 so they get no probability."""
+    logits = logits.float()
+    if logits.shape[-1] > vocab_size:
+        pad = torch.arange(logits.shape[-1], device=logits.device) \
+            >= vocab_size
+        logits = logits.masked_fill(pad, -1e9)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    nll = lse - gold
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -9,3 +9,9 @@ from repro_torch.serving.paged_plane import (  # noqa: F401
     build_paged_fns,
     paged_supported,
 )
+from repro_torch.serving.serve_step import (  # noqa: F401
+    build_decode_fn,
+    build_prefill_chunk_fn,
+    build_prefill_fn,
+    build_train_fn,
+)

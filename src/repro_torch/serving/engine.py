@@ -644,18 +644,21 @@ class EngineResult:
 @torch.no_grad()
 def generate_reference(cfg: ModelConfig, params: Any, prompt: Sequence[int],
                        num_tokens: int, *, cache_len: int,
+                       impl: str = "reference",
                        device: str = "cuda") -> List[int]:
     """Greedy generation of one request: full prefill + sequential decode
-    through the plain attention of ``models`` (no pages, no kernels).
+    through the dense-cache attention of ``models`` (no pages).
+    ``impl="flash"`` runs the prefill on the flash-attention kernel; the
+    decode takes the reference branch for every ``impl``, as in JAX.
     Sampling is on the device; only token ids reach the host."""
     vocab = cfg.vocab_size
     toks = torch.tensor([list(prompt)], dtype=torch.long, device=device)
     logits, cache = M.prefill(cfg, params, {"tokens": toks},
-                              cache_len=cache_len)
+                              cache_len=cache_len, impl=impl)
     cur = torch.argmax(logits[:, :vocab], dim=-1)
     out: List[int] = [int(cur[0])]
     for _ in range(num_tokens - 1):
-        logits, cache = M.decode_step(cfg, params, cur, cache)
+        logits, cache = M.decode_step(cfg, params, cur, cache, impl=impl)
         cur = torch.argmax(logits[:, :vocab], dim=-1)
         out.append(int(cur[0]))
     return out

@@ -88,8 +88,7 @@ def build_paged_fns(cfg: ModelConfig) -> Tuple[Callable, Callable]:
         positions = starts[:, None] + torch.arange(c, device=tokens.device,
                                                    dtype=torch.int32)
         x = M._embed(cfg, params, tokens.long())
-        for l in range(cfg.num_layers):
-            lp = M.layer_params(params, l)
+        for l, lp in enumerate(M.unstack_layers(params)):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = attn._project_qkv(lp["attn"], cfg, h, positions)
             out = pa_ops.paged_prefill(
@@ -116,8 +115,7 @@ def build_paged_fns(cfg: ModelConfig) -> Tuple[Callable, Callable]:
         # write-then-attend: context_lens = ctx + 1 includes the new token
         ctx_lens = (ctx + 1).to(torch.int32)
         x = M._embed(cfg, params, tokens.long()[:, None])
-        for l in range(cfg.num_layers):
-            lp = M.layer_params(params, l)
+        for l, lp in enumerate(M.unstack_layers(params)):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = attn._project_qkv(lp["attn"], cfg, h, ctx[:, None])
             scatter_rows(k_pools[l], dest, k[:, 0])

@@ -1,0 +1,55 @@
+"""Serve- and train-step builders: ``repro.serving.serve_step`` for the
+port.
+
+``build_prefill_fn`` / ``build_decode_fn`` / ``build_train_fn`` return
+plain functions of (params, batch/cache) over ``models.model``; PyTorch
+runs them eagerly, so there is nothing to compile.  The
+ShapeDtypeStruct stand-ins of the JAX module belong to the XLA dry-run
+tools (ROADMAP A13) and are not ported.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+
+
+def build_prefill_fn(cfg: ModelConfig, *, cache_len: int,
+                     impl: str = "reference") -> Callable:
+    """(params, batch) -> (last-token logits, KV cache)."""
+
+    def prefill_step(params, batch):
+        return M.prefill(cfg, params, batch, cache_len=cache_len, impl=impl)
+
+    return prefill_step
+
+
+def build_prefill_chunk_fn(cfg: ModelConfig, *,
+                           impl: str = "reference") -> Callable:
+    """The bucketed chunk step of the batched plane: not ported yet."""
+    raise ValueError("prefill_chunk (the batched plane's chunk step) is not "
+                     "ported yet (ROADMAP A5)")
+
+
+def build_decode_fn(cfg: ModelConfig, *, impl: str = "reference",
+                    append: str = "inline") -> Callable:
+    """(params, tokens, cache) -> (logits, cache): one serve step."""
+    if append != "inline":
+        raise ValueError(f"decode append={append!r} is not ported yet "
+                         "(ROADMAP A11)")
+
+    def serve_step(params, tokens, cache):
+        return M.decode_step(cfg, params, tokens, cache, impl=impl)
+
+    return serve_step
+
+
+def build_train_fn(cfg: ModelConfig, *, impl: str = "reference",
+                   remat: bool = True) -> Callable:
+    """(params, batch) -> scalar loss (the differentiable objective)."""
+
+    def loss_fn(params, batch):
+        return M.train_loss(cfg, params, batch, impl=impl, remat=remat)
+
+    return loss_fn

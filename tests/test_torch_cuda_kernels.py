@@ -8,6 +8,9 @@ package, so it runs on a machine with only PyTorch and the CUDA toolkit:
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention import paged_attention as pa
 from repro_torch.kernels.paged_attention import ref
@@ -104,3 +107,71 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     kp = _randn(gen, 4, 16, 2, 64, dtype=torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         pa.paged_decode_cuda(q, kp, kp, bt.t().contiguous().t(), ctx)
+
+
+# --------------------------------------------------------------------- #
+# full-sequence flash attention (B3)
+# --------------------------------------------------------------------- #
+
+def _qkv(gen, B, S, H, Hkv, D, dtype):
+    return (_randn(gen, B, S, H, D, dtype=dtype),
+            _randn(gen, B, S, Hkv, D, dtype=dtype),
+            _randn(gen, B, S, Hkv, D, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,D", [
+    (1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 128, 8, 1, 128),
+    (2, 100, 4, 2, 64), (1, 512, 2, 2, 128),
+    (2, 512, 32, 4, 64),              # TinyLlama-1.1B, G = 8
+    (1, 512, 15, 5, 64),              # SmolLM-360M, G = 3, H = 15
+    (1, 37, 6, 2, 128)])
+def test_flash_kernel_matches_plain(gen, dtype, B, S, H, Hkv, D):
+    q, k, v = _qkv(gen, B, S, H, Hkv, D, dtype)
+    n0 = fa.flash_attention_cuda.launches
+    got = fa_ops.flash_attention(q, k, v)
+    assert fa.flash_attention_cuda.launches == n0 + 1
+    want = fa_ref.attention_reference(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+    assert got.dtype == dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window,prefix_len,S", [
+    (True, 16, 0, 256), (True, 64, 0, 256), (True, 0, 32, 128),
+    (True, 0, 200, 256),               # prefix tiles above the diagonal
+    (True, 16, 48, 256), (False, 0, 0, 100), (False, 0, 0, 128)])
+def test_flash_kernel_masks_match_plain(gen, causal, window, prefix_len, S):
+    q, k, v = _qkv(gen, 1, S, 4, 2, 64, torch.float32)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.testing.assert_close(got, fa_ref.attention_reference(q, k, v, **kw),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_has_no_backward(gen):
+    q, k, v = _qkv(gen, 1, 64, 4, 2, 64, torch.float32)
+    q.requires_grad_(True)
+    out = fa_ops.flash_attention(q, k, v)
+    with pytest.raises(fa_ops.NoBackwardError):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    q, k, v = _qkv(gen, 1, 16, 4, 2, 32, torch.float32)       # D = 32
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cuda(q, k, v)
+    q, k, v = _qkv(gen, 1, 16, 4, 2, 64, torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q, k, v)
+    q, k, v = _qkv(gen, 1, 16, 5, 2, 64, torch.float32)       # 5 over 2
+    with pytest.raises(ValueError, match="kv heads"):
+        fa.flash_attention_cuda(q, k, v)
+    q, k, v = _qkv(gen, 1, 16, 4, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        fa.flash_attention_cuda(q, k.cpu(), v)

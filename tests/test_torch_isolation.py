@@ -44,7 +44,11 @@ def _port_modules():
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = list(_port_modules())
-    assert "repro_torch.serving.engine" in mods
+    for m in ("serving.engine", "serving.serve_step",
+              "kernels.flash_attention.ops", "training.train_step",
+              "checkpoint.manager", "distributed.fault_tolerance",
+              "data.synthetic", "launch.train"):
+        assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -104,11 +108,14 @@ def test_kernel_build_directory_is_ignored_by_git():
 
 def test_kernel_sources_are_plain_c_interfaces():
     """Built with nvcc alone (seconds), never against PyTorch's headers
-    (minutes per build)."""
-    csrc = PORT / "kernels" / "paged_attention" / "csrc"
-    srcs = sorted(csrc.glob("*.cu"))
-    assert [p.name for p in srcs] == ["paged_decode.cu", "paged_prefill.cu"]
-    for p in srcs + sorted(csrc.glob("*.cuh")):
+    (minutes per build); every kernels/*/csrc directory."""
+    csrcs = sorted((PORT / "kernels").glob("*/csrc"))
+    srcs = sorted(p for c in csrcs for p in c.glob("*.cu"))
+    assert [str(p.relative_to(PORT / "kernels")) for p in srcs] == [
+        "flash_attention/csrc/flash_attention.cu",
+        "paged_attention/csrc/paged_decode.cu",
+        "paged_attention/csrc/paged_prefill.cu"]
+    for p in srcs + sorted(p for c in csrcs for p in c.glob("*.cuh")):
         text = p.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text, p
     for p in srcs:

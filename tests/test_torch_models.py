@@ -172,3 +172,135 @@ def test_unported_families_raise(over, item):
     _, tcfg = reduced_pair()
     with pytest.raises(ValueError, match=item):
         TM.check_supported(dataclasses.replace(tcfg, **over))
+
+
+# --------------------------------------------------------------------- #
+# the full-sequence path: prefill on the flash kernel, generate_reference
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("impl", ["reference", "flash"])
+def test_prefill_impl_and_length_match_jax(models, impl):
+    jcfg, tcfg, jp, tp = models
+    rs = np.random.RandomState(6)
+    toks = rs.randint(0, jcfg.vocab_size, size=(2, 13)).astype(np.int32)
+    length = np.array([13, 9], np.int32)
+    batch = {"tokens": toks, "length": length}
+    jl, jc = JM.prefill(jcfg, jp, {k: jnp.asarray(v) for k, v in
+                                   batch.items()},
+                        cache_len=24, impl=impl, moe_impl="dense")
+    tl, tc = TM.prefill(tcfg, tp, {"tokens": to_torch(toks).long(),
+                                   "length": to_torch(length)},
+                        cache_len=24, impl=impl)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    assert tc["index"].dtype == torch.int32
+    np.testing.assert_array_equal(tc["index"].numpy(), length)
+    np.testing.assert_array_equal(tc["index"].numpy(),
+                                  np.asarray(jc["index"]))
+    for k in ("k", "v"):
+        np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]),
+                                   **LOGIT_TOL)
+
+
+def test_prefill_flash_equals_reference(models):
+    _, tcfg, _, tp = models
+    toks = torch.from_numpy(np.random.RandomState(7).randint(
+        0, tcfg.vocab_size, size=(3, 17))).long()
+    ref = TM.prefill(tcfg, tp, {"tokens": toks}, cache_len=20)
+    fl = TM.prefill(tcfg, tp, {"tokens": toks}, cache_len=20, impl="flash")
+    torch.testing.assert_close(fl[0], ref[0], **TOL)
+    for k in ("k", "v", "index"):
+        torch.testing.assert_close(fl[1][k], ref[1][k], **TOL)
+
+
+def test_generate_reference_flash_tokens_match_jax(models):
+    from repro.serving.engine import generate_reference as jgen
+    from repro_torch.serving import generate_reference as tgen
+    jcfg, tcfg, jp, tp = models
+    rs = np.random.RandomState(8)
+    for n in (5, 12):
+        prompt = rs.randint(0, jcfg.vocab_size, size=n).tolist()
+        want = jgen(jcfg, jp, prompt, 6, cache_len=32, impl="flash")
+        assert tgen(tcfg, tp, prompt, 6, cache_len=32, impl="flash",
+                    device="cpu") == want
+        assert tgen(tcfg, tp, prompt, 6, cache_len=32,
+                    device="cpu") == want
+
+
+def test_train_loss_and_its_attention_impls_match_jax(models):
+    jcfg, tcfg, jp, tp = models
+    rs = np.random.RandomState(9)
+    toks = rs.randint(0, jcfg.vocab_size, size=(2, 10)).astype(np.int32)
+    labels = rs.randint(-1, jcfg.vocab_size, size=(2, 10)).astype(np.int32)
+    want = float(JM.train_loss(jcfg, jp, {"tokens": jnp.asarray(toks),
+                                          "labels": jnp.asarray(labels)}))
+    batch = {"tokens": to_torch(toks).long(), "labels": to_torch(labels)}
+    for impl in ("reference", "flash"):
+        for remat in (True, False):
+            with torch.no_grad():
+                got = TM.train_loss(tcfg, tp, batch, impl=impl, remat=remat)
+            np.testing.assert_allclose(float(got), want, rtol=1e-5)
+
+
+def test_softmax_cross_entropy_matches_jax():
+    rs = np.random.RandomState(10)
+    logits = rs.randn(3, 5, 40).astype(np.float32) * 3
+    labels = rs.randint(-2, 33, size=(3, 5)).astype(np.int32)
+    want = JC.softmax_cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                    33)
+    got = TC.softmax_cross_entropy(*to_torch(logits, labels), 33)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    none = TC.softmax_cross_entropy(to_torch(logits),
+                                    torch.full((3, 5), -1), 33)
+    assert float(none) == 0.0
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=4), dict(prefix_len=3),
+                                dict(window=2, prefix_len=5)])
+def test_causal_mask_options_match_jax(kw):
+    pos = np.broadcast_to(np.arange(9, dtype=np.int32), (2, 9)).copy()
+    want = JC.causal_mask(jnp.asarray(pos), jnp.asarray(pos), **kw)
+    got = TC.causal_mask(to_torch(pos), to_torch(pos), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("impl,item", [("paged", "A5"), ("flash_jnp", "A5"),
+                                       ("seqsharded", "A13")])
+def test_unported_decode_impls_raise(models, impl, item):
+    _, tcfg, _, tp = models
+    cache = TM.init_cache(tcfg, 1, 8, device="cpu")
+    with pytest.raises(ValueError, match=item):
+        TM.decode_step(tcfg, tp, torch.zeros((1,), dtype=torch.long), cache,
+                       impl=impl)
+
+
+def test_attention_full_refuses_window_and_short_cache(models):
+    _, tcfg, _, tp = models
+    lp = TM.unstack_layers(tp)[0]["attn"]
+    x = torch.zeros((1, 6, tcfg.d_model))
+    pos = torch.arange(6)[None]
+    with pytest.raises(ValueError, match="A8"):
+        TA.attention_full(lp, dataclasses.replace(tcfg, window=4), x, pos)
+    with pytest.raises(ValueError, match="cache_len 4 < prompt length 6"):
+        TA.attention_full(lp, tcfg, x, pos, cache_len=4)
+
+
+def test_serve_step_builders(models):
+    from repro_torch.serving import serve_step as SS
+    _, tcfg, _, tp = models
+    toks = torch.from_numpy(np.random.RandomState(11).randint(
+        0, tcfg.vocab_size, size=(2, 7))).long()
+    logits, cache = SS.build_prefill_fn(tcfg, cache_len=12,
+                                        impl="flash")(tp, {"tokens": toks})
+    want = TM.prefill(tcfg, tp, {"tokens": toks}, cache_len=12)
+    torch.testing.assert_close(logits, want[0], **TOL)
+    nxt = torch.argmax(logits, dim=-1)
+    got = SS.build_decode_fn(tcfg)(tp, nxt, cache)
+    torch.testing.assert_close(got[0], TM.decode_step(tcfg, tp, nxt,
+                                                      cache)[0])
+    loss = SS.build_train_fn(tcfg, remat=False)(
+        tp, {"tokens": toks, "labels": toks})
+    assert loss.ndim == 0 and torch.isfinite(loss)
+    with pytest.raises(ValueError, match="A5"):
+        SS.build_prefill_chunk_fn(tcfg)
+    with pytest.raises(ValueError, match="A11"):
+        SS.build_decode_fn(tcfg, append="deferred")
