@@ -5,7 +5,7 @@ Phases — each raises on failure, so any failure exits non-zero:
 
 1. Print the card (``nvidia-smi`` name and power limit) and build every
    CUDA kernel of the port from ``src/repro_torch`` with ``nvcc`` (one
-   process per source, all three in parallel), printing the build time
+   process per source, all four in parallel), printing the build time
    and ptxas's register / shared-memory report.
 2. Hold each kernel against its plain PyTorch version on the card: the
    paged decode (B1) and the fused paged prefill (B2), at the serving
@@ -50,6 +50,36 @@ Phases — each raises on failure, so any failure exits non-zero:
    attention`` (a yardstick only) and its bound (bytes over 3.35 TB/s or
    the operations of the visible (query, key) pairs over the peak rate,
    whichever is larger); and the train step's tokens/s.
+9. Hold the WKV6 kernel (B4) against both its plain versions (the closed
+   chunked form at ``pick_chunk``'s chunk, and the per-token oracle) in
+   fp32: the sweep of ``tests/test_kernels.py`` and its decay extremes
+   (w = 0.01 and 0.999, at 1e-4; 3e-5 elsewhere), a random nonzero initial
+   state, S in {37, 200, 448, 127}, the engine round at full width (B=8,
+   S=64, H=64, D=64); padded steps (w=1, k=0) must leave the state bit
+   for bit as it was.
+10. Serve full-width RWKV6-7B (random weights from a seed) in fp32, cut
+   to its first 4 layers, through the engine's slot-resident plane: the
+   workload of
+   ``repro_torch.launch.serve.rwkv_smoke_server`` (8 requests, prompts
+   of 60-300 tokens, one of prime length, 32 output tokens, 4 slots,
+   chunk 64, recompute preemptions).  Every request's tokens must equal
+   ``generate_reference`` (whose prefill runs on B4 too), or diverge only
+   where the reference's top-2 logit gap is below 1e-4 (a tie that the
+   GEMMs' shape-dependent summation order may flip); B4's launches,
+   zeroed just before, must equal layers x prefill rounds in the engine
+   and layers x prompts in the reference.  The depth is cut because the
+   random-weight model amplifies fp32 rounding about twofold per layer:
+   the logits of one prompt run as 1 row and as 4 identical rows differ
+   by 6e-5 at 4 layers and by 0.15 at 32, where greedy tokens flip
+   without any fault (``scripts/rwkv_sensitivity.py``).
+11. The same workload in bf16 at full depth: tokens/s, B4 launches and
+   the wall of a decode step.
+12. Time B4 at the engine round's shape beside its plain chunked version
+   and its bound (bytes over 3.35 TB/s or its ~4 D^2 fp32 operations
+   per token and head over 67 TFLOP/s, whichever is larger); no single
+   PyTorch call computes WKV6, so its library time is null.
+
+Each phase prints the seconds since the start when it is done.
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
@@ -86,6 +116,9 @@ KERNELS = {
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:87"),
+    "wkv6": (
+        "src/repro_torch/kernels/rwkv_scan/csrc/wkv6.cu",
+        "src/repro/kernels/rwkv_scan/rwkv_scan.py:75"),
 }
 
 
@@ -670,6 +703,223 @@ def time_flash(torch, fa, fref, case, dtype):
 
 
 # --------------------------------------------------------------------- #
+# phase 9: the WKV6 kernel against its plain versions
+# --------------------------------------------------------------------- #
+
+#: tests/test_kernels.py's WKV6 tolerances (rtol = atol)
+WKV_TOL, WKV_TOL_EXTREME = 3e-5, 1e-4
+#: (S, H, D) of an engine prefill round of RWKV6-7B (chunk 64, 64 heads
+#: of 64); its B is the engine's slot count: 4 in the smoke engine, 8 in
+#: EngineConfig's default
+WKV_ROUND = (64, 64, 64)
+
+
+def wkv_case(torch, inp, B, S, H, D, wval=None, s0=False):
+    """tests/test_kernels.py's distributions: r, k, v ~ 0.3 N(0, 1), w in
+    (0.45, 0.95), u ~ 0.1 N(0, 1); ``wval`` a constant decay (u = 0)."""
+    r, k, v = (0.3 * inp.randn(B, S, H, D, dtype="float32")
+               for _ in range(3))
+    if wval is None:
+        w = torch.sigmoid(inp.randn(B, S, H, D, dtype="float32")) * 0.5 \
+            + 0.45
+        u = 0.1 * inp.randn(H, D, dtype="float32")
+    else:
+        w = torch.full((B, S, H, D), wval, device=DEVICE)
+        u = torch.zeros((H, D), device=DEVICE)
+    st = inp.randn(B, H, D, D, dtype="float32") if s0 else None
+    return r, k, v, w, u, st
+
+
+def check_wkv(torch, wkv, wref, case, chunk, tol, what) -> float:
+    r, k, v, w, u, s0 = case
+    y, s = wkv.wkv6_cuda(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for form, (wy, ws) in (
+            ("chunked", wref.wkv6_chunked_ref(r, k, v, w, u, s0, chunk)),
+            ("per-token", wref.wkv6_reference(r, k, v, w, u, s0))):
+        for name, got, want in (("y", y, wy), ("S_last", s, ws)):
+            err = (got - want).abs()
+            check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+            bad = err > tol + tol * want.abs()
+            check(not bool(bad.any()), f"{what}: {name} vs the {form} form: "
+                  f"max abs err {err.max().item():.3g} beyond rtol=atol={tol}")
+            worst = max(worst, err.max().item())
+    return worst
+
+
+def phase_wkv_kernel(torch, wkv, wref, pick_chunk, nslots):
+    inp = Inputs(torch, 5)
+    errs = {}
+    for B, S, H, D, chunk in [(1, 64, 2, 32, 16), (2, 128, 4, 32, 64),
+                              (1, 96, 2, 64, 32), (2, 64, 2, 32, 64)]:
+        name = f"wkv6 B{B} S{S} H{H} D{D} chunk{chunk}"
+        errs[name] = check_wkv(torch, wkv, wref,
+                               wkv_case(torch, inp, B, S, H, D), chunk,
+                               WKV_TOL, name)
+    for wval in (0.01, 0.999):
+        name = f"wkv6 w={wval}"
+        errs[name] = check_wkv(torch, wkv, wref,
+                               wkv_case(torch, inp, 1, 64, 2, 32, wval=wval),
+                               16, WKV_TOL_EXTREME, name)
+    for S in (37, 200, 448, 127):
+        name = f"wkv6 S{S} chunk{pick_chunk(S, 64)} s0"
+        errs[name] = check_wkv(torch, wkv, wref,
+                               wkv_case(torch, inp, 2, S, 4, 64, s0=True),
+                               pick_chunk(S, 64), WKV_TOL, name)
+    for B in (8, nslots):
+        name = "wkv6 B{} S{} H{} D{} s0".format(B, *WKV_ROUND)
+        errs[name] = check_wkv(torch, wkv, wref,
+                               wkv_case(torch, inp, B, *WKV_ROUND, s0=True),
+                               64, WKV_TOL, name)
+    errs["main_float32"] = errs[name]
+    # padded steps (w = 1, k = 0) leave the state bit for bit as it was
+    r, k, v, w, u, s0 = wkv_case(torch, inp, 4, 40, 64, 64, s0=True)
+    _, s = wkv.wkv6_cuda(r, k, v, w, u, s0)
+    pad = lambda t, val: torch.cat(  # noqa: E731
+        [t, torch.full_like(t[:, :24], val)], dim=1)
+    _, sp = wkv.wkv6_cuda(pad(r, 0.5), pad(k, 0.0), pad(v, 0.7), pad(w, 1.0),
+                          u, s0)
+    torch.cuda.synchronize()
+    check(torch.equal(sp, s), "wkv6: padded steps changed the state")
+    print(f"wkv6: {len(errs) - 1} comparisons with both plain versions pass "
+          f"(rtol=atol {WKV_TOL}, {WKV_TOL_EXTREME} at the decay extremes); "
+          f"engine-round shape max abs err {errs['main_float32']:.3g}; "
+          f"padded steps leave the state bit-equal")
+    return errs
+
+
+# --------------------------------------------------------------------- #
+# phases 10-11: serving RWKV6-7B on the slot plane
+# --------------------------------------------------------------------- #
+
+#: a reference top-2 logit gap below which a flipped greedy token is a tie
+TIE_GAP = 1e-4
+#: depth of the fp32 token check (full width): the random-weight model's
+#: own rounding noise in the logits is 6e-5 at 4 layers, 0.15 at 32
+RWKV_FP32_LAYERS = 4
+
+
+def reference_top2_gap(torch, M, cfg, params, prompt, tokens, pos) -> float:
+    """The reference's top-2 logit gap at output position ``pos``, on the
+    path ``generate_reference`` takes (prefill, then decode steps fed the
+    reference's own tokens)."""
+    toks = torch.tensor([list(prompt)], dtype=torch.long, device=DEVICE)
+    logits, cache = M.prefill(cfg, params, {"tokens": toks}, cache_len=0)
+    for t in tokens[:pos]:
+        logits, cache = M.decode_step(
+            cfg, params, torch.tensor([t], device=DEVICE), cache)
+    top = torch.topk(logits[0, :cfg.vocab_size].float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params):
+    from repro_torch.launch.serve import rwkv_smoke_server
+    from repro_torch.serving import generate_reference
+    eng, reqs = rwkv_smoke_server(cfg, params, device=DEVICE)
+    check(eng.cache is not None and eng.k_pools is None,
+          "the RWKV engine is not on the slot plane")
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    wkv.wkv6_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wkv.wkv6_cuda.launches
+    tokens = sum(len(o) for o in res.outputs.values())
+    print(f"RWKV6-7B fp32 serve ({L} layers, d={cfg.d_model}, "
+          f"{cfg.ssm_heads} heads x {cfg.ssm_state}): {len(reqs)} requests "
+          f"(prompts {[r.input_len for r in reqs]}), {tokens} tokens in "
+          f"{wall:.3f} s; {eng.prefill_rounds} prefill rounds, "
+          f"{eng.decode_steps} decode steps, preemptions "
+          f"{res.metrics.num_preemptions}; wkv6 launches {launches}")
+    check(launches == L * eng.prefill_rounds > 0,
+          f"wkv6 launched {launches} times, expected {L} x "
+          f"{eng.prefill_rounds} prefill rounds")
+    check(res.metrics.num_preemptions >= 1, "no recompute preemption")
+    check(all(r.finished for r in reqs), "unfinished requests")
+    t0 = time.perf_counter()
+    wkv.wkv6_cuda.launches = 0
+    refs = {r.rid: generate_reference(cfg, params, r.prompt, r.output_len,
+                                      cache_len=0, device=DEVICE)
+            for r in reqs}
+    ref_launches = wkv.wkv6_cuda.launches
+    check(ref_launches == L * len(reqs),
+          f"wkv6 launched {ref_launches} times in generate_reference, "
+          f"expected {L} x {len(reqs)} prefills")
+    diverged = {}
+    for r in reqs:
+        got, want = res.outputs[r.rid], refs[r.rid]
+        check(len(got) == len(want), f"rid {r.rid}: {len(got)} tokens")
+        if got != want:
+            pos = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            gap = reference_top2_gap(torch, M, cfg, params, r.prompt, want,
+                                     pos)
+            diverged[r.rid] = (pos, gap)
+            print(f"  rid {r.rid}: first diverging position {pos}, "
+                  f"reference top-2 logit gap there {gap:.3g}")
+    print(f"fp32 reference: {len(reqs) - len(diverged)}/{len(reqs)} "
+          f"requests token-identical; wkv6 launches in generate_reference "
+          f"{ref_launches} = {L} x {len(reqs)} ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    check(all(gap < TIE_GAP for _, gap in diverged.values()),
+          f"tokens differ from generate_reference beyond a tie: {diverged}")
+    return {"layers": L, "wall_s": wall, "tokens": tokens,
+            "launches": launches, "reference_launches": ref_launches,
+            "prefill_rounds": eng.prefill_rounds,
+            "decode_steps": eng.decode_steps,
+            "preemptions": res.metrics.num_preemptions,
+            "diverged": diverged}
+
+
+def phase_rwkv_serve_bf16(torch, wkv, cfg, params):
+    from repro_torch.launch.serve import rwkv_smoke_server
+    eng, reqs = rwkv_smoke_server(cfg, params, device=DEVICE)
+    torch.cuda.synchronize()
+    wkv.wkv6_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wkv.wkv6_cuda.launches
+    check(launches == cfg.num_layers * eng.prefill_rounds > 0,
+          f"wkv6 launched {launches} times, expected {cfg.num_layers} x "
+          f"{eng.prefill_rounds}")
+    tokens = sum(len(o) for o in res.outputs.values())
+    decode_walls = [b.wall_s for b in res.metrics.batches
+                    if b.num_decode and not b.num_prefill]
+    step_ms = 1e3 * sum(decode_walls) / max(1, len(decode_walls))
+    print(f"RWKV6-7B bf16 serve ({cfg.num_layers} layers): {tokens} tokens "
+          f"in {wall:.3f} s = {tokens / wall:.1f} tok/s; wkv6 launches "
+          f"{launches} = {cfg.num_layers} x {eng.prefill_rounds} prefill "
+          f"rounds; {eng.decode_steps} decode steps, mean wall of a "
+          f"decode-only batch {step_ms:.2f} ms over {len(decode_walls)}; "
+          f"phases {res.phase_stats}")
+    return {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
+            "launches": launches, "prefill_rounds": eng.prefill_rounds,
+            "decode_steps": eng.decode_steps, "decode_step_ms": step_ms,
+            "phase_stats": res.phase_stats}
+
+
+# --------------------------------------------------------------------- #
+# phase 12: timing the WKV6 kernel
+# --------------------------------------------------------------------- #
+
+def time_wkv(torch, wkv, wref, case):
+    r, k, v, w, u, s0 = case
+    B, S, H, D = r.shape
+    nbytes = (5 * r.numel() + u.numel() + 2 * B * H * D * D) * 4
+    ops = 4 * D * D * B * S * H
+    b_ms, b_by = bound(nbytes, ops, "float32")
+    ms = time_ms(torch, lambda: wkv.wkv6_cuda(*case))
+    plain = time_ms(torch, lambda: wref.wkv6_chunked_ref(*case, 64))
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, bytes=nbytes, ops=ops, shape=list(r.shape),
+                dtype="float32")
+
+
+# --------------------------------------------------------------------- #
 
 def _tree_to(tree, dtype):
     return {k: _tree_to(v, dtype) if isinstance(v, dict) else v.to(dtype)
@@ -698,8 +948,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.paged_attention import ref
-    from repro_torch.launch.serve import SMOKE_ARCH, SMOKE_ENGINE, SMOKE_M
+    from repro_torch.kernels.rwkv_scan import ref as wref
+    from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
+    from repro_torch.launch.serve import (SMOKE_ARCH, SMOKE_ENGINE, SMOKE_M,
+                                          SMOKE_RWKV_ARCH, SMOKE_RWKV_ENGINE)
     from repro_torch.models import model as M
+    from repro_torch.models.ssm import pick_chunk
 
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -715,9 +969,10 @@ def main(argv=None) -> int:
         print(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
 
     t0 = time.perf_counter()
-    cuda_build.build([pa.DECODE_SRC, pa.PREFILL_SRC, fa.SRC])
+    cuda_build.build([pa.DECODE_SRC, pa.PREFILL_SRC, fa.SRC, wkv.SRC])
     pa.build_all()
     fa.build_all()
+    wkv.build_all()
     build_s = time.perf_counter() - t0
     print(f"nvcc build of {len(cuda_build.BUILD_REPORT)} sources in "
           f"parallel: {build_s:.1f} s wall")
@@ -734,6 +989,8 @@ def main(argv=None) -> int:
     with torch.no_grad():
         errs = phase_kernels(torch, pa, ref, P_main, ecfg)
         errs["flash_attention"] = phase_flash_kernel(torch, fa, fref)
+        errs["wkv6"] = phase_wkv_kernel(torch, wkv, wref, pick_chunk,
+                                        SMOKE_RWKV_ENGINE.nslots)
         lap("kernel checks")
 
         cfg = dataclasses.replace(get_config(SMOKE_ARCH), dtype="float32")
@@ -775,15 +1032,43 @@ def main(argv=None) -> int:
                 torch, fa, fref, flash_case(inp, 1, 2048, 32, 4, 64,
                                             "bfloat16"), "bfloat16")}
         lap("timing")
-    launches = dict(fp32["launches"], flash_attention=prefill["launches"])
+
+        rcfg = dataclasses.replace(get_config(SMOKE_RWKV_ARCH),
+                                   dtype="float32",
+                                   num_layers=RWKV_FP32_LAYERS)
+        rparams = M.init_params(rcfg, seed=0, device=DEVICE)
+        rwkv32 = phase_rwkv_serve_fp32(torch, wkv, M, rcfg, rparams)
+        del rparams
+        torch.cuda.empty_cache()
+        lap("RWKV6-7B fp32 serve")
+        rcfg16 = dataclasses.replace(get_config(SMOKE_RWKV_ARCH),
+                                     dtype="bfloat16")
+        rparams16 = M.init_params(rcfg16, seed=0, device=DEVICE)
+        rwkv16 = phase_rwkv_serve_bf16(torch, wkv, rcfg16, rparams16)
+        del rparams16
+        torch.cuda.empty_cache()
+        lap("RWKV6-7B bf16 serve")
+
+        times["wkv6"] = time_wkv(torch, wkv, wref, wkv_case(
+            torch, inp, SMOKE_RWKV_ENGINE.nslots, *WKV_ROUND, s0=True))
+        times["wkv6_B8"] = time_wkv(torch, wkv, wref, wkv_case(
+            torch, inp, 8, *WKV_ROUND, s0=True))
+        lap("wkv6 timing")
+    launches = dict(fp32["launches"], flash_attention=prefill["launches"],
+                    wkv6=rwkv32["launches"])
     shapes = {"paged_decode": "serving shapes",
               "paged_prefill": "serving shapes",
-              "flash_attention": "full-prefill shapes B2 S512 H32 Hkv4"}
+              "flash_attention": "full-prefill shapes B2 S512 H32 Hkv4",
+              "wkv6": "engine round B{} S{} H{} D{}".format(
+                  SMOKE_RWKV_ENGINE.nslots, *WKV_ROUND)}
     kernels = []
-    for name in ("paged_decode", "paged_prefill", "flash_attention"):
+    for name in ("paged_decode", "paged_prefill", "flash_attention", "wkv6"):
         t = times[name]
-        print(f"{name} (bf16, {shapes[name]}): {t['ms']:.4f} ms; plain "
-              f"{t['plain_ms']:.4f} ms; sdpa {t['library_ms']:.4f} ms; "
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
+        print(f"{name} ({'fp32' if name == 'wkv6' else 'bf16'}, "
+              f"{shapes[name]}): {t['ms']:.4f} ms; plain "
+              f"{t['plain_ms']:.4f} ms; library {lib}; "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
               f"{t['bytes']:.3g} B, {t['ops']:.3g} ops)")
         kernels.append({"name": name, "route": "cuda",
@@ -800,9 +1085,15 @@ def main(argv=None) -> int:
               f" ms; sdpa {t['library_ms']:.4f} ms; bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.3g} B, "
               f"{t['ops']:.3g} ops)")
+    t = times["wkv6_B8"]
+    print(f"wkv6 (fp32, B{t['shape'][0]} S{t['shape'][1]} H{t['shape'][2]} "
+          f"D{t['shape'][3]}): {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} "
+          f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+          f"{t['bytes']:.3g} B, {t['ops']:.3g} ops)")
     times["flash_attention_more"] = flash_more
     report.update(errors=errs, serve_fp32=fp32, serve_bf16=bf16,
                   full_prefill=prefill, train=train, timings=times,
+                  rwkv_serve_fp32=rwkv32, rwkv_serve_bf16=rwkv16,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

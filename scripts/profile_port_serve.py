@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's served run goes, on one NVIDIA card.
 
-    python3 scripts/profile_port_serve.py [--dtype bfloat16] [--report PATH]
+    python3 scripts/profile_port_serve.py [--arch tinyllama-1.1b|rwkv6-7b]
+                                          [--dtype bfloat16] [--report PATH]
 
 Serves the smoke workload of ``repro_torch.launch.serve.smoke_server``
-(full-width TinyLlama-1.1B, the paged engine, its two CUDA kernels)
-twice: once plainly, for the wall time per step, and once with engine
+(full-width TinyLlama-1.1B, the paged engine, its two CUDA kernels), or
+with ``--arch rwkv6-7b`` that of ``rwkv_smoke_server`` (full-width
+RWKV6-7B, the slot-resident plane, the WKV6 kernel), twice: once plainly, for the wall time per step, and once with engine
 steps 40-59 (decode steps, mostly) under
 ``torch.profiler`` (CPU + CUDA activities, a device sync after each
 step), for the device time and launch counts by kernel name; the
@@ -21,6 +23,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -87,6 +90,8 @@ def instrument(torch, eng, after):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    choices=["tinyllama-1.1b", "rwkv6-7b"])
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--report")
@@ -98,20 +103,31 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_attention as pa
-    from repro_torch.launch.serve import SMOKE_ARCH, smoke_server
+    from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
+    from repro_torch.launch.serve import (SMOKE_ARCH, SMOKE_RWKV_ARCH,
+                                          rwkv_smoke_server, smoke_server)
     from repro_torch.models import model as M
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    pa.build_all()
-    cfg = dataclasses.replace(get_config(SMOKE_ARCH), dtype=args.dtype)
-    out = {"dtype": args.dtype,
-           "card": torch.cuda.get_device_name(0)}
+    if args.arch == SMOKE_RWKV_ARCH:
+        wkv.build_all()
+        server = rwkv_smoke_server
+    else:
+        assert args.arch == SMOKE_ARCH
+        pa.build_all()
+        server = smoke_server
+    cfg = dataclasses.replace(get_config(args.arch), dtype=args.dtype)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    out = {"arch": args.arch, "dtype": args.dtype,
+           "card": smi.stdout.strip().splitlines()[0]}
     with torch.no_grad():
         params = M.init_params(cfg, seed=0, device="cuda")
 
         out["host_us_per_tiny_op"] = host_us_per_tiny_op(torch)
 
-        eng, reqs = smoke_server(cfg, params)
+        eng, reqs = server(cfg, params)
         plain = instrument(torch, eng, lambda: None)
         t0 = time.perf_counter()
         eng.run(reqs)
@@ -128,7 +144,7 @@ def main(argv=None) -> int:
                    prefill_s=eng.phase_stats["prefill_s"])
 
         # profiled: engine steps WAIT..WAIT+ACTIVE only (mostly decode)
-        eng, reqs = smoke_server(cfg, params)
+        eng, reqs = server(cfg, params)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=WAIT - 1, warmup=1,
@@ -149,7 +165,7 @@ def main(argv=None) -> int:
                device_ms_per_step=device_s / ACTIVE * 1e3,
                device_busy_share=device_s / window["wall_s"])
     out["top_kernels"] = top_kernels(by_kernel)
-    print(f"{out['card']}, {args.dtype}: {steps} steps "
+    print(f"{out['card']}, {args.arch} {args.dtype}: {steps} steps "
           f"({eng.decode_steps} decode) in {wall:.3f} s unprofiled = "
           f"{out['wall_ms_per_step']:.2f} ms/step, "
           f"{out['wall_ms_per_decode_step']:.2f} ms per decode step; "

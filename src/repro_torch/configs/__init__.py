@@ -1,5 +1,5 @@
-"""Config registry: importing this package registers the dense
-architectures (the family this port serves)."""
+"""Config registry: importing this package registers the architectures
+this port serves: the dense family and RWKV6 (``family="ssm"``)."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ModelConfig,
@@ -16,4 +16,5 @@ from repro_torch.configs import (  # noqa: F401
     qwen3_4b,
     llama2_7b,
     llama3_8b,
+    rwkv6_7b,
 )

@@ -16,14 +16,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import NoBackwardError
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_reference
-
-
-class NoBackwardError(Exception):
-    """A gradient was asked of the forward-only flash-attention kernel.
-    Not a ``RuntimeError``, so ``run_with_retries`` does not retry it."""
 
 
 class _ForwardOnly(torch.autograd.Function):

@@ -1,17 +1,20 @@
 """Serving launcher: ``python -m repro_torch.launch.serve [--full]``.
 
-Runs the continuous-batching engine's paged plane on a workload with the
-selected scheduling / cache-replacement policy (the paper's deployment
-path) and prints the §5.1 metrics.  Runs on ``--device cuda`` (the
-default) through the hand-written paged-attention kernels; ``--device
-cpu`` runs their plain PyTorch versions.  Without ``--full`` the model is
-the config's ``reduced()`` variant widened to 64-dim heads (the smallest
-head the CUDA kernels take); weights are random, from ``--seed``.
+Runs the continuous-batching engine on a workload with the selected
+scheduling / cache-replacement policy (the paper's deployment path) and
+prints the §5.1 metrics.  A dense ``--arch`` runs on the paged plane
+(the hand-written paged-attention kernels); ``--arch rwkv6-7b`` on the
+slot-resident plane (the hand-written WKV6 kernel).  Runs on ``--device
+cuda`` (the default); ``--device cpu`` runs the kernels' plain PyTorch
+versions.  Without ``--full`` the model is the config's ``reduced()``
+variant (a dense one widened to 64-dim heads, the smallest head the
+paged kernels take); weights are random, from ``--seed``.
 
 ``smoke_server`` builds the card's fixed smoke workload (full-width
 TinyLlama-1.1B, a shared-prefix workload with registry hits and recompute
 preemptions) that ``chip_smoke.py`` and ``scripts/profile_port_serve.py``
-both serve.
+both serve; ``rwkv_smoke_server`` the RWKV6-7B one (8 requests of 60-300
+prompt tokens on 4 slots, with recompute preemptions).
 """
 from __future__ import annotations
 
@@ -19,8 +22,11 @@ import argparse
 import logging
 from dataclasses import replace
 
+import numpy as np
+
 from repro_torch.configs import get_config
-from repro_torch.core import TheoreticalCostModel, get_hardware, make_scheduler
+from repro_torch.core import (Request, TheoreticalCostModel, get_hardware,
+                              make_scheduler)
 from repro_torch.data import (azureconv_like, fixed_grid, hetero_mix,
                               longform_like, shared_prefix)
 from repro_torch.models import model as M
@@ -60,6 +66,36 @@ def smoke_server(cfg, params, device: str = "cuda"):
     return eng, shared_prefix(**SMOKE_WORKLOAD)
 
 
+# the RWKV6 smoke workload: 8 requests (one prompt of prime length, 127)
+# of 32 output tokens on 4 slots, chunk 64, over an 800-token budget that
+# forces recompute preemptions (2 on this schedule)
+SMOKE_RWKV_ARCH = "rwkv6-7b"
+SMOKE_RWKV_M = 800
+SMOKE_RWKV_ENGINE = EngineConfig(nslots=4, cache_len=512, chunk=64,
+                                 page_size=16, plane="batched")
+SMOKE_RWKV_PROMPTS = (60, 127, 300, 200, 96, 256, 160, 72)
+SMOKE_RWKV_OUTPUT = 32
+
+
+def rwkv_smoke_requests(vocab: int, seed: int = 0):
+    rs = np.random.RandomState(seed)
+    return [Request(rid=i, input_len=n, output_len=SMOKE_RWKV_OUTPUT,
+                    arrival=0.0, prompt=rs.randint(0, vocab, size=n).tolist())
+            for i, n in enumerate(SMOKE_RWKV_PROMPTS)]
+
+
+def rwkv_smoke_server(cfg, params, device: str = "cuda"):
+    """A warmed slot-plane ``Engine`` (vLLM scheduler, SRF replacement)
+    and fresh requests of the RWKV6 smoke workload, for ``cfg``/``params``
+    of ``SMOKE_RWKV_ARCH`` in any dtype (or depth)."""
+    sched = make_scheduler("vllm", SMOKE_RWKV_M,
+                           S=SMOKE_RWKV_ENGINE.cache_len, replacement="srf")
+    eng = Engine(cfg, params, sched, SMOKE_RWKV_ENGINE,
+                 cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
+                 device=device).warmup()
+    return eng, rwkv_smoke_requests(cfg.vocab_size)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -88,7 +124,9 @@ def main(argv=None) -> int:
 
     cfg = get_config(args.arch)
     if not args.full:
-        cfg = replace(cfg.reduced(), head_dim=64)
+        cfg = cfg.reduced()
+        if cfg.family != "ssm":
+            cfg = replace(cfg, head_dim=64)
     params = M.init_params(cfg, args.seed, device=args.device)
     reqs = WORKLOADS[args.workload](cfg.vocab_size)
     # crop requests to the engine's context budget
@@ -108,8 +146,9 @@ def main(argv=None) -> int:
                  cost_model=cm, device=args.device)
     res = eng.run(reqs)
     s = res.metrics.summary()
-    log.info("device=%s scheduler=%s replacement=%s workload=%s",
-             args.device, args.scheduler, args.replacement, args.workload)
+    log.info("arch=%s device=%s scheduler=%s replacement=%s workload=%s",
+             cfg.name, args.device, args.scheduler, args.replacement,
+             args.workload)
     for k, v in s.items():
         log.info("  %-16s %.6g", k, v)
     log.info("wall time %.2fs; trie hits %d; sample output rid=0: %s",

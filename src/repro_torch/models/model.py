@@ -1,12 +1,13 @@
-"""Decoder-LM assembly for the dense family: a Python loop over layers
-whose parameters are stacked on a leading ``L`` axis, as in
-``repro.models.model`` (``lax.scan`` there).
+"""Decoder-LM assembly for the dense and RWKV6 (``ssm``) families: a
+Python loop over layers whose parameters are stacked on a leading ``L``
+axis, as in ``repro.models.model`` (``lax.scan`` there).
 
 Public API (functional, on nested dicts of tensors):
   init_params(cfg, seed, device=...)          -> params
   params_from_jax(tree_of_numpy, device=...)  -> params
   train_loss(cfg, params, batch, impl=...)    -> scalar loss
   prefill(cfg, params, batch, cache_len, impl=...) -> (last_logits, cache)
+  prefill_chunk(cfg, params, tokens, cache, length=...) -> (logits, cache)
   decode_step(cfg, params, tokens, cache, impl=...) -> (logits, cache)
   init_cache(cfg, batch, cache_len, device=...) -> cache
 
@@ -16,14 +17,20 @@ a backward through it raises, as the JAX package has none either);
 decode takes the reference branch for it, as in JAX.
 
 The cache dict carries "index" (B,) = tokens already in context (== next
-absolute position), plus "k"/"v" of shape (L, B, cache_len, Hkv, D).
-Only the dense, unbounded-attention family is ported: mixture-of-experts,
-sliding-window/hybrid, RWKV and the VLM/audio frontends raise
-``ValueError`` naming the ROADMAP item that ports them.
+absolute position), plus, for the dense family, "k"/"v" of shape
+(L, B, cache_len, Hkv, D), and for RWKV6 the recurrent state "S"
+(L, B, H, D, D) fp32 and the token-shift samples "x_tm"/"x_cm"
+(L, B, 1, d).  RWKV6's full-sequence time-mix runs on the WKV6 kernel
+(``kernels.rwkv_scan``), forward-only, so ``train_loss`` refuses it
+(ROADMAP A9); ``prefill_chunk`` (the batched plane's chunk step) is
+ported for RWKV6 only (the dense family's needs ``attention_chunk`` with
+a length mask, ROADMAP A5).  Mixture-of-experts, sliding-window/hybrid
+and the VLM/audio frontends raise ``ValueError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,24 +38,33 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (Params, embed_init, gated_mlp,
                                        gated_mlp_init, rms_norm,
                                        softmax_cross_entropy)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` unless ``cfg`` is a family this port runs."""
+def check_supported(cfg: ModelConfig, *, train: bool = False,
+                    chunked: bool = False) -> None:
+    """Raise ``ValueError`` unless ``cfg`` is a family this port runs
+    (``train``: one it trains; ``chunked``: one ``prefill_chunk`` runs)."""
     if cfg.num_experts:
         raise ValueError(f"{cfg.name}: mixture-of-experts layers are not "
                          "ported yet (ROADMAP A7)")
     if cfg.window or cfg.family == "hybrid":
         raise ValueError(f"{cfg.name}: sliding-window/hybrid attention is "
                          "not ported yet (ROADMAP A8)")
-    if cfg.family == "ssm":
-        raise ValueError(f"{cfg.name}: RWKV6 is not ported yet (ROADMAP A9)")
-    if cfg.family != "dense" or cfg.frontend != "none":
+    if cfg.family == "ssm" and train:
+        raise ValueError(f"{cfg.name}: training RWKV6 needs a backward "
+                         "through the forward-only WKV6 kernel, which "
+                         "neither package has (ROADMAP A9)")
+    if cfg.family not in ("dense", "ssm") or cfg.frontend != "none":
         raise ValueError(f"{cfg.name}: the {cfg.family!r} family/frontends "
                          "are not ported yet (ROADMAP A10)")
+    if chunked and cfg.family != "ssm":
+        raise ValueError(f"{cfg.name}: prefill_chunk on the dense family "
+                         "needs attention_chunk with a length mask, not "
+                         "ported yet (ROADMAP A5)")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -75,10 +91,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
         return torch.zeros(shape, dtype=dtype, device=device)
 
     d = cfg.d_model
-    layers: Params = {
-        "ln1": zeros(*lead, d), "ln2": zeros(*lead, d),
-        "attn": attn.init_attention(gen, cfg, dtype, lead),
-        "mlp": gated_mlp_init(gen, d, cfg.d_ff, dtype, lead)}
+    layers: Params = {"ln1": zeros(*lead, d), "ln2": zeros(*lead, d)}
+    if cfg.family == "ssm":
+        layers.update(rwkv_mod.init_rwkv_layer(gen, cfg, dtype, lead))
+    else:
+        layers.update(attn=attn.init_attention(gen, cfg, dtype, lead),
+                      mlp=gated_mlp_init(gen, d, cfg.d_ff, dtype, lead))
     params: Params = {"embed": embed_init(gen, cfg.padded_vocab, d, dtype),
                       "ln_f": zeros(d), "layers": layers}
     if not cfg.tie_embeddings:
@@ -147,9 +165,20 @@ def _logits(cfg: ModelConfig, params: Params,
 # --------------------------------------------------------------------- #
 
 
+#: the recurrent-state leaves of an RWKV6 cache, each stacked on L
+SSM_LEAVES = ("S", "x_tm", "x_cm")
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device: str = "cuda", dtype=None) -> Dict[str, torch.Tensor]:
     check_supported(cfg)
+    if cfg.family == "ssm":          # O(1) state: cache_len plays no part
+        st = rwkv_mod.init_rwkv_state(cfg, batch, device=device)
+        cache = {"index": torch.zeros((batch,), dtype=torch.int32,
+                                      device=device)}
+        cache.update({k: torch.stack([st[k]] * cfg.num_layers)
+                      for k in SSM_LEAVES})
+        return cache
     dtype = dtype or _dtype(cfg)
     shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
              cfg.head_dim_)
@@ -158,11 +187,30 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _rwkv_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                state: Dict[str, torch.Tensor],
+                length: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One RWKV6 block (time-mix + channel-mix) continuing from the
+    layer's ``state``; ``length`` (B,) marks each row's real prefix."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y, st = rwkv_mod.rwkv_time_mix_full(lp, cfg, h, state, length=length)
+    x = x + y
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    cm, st["x_cm"] = rwkv_mod.rwkv_channel_mix(lp, cfg, h2, state["x_cm"],
+                                               length=length)
+    return x + cm, st
+
+
 def _block_full(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                 positions: torch.Tensor, impl: str,
                 cache_len: int) -> Tuple[torch.Tensor, Dict]:
-    """One full-sequence transformer block: (x, layer cache or {}).  No
-    prefix-LM here: the frontends that make one are not ported (A10)."""
+    """One full-sequence block: (x, layer cache or {}); an RWKV6 block
+    starts from a zero state and always returns its state.  No prefix-LM
+    here: the frontends that make one are not ported (A10)."""
+    if cfg.family == "ssm":
+        state = rwkv_mod.init_rwkv_state(cfg, x.shape[0], device=x.device)
+        return _rwkv_block(cfg, lp, x, state)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, kv = attn.attention_full(lp["attn"], cfg, h, positions, impl=impl,
                                 cache_len=cache_len)
@@ -183,7 +231,7 @@ def train_loss(cfg: ModelConfig, params: Params,
     against ``batch["labels"]`` (labels < 0 masked).  ``remat`` keeps
     only each layer's input for the backward and recomputes the layer
     (``jax.checkpoint`` of the layer body in the JAX package)."""
-    check_supported(cfg)
+    check_supported(cfg, train=True)
     tokens, labels = batch["tokens"], batch["labels"]
     positions = _positions(tokens)
     x = _embed(cfg, params, tokens)
@@ -211,22 +259,65 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     B, S = tokens.shape
     positions = _positions(tokens)
     x = _embed(cfg, params, tokens)
-    ks, vs = [], []
+    layer_caches = []
     for lp in unstack_layers(params):
-        x, kv = _block_full(cfg, lp, x, positions, impl, cache_len)
-        if cache_len:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+        x, lc = _block_full(cfg, lp, x, positions, impl, cache_len)
+        layer_caches.append(lc)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _logits(cfg, params, x[:, -1])
     length = batch.get("length")
     index = (torch.full((B,), S, dtype=torch.int32, device=tokens.device)
              if length is None else length.to(torch.int32))
     cache: Dict[str, torch.Tensor] = {"index": index}
-    if cache_len:
-        cache["k"] = torch.stack(ks)
-        cache["v"] = torch.stack(vs)
+    cache.update(_stack(layer_caches))
     return logits, cache
+
+
+def _stack(layer_caches: List[Dict[str, torch.Tensor]]
+           ) -> Dict[str, torch.Tensor]:
+    """Per-layer cache dicts -> one dict of leaves stacked on L."""
+    if not layer_caches or not layer_caches[0]:
+        return {}
+    return {k: torch.stack([lc[k] for lc in layer_caches])
+            for k in layer_caches[0]}
+
+
+def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], *,
+                  impl: str = "reference",
+                  length: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Process the next c prompt tokens of each row against an existing
+    cache (chunked prefill): tokens (B, c); ``cache["index"]`` (B,) =
+    tokens already cached.  Returns (last-token logits (B, Vpad), a new
+    cache with index += c); the input cache is not modified.
+
+    ``length`` (B,) makes the call shape-stable (the engine's bucketed
+    rounds): only the first ``length[b]`` tokens of row b are real, the
+    logits row is the last valid token's, ``index`` advances by
+    ``length``, and padded steps leave the state as it was.  Rows with
+    length 0 are inert (logits garbage, state untouched).  RWKV6 only;
+    ``impl`` is accepted for the JAX signature (no attention here)."""
+    check_supported(cfg, chunked=True)
+    B, c = tokens.shape
+    start = cache["index"]
+    x = _embed(cfg, params, tokens)
+    layer_caches = []
+    for l, lp in enumerate(unstack_layers(params)):
+        x, st = _rwkv_block(cfg, lp, x, {k: cache[k][l] for k in SSM_LEAVES},
+                            length)
+        layer_caches.append(st)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    if length is None:
+        x_last, advance = x[:, -1], c
+    else:
+        last = torch.clamp(length - 1, min=0).long()
+        x_last = torch.take_along_dim(
+            x, last[:, None, None].expand(B, 1, x.shape[-1]), dim=1)[:, 0]
+        advance = length
+    out = _stack(layer_caches)
+    out["index"] = (start + advance).to(torch.int32)
+    return _logits(cfg, params, x_last), out
 
 
 #: decode backends of the JAX package that this port does not have yet
@@ -248,6 +339,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         tokens = tokens[:, None]
     index = cache["index"]
     x = _embed(cfg, params, tokens)
+    if cfg.family == "ssm":
+        return _decode_rwkv(cfg, params, x, cache)
     ks, vs = [], []
     for l, lp in enumerate(unstack_layers(params)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -262,3 +355,24 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     logits = _logits(cfg, params, x[:, 0])
     return logits, {"index": index + 1, "k": torch.stack(ks),
                     "v": torch.stack(vs)}
+
+
+def _decode_rwkv(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                 cache: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """RWKV6 decode: the O(1) recurrence per layer (plain torch, as in
+    JAX, which has no kernel there)."""
+    layer_caches = []
+    for l, lp in enumerate(unstack_layers(params)):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, st = rwkv_mod.rwkv_time_mix_decode(
+            lp, cfg, h, {k: cache[k][l] for k in SSM_LEAVES})
+        x = x + y
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        cm, st["x_cm"] = rwkv_mod.rwkv_channel_mix(lp, cfg, h2, st["x_cm"])
+        x = x + cm
+        layer_caches.append(st)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    out = _stack(layer_caches)
+    out["index"] = cache["index"] + 1
+    return _logits(cfg, params, x[:, 0]), out

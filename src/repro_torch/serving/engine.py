@@ -1,5 +1,6 @@
 """Continuous-batching serving engine on PyTorch — the paper's deployment
-path (Fig. 1) with the paged data plane on hand-written CUDA kernels.
+path (Fig. 1) with the paged data plane on hand-written CUDA kernels, and
+the slot-resident plane for RWKV6.
 
 The engine drives the unified ``Scheduler`` (Algorithm 1) against the
 real model.  Memory accounting (the scheduler's M) is backed by a
@@ -8,8 +9,8 @@ page-rounded occupancy against the allocator's page-rounded capacity
 (``ceil(M/page_size)`` pages), so a schedule the control plane admits is
 allocator-feasible by construction.
 
-Data plane (``plane="paged"``, the only plane of this port): attention
-KV lives in shared per-layer page pools (``serving.paged_plane``);
+Data planes.  ``plane="paged"`` on the dense family (the pooled plane):
+attention KV lives in shared per-layer page pools (``serving.paged_plane``);
 prefill writes K/V through the block table into owned pages with the
 fused paged-prefill kernel, and decode appends one row per slot and runs
 the paged flash-decoding kernel.  On top of the pooled pages:
@@ -31,9 +32,21 @@ the paged flash-decoding kernel.  On top of the pooled pages:
   is unchanged, a decode step's inputs are the previous step's device
   outputs: nothing is uploaded.
 
-Preemption is ``preempt_mode="recompute"``: a victim's pages are freed
-and its re-admission pays a full refill prefill (§3).  Sampling is fused
-on the device; only ``(nslots,)`` int32 ids reach the host each step.
+The slot-resident plane (``plane="batched"``, and ``plane="paged"`` on a
+family whose state is not worth paging: RWKV6's is O(1) per request, as
+in the JAX engine): every slot's recurrent state lives in one cache of
+``models.model.init_cache(cfg, nslots, ...)``.  A prefill round is ONE
+``prefill_chunk`` call over ``(nslots, bucket)`` tokens and ``(nslots,)``
+lengths (the WKV6 kernel runs once per layer), a decode step one
+``decode_step`` over all slots; each merges its new state into the
+active rows only, and a claimed slot's state is zeroed first.  The
+allocator still keeps the page-rounded control plane (the scheduler's
+M); prefix sharing, which maps KV pages, runs on the pooled plane only.
+
+Preemption is ``preempt_mode="recompute"``: a victim's pages (or slot)
+are freed and its re-admission pays a full refill prefill (§3).
+Sampling is fused on the device; only ``(nslots,)`` int32 ids reach the
+host each step.
 
 Differences from the JAX engine (``repro.serving.engine``):
 
@@ -45,8 +58,9 @@ Differences from the JAX engine (``repro.serving.engine``):
 * ``num_compiles`` is 0: PyTorch runs eagerly and the CUDA kernels are
   built once per source.  ``warmup()`` loads the kernels and runs every
   ladder bucket and the decode step once with inert inputs.
-* Settings of other planes or paths raise ``ValueError`` naming the
-  ROADMAP item that will port them.
+* Settings this port does not run yet (the dense family on the slot
+  plane, the ``legacy`` plane, swap, faults, the host tier) raise
+  ``ValueError`` naming the ROADMAP item that will port them.
 
 Correctness contract (tested against the JAX engine on the CPU, and
 against ``generate_reference`` on the card): scheduling, chunking,
@@ -74,7 +88,10 @@ from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.simulator import BatchLog, SimResult
 from repro_torch.core import stat_keys as SK
 from repro_torch.models import model as M
-from repro_torch.serving.paged_plane import build_paged_fns, init_pools
+from repro_torch.serving.paged_plane import (build_paged_fns, init_pools,
+                                             paged_supported)
+from repro_torch.serving.serve_step import (build_decode_fn,
+                                            build_prefill_chunk_fn)
 
 
 @dataclass
@@ -83,8 +100,10 @@ class EngineConfig:
     cache_len: int = 256          # per-request context capacity (tokens)
     chunk: int = 64               # chunked-prefill chunk size
     page_size: int = 16           # allocator granularity = KV page size
-    plane: str = "paged"          # the pooled paged plane; "batched" and
-    #                               "legacy" are not ported (ROADMAP A5)
+    plane: str = "paged"          # "paged": pooled KV pages (dense) or
+    #                               slot-resident state (RWKV6);
+    #                               "batched": slot-resident (RWKV6 only;
+    #                               dense is ROADMAP A5); "legacy": A5
     prefix_lookup: Optional[str] = None  # "trie" | "exact"; None keeps
     #                               the SchedulerConfig's choice, set it is
     #                               written through (like page_size)
@@ -119,10 +138,15 @@ def _validate(cfg: ModelConfig, ecfg: EngineConfig,
     """Refuse every setting this port does not run yet, naming the
     ROADMAP item that ports it."""
     scfg = scheduler.cfg
-    if ecfg.plane != "paged":
-        raise ValueError(f"plane {ecfg.plane!r} is not ported (ROADMAP A5); "
-                         "use plane='paged'")
-    M.check_supported(cfg)         # the dense family only (A7-A10)
+    if ecfg.plane not in ("batched", "legacy", "paged"):
+        raise ValueError(f"unknown plane {ecfg.plane!r}")
+    if ecfg.plane == "legacy":
+        raise ValueError("plane 'legacy' is not ported (ROADMAP A5)")
+    M.check_supported(cfg)         # dense and RWKV6 only (A7, A8, A10)
+    if ecfg.plane == "batched" and paged_supported(cfg):
+        raise ValueError("plane 'batched' (slot-resident KV) for the dense "
+                         "family is not ported (ROADMAP A5); use "
+                         "plane='paged'")
     if scfg.preempt_mode != "recompute":
         raise ValueError(f"preempt_mode {scfg.preempt_mode!r} is not ported "
                          "(ROADMAP A5); use 'recompute'")
@@ -178,11 +202,22 @@ class Engine:
             policy=make_replacement_policy(scheduler.cfg.cache_policy,
                                            cost_model=cost_model,
                                            M=scheduler.cfg.M))
+        # pooled paged plane for unbounded dense attention; the bounded
+        # state of RWKV6 stays slot-resident
+        self._pooled = ecfg.plane == "paged" and paged_supported(cfg)
         pg = ecfg.page_size
         self.max_pages = -(-ecfg.cache_len // pg)
-        self.k_pools, self.v_pools = init_pools(
-            cfg, self.allocator.num_pages, pg, device=device)
-        self._paged_prefill, self._paged_decode = build_paged_fns(cfg)
+        if self._pooled:
+            self.k_pools, self.v_pools = init_pools(
+                cfg, self.allocator.num_pages, pg, device=device)
+            self._paged_prefill, self._paged_decode = build_paged_fns(cfg)
+            self.cache = None
+        else:
+            self.k_pools = self.v_pools = None
+            self.cache = M.init_cache(cfg, ecfg.nslots, ecfg.cache_len,
+                                      device=device)
+            self._chunk_fn = build_prefill_chunk_fn(cfg)
+            self._decode_fn = build_decode_fn(cfg)
         # shared-prefix bookkeeping: chained page keys per rid and the
         # per-grant data-plane skip from a registry hit
         self._page_keys_of: Dict[int, List[int]] = {}
@@ -210,7 +245,9 @@ class Engine:
         self.swap_stats: Dict[str, float] = {
             SK.TRIE_HITS: 0, SK.PARTIAL_HIT_TOKENS: 0}
         # kernel-path step counts: prefill rounds and decode steps run
-        # (each runs every layer's paged kernel once)
+        # (a round runs every layer's prefill kernel -- paged prefill, or
+        # WKV6 on the slot plane -- once; a paged decode step every
+        # layer's paged decode kernel)
         self.prefill_rounds = 0
         self.decode_steps = 0
         self.now = 0.0
@@ -221,12 +258,19 @@ class Engine:
     def warmup(self) -> "Engine":
         """Load the kernels and run every ladder bucket and the decode
         step once with inert inputs (zero lengths, no active row):
-        outputs are discarded, the allocator's pages stay bit-identical
-        (inactive decode rows write only the sentinel page), and the step
-        counters do not move."""
+        outputs are discarded, the allocator's pages and the slots' state
+        stay bit-identical (inactive decode rows write only the sentinel
+        page; the slot plane merges no row), and the step counters do not
+        move."""
         ns, dev = self.ecfg.nslots, self.device
         zi = torch.zeros((ns,), dtype=torch.int32, device=dev)
         za = torch.zeros((ns,), dtype=torch.bool, device=dev)
+        if not self._pooled:
+            for b in self.buckets:
+                self._prefill_many(torch.zeros((ns, b), dtype=torch.int32,
+                                               device=dev), zi)
+            self._decode_many(zi, za)
+            return self
         bt = torch.zeros((ns, self.max_pages), dtype=torch.int32, device=dev)
         for b in self.buckets:
             self._paged_prefill(self.params, self.k_pools, self.v_pools,
@@ -256,7 +300,8 @@ class Engine:
             raise ValueError(
                 f"request {r.rid}: prompt length {len(r.prompt)} != "
                 f"input_len {r.input_len}")
-        if r.peak_kv > self.ecfg.cache_len:
+        # RWKV6 holds O(1) state; dense caches must fit
+        if self.cfg.family != "ssm" and r.peak_kv > self.ecfg.cache_len:
             raise ValueError(
                 f"request {r.rid} peak KV {r.peak_kv} > cache_len")
         self.token_ids[r.rid] = list(r.prompt)
@@ -264,9 +309,14 @@ class Engine:
         self.sched.add_request(r)
 
     # ------------------------------------------------------------------ #
-    def _claim_slot(self, rid: int) -> int:
+    def _claim_slot(self, rid: int, reset: bool = True) -> int:
         slot = self.free_slots.pop()
         self.slot_of[rid] = slot
+        if reset:
+            # a fresh (or refilling) request starts from a zero state: the
+            # slot plane owns its cache, so the slot is zeroed in place
+            for leaf in self.cache.values():
+                leaf[slot if leaf.dim() == 1 else (slice(None), slot)] = 0
         return slot
 
     def _release(self, rid: int) -> None:
@@ -410,6 +460,65 @@ class Engine:
                         final_tok[r.rid] = int(host[slot])
         return final_tok
 
+    def _merge(self, active: torch.Tensor,
+               new_cache: Dict[str, torch.Tensor]) -> None:
+        """Take the rows of ``active`` (nslots,) from ``new_cache``; the
+        other slots keep their state bit for bit (JAX's masked merge)."""
+        for k, new in new_cache.items():
+            # leaves are (L, nslots, ...), the index (nslots,)
+            shape = (-1,) if new.dim() == 1 else \
+                (1, -1) + (1,) * (new.dim() - 2)
+            self.cache[k] = torch.where(active.reshape(shape), new,
+                                        self.cache[k])
+
+    def _prefill_many(self, tokens: torch.Tensor,
+                      lengths: torch.Tensor) -> torch.Tensor:
+        """One bucketed chunk round over ALL slots (tokens (nslots,
+        bucket), lengths (nslots,), 0 = inert row): greedy ids (nslots,)
+        sampled on the device, the state merged into live rows."""
+        logits, new_cache = self._chunk_fn(self.params, tokens, self.cache,
+                                           lengths)
+        self._merge(lengths > 0, new_cache)
+        return torch.argmax(logits[:, :self.cfg.vocab_size],
+                            dim=-1).to(torch.int32)
+
+    def _decode_many(self, tokens: torch.Tensor,
+                     active: torch.Tensor) -> torch.Tensor:
+        """One decode step over ALL slots; only ``active`` rows keep it."""
+        logits, new_cache = self._decode_fn(self.params, tokens, self.cache)
+        self._merge(active, new_cache)
+        return torch.argmax(logits[:, :self.cfg.vocab_size],
+                            dim=-1).to(torch.int32)
+
+    def _run_prefills_batched(self, prefill_items) -> Dict[int, int]:
+        """Slot plane: the shared round loop over ``_prefill_many``
+        (starts are implicit in the cache index)."""
+        plans = [[r, self.slot_of[r.rid], r.m, c] for r, c in prefill_items]
+        emits = {r.rid: r.m + c == r.target_context for r, c in prefill_items}
+
+        def step(toks, lens, starts):
+            t0 = time.perf_counter()        # one upload: [toks | lens]
+            grid = torch.from_numpy(np.concatenate(
+                [toks, lens[:, None]], axis=1)).to(self.device)
+            self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+            self.prefill_rounds += 1
+            return self._prefill_many(grid[:, :-1], grid[:, -1])
+
+        return self._run_prefill_rounds(plans, emits, step)
+
+    def _run_decodes_batched(self, decode_items) -> np.ndarray:
+        """Slot plane: one decode step over all slots, kept by the rows of
+        ``decode_items``."""
+        packed = np.zeros((2, self.ecfg.nslots), np.int32)   # toks, active
+        for r, _ in decode_items:
+            packed[:, self.slot_of[r.rid]] = (self.token_ids[r.rid][-1], 1)
+        t0 = time.perf_counter()
+        dev = torch.from_numpy(packed).to(self.device)       # ONE upload
+        self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+        self.decode_steps += 1
+        tok_ids = self._decode_many(dev[0], dev[1].bool())
+        return tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
+
     def _run_prefills_paged(self, prefill_items) -> Dict[int, int]:
         """The round loop over the fused paged prefill.  A grant's
         leading registry-shared tokens (``_prefix_skip``) are satisfied by
@@ -519,17 +628,20 @@ class Engine:
         t_attach = time.perf_counter()
         for r, c in prefill_items:
             if r.rid not in self.slot_of:
-                self._claim_slot(r.rid)
+                self._claim_slot(r.rid, reset=not self._pooled)
             skip = 0
-            if r.m == 0 and not self.allocator.has(r.rid):
-                skip = self._attach_prefix(r, c)
-            self._prefix_skip[r.rid] = skip
+            if self._pooled:           # prefix sharing maps KV pages
+                if r.m == 0 and not self.allocator.has(r.rid):
+                    skip = self._attach_prefix(r, c)
+                self._prefix_skip[r.rid] = skip
             self.allocator.allocate(r.rid, c - skip)
-            self._cow_guard(r.rid, r.m + skip)
+            if self._pooled:
+                self._cow_guard(r.rid, r.m + skip)
         self.phase_stats[SK.ATTACH_S] += time.perf_counter() - t_attach
         for r, _ in decode_items:
             self.allocator.allocate(r.rid, 1)
-            self._cow_guard(r.rid, r.m)
+            if self._pooled:
+                self._cow_guard(r.rid, r.m)
 
         dt = self.cost_model.batch_time(spec) if self.cost_model else 0.0
         self.now += dt
@@ -537,12 +649,14 @@ class Engine:
         # ---- prefills (one packed bucketed call per round) -------------- #
         if prefill_items:
             t_pf = time.perf_counter()
-            final_tok = self._run_prefills_paged(prefill_items)
+            final_tok = (self._run_prefills_paged if self._pooled
+                         else self._run_prefills_batched)(prefill_items)
             self.phase_stats[SK.PREFILL_S] += time.perf_counter() - t_pf
             for r, c in prefill_items:
                 m_new = r.m + c
                 generated = r.advance(c, self.now)
-                self._register_prefix(r, m_new)
+                if self._pooled:
+                    self._register_prefix(r, m_new)
                 if generated:
                     tok = final_tok[r.rid]
                     self.outputs[r.rid].append(tok)
@@ -554,7 +668,8 @@ class Engine:
 
         # ---- decodes (one fused step over all slots) -------------------- #
         if decode_items:
-            host = self._run_decodes_paged(decode_items)
+            host = (self._run_decodes_paged if self._pooled
+                    else self._run_decodes_batched)(decode_items)
             for r, c in decode_items:
                 slot = self.slot_of[r.rid]
                 r.advance(c, self.now)
@@ -582,13 +697,20 @@ class Engine:
 
     def _check_index_sync(self, batch) -> None:
         """The allocator's token count is the position book — it must
-        track r.m exactly."""
+        track r.m exactly; on the slot plane so must each slot's device
+        index."""
+        idx = None
+        if not self._pooled:
+            idx = self.cache["index"].cpu().numpy()  # repro: allow-host-sync(invariant check after the step's own token fetch - (nslots,) int32, the JAX engine's check_invariants default)
         for r, _ in batch.items:
             if r.finished or r.rid not in self.slot_of:
                 continue
             nt = (self.allocator.table(r.rid).num_tokens
                   if self.allocator.has(r.rid) else 0)
             invariant(nt == r.m, (r.rid, nt, r.m))
+            if idx is not None:
+                slot = self.slot_of[r.rid]
+                invariant(idx[slot] == r.m, (r.rid, int(idx[slot]), r.m))
 
     # ------------------------------------------------------------------ #
     def run(self, requests: Sequence[Request],

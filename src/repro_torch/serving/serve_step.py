@@ -27,9 +27,19 @@ def build_prefill_fn(cfg: ModelConfig, *, cache_len: int,
 
 def build_prefill_chunk_fn(cfg: ModelConfig, *,
                            impl: str = "reference") -> Callable:
-    """The bucketed chunk step of the batched plane: not ported yet."""
-    raise ValueError("prefill_chunk (the batched plane's chunk step) is not "
-                     "ported yet (ROADMAP A5)")
+    """(params, tokens (B, bucket), cache, lengths (B,)) -> (logits, cache).
+
+    The shape-stable bucketed chunk step of the engine's slot-resident
+    (batched) plane: tokens are padded to a fixed bucket length and
+    ``lengths`` marks each row's real prefix (0 = inert row).  Ported for
+    RWKV6; the dense family raises (ROADMAP A5)."""
+    M.check_supported(cfg, chunked=True)
+
+    def chunk_step(params, tokens, cache, lengths):
+        return M.prefill_chunk(cfg, params, tokens, cache, impl=impl,
+                               length=lengths)
+
+    return chunk_step
 
 
 def build_decode_fn(cfg: ModelConfig, *, impl: str = "reference",

@@ -14,6 +14,10 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention import paged_attention as pa
 from repro_torch.kernels.paged_attention import ref
+from repro_torch.kernels.rwkv_scan import ops as wkv_ops
+from repro_torch.kernels.rwkv_scan import ref as wkv_ref
+from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
+from repro_torch.models.ssm import pick_chunk
 
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -175,3 +179,113 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(gen):
         fa.flash_attention_cuda(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="expected a tensor on"):
         fa.flash_attention_cuda(q, k.cpu(), v)
+
+
+# --------------------------------------------------------------------- #
+# the WKV6 recurrence (B4)
+# --------------------------------------------------------------------- #
+
+#: tests/test_kernels.py's tolerances: 3e-5, and 1e-4 at the decay extremes
+WKV_TOL = dict(rtol=3e-5, atol=3e-5)
+WKV_TOL_EXTREME = dict(rtol=1e-4, atol=1e-4)
+
+
+def _wkv_inputs(gen, B, S, H, D, wval=None, s0=False):
+    """tests/test_kernels.py's distributions: r, k, v ~ 0.3 N(0, 1), w in
+    (0.45, 0.95), u ~ 0.1 N(0, 1); ``wval`` a constant decay (u = 0)."""
+    r, k, v = (0.3 * _randn(gen, B, S, H, D, dtype=torch.float32)
+               for _ in range(3))
+    if wval is None:
+        w = torch.sigmoid(_randn(gen, B, S, H, D, dtype=torch.float32)) \
+            * 0.5 + 0.45
+        u = 0.1 * _randn(gen, H, D, dtype=torch.float32)
+    else:
+        w = torch.full((B, S, H, D), wval, device="cuda")
+        u = torch.zeros((H, D), device="cuda")
+    st = _randn(gen, B, H, D, D, dtype=torch.float32) if s0 else None
+    return r, k, v, w, u, st
+
+
+def _check_wkv(case, chunk, tol):
+    r, k, v, w, u, s0 = case
+    n0 = wkv.wkv6_cuda.launches
+    y, s = wkv_ops.wkv6(r, k, v, w, u, s0=s0, chunk=chunk)
+    assert wkv.wkv6_cuda.launches == n0 + 1
+    for want in (wkv_ref.wkv6_chunked_ref(r, k, v, w, u, s0, chunk),
+                 wkv_ref.wkv6_reference(r, k, v, w, u, s0)):
+        torch.testing.assert_close(y, want[0], **tol)
+        torch.testing.assert_close(s, want[1], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D,chunk", [
+    (1, 64, 2, 32, 16), (2, 128, 4, 32, 64), (1, 96, 2, 64, 32),
+    (2, 64, 2, 32, 64),                       # tests/test_kernels.py's sweep
+    (8, 64, 64, 64, 64),                      # the engine round, full width
+    (3, 40, 5, 8, 8)])                        # the reduced config's D
+def test_wkv6_kernel_matches_plain(gen, B, S, H, D, chunk):
+    _check_wkv(_wkv_inputs(gen, B, S, H, D), chunk, WKV_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wval", [0.01, 0.999])
+def test_wkv6_kernel_decay_extremes(gen, wval):
+    _check_wkv(_wkv_inputs(gen, 1, 64, 2, 32, wval=wval), 16,
+               WKV_TOL_EXTREME)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [37, 200, 448, 127])
+def test_wkv6_kernel_any_length_and_state(gen, S):
+    """Any S (pick_chunk's Q for the plain form: 37, 8, 64, 1), from a
+    random nonzero initial state."""
+    _check_wkv(_wkv_inputs(gen, 2, S, 4, 64, s0=True), pick_chunk(S, 64),
+               WKV_TOL)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_padded_steps_keep_the_state(gen):
+    """Steps with w = 1, k = 0 leave S bit for bit as it was; a state
+    carried over two calls repeats one call's operations."""
+    r, k, v, w, u, s0 = _wkv_inputs(gen, 2, 24, 4, 64, s0=True)
+    y, s = wkv.wkv6_cuda(r, k, v, w, u, s0)
+    pad = lambda t, val: torch.cat(  # noqa: E731
+        [t, torch.full_like(t[:, :8], val)], dim=1)
+    yp, sp = wkv.wkv6_cuda(pad(r, 0.5), pad(k, 0.0), pad(v, 0.7),
+                           pad(w, 1.0), u, s0)
+    assert torch.equal(sp, s) and torch.equal(yp[:, :24], y)
+    y1, s1 = wkv.wkv6_cuda(r[:, :10].contiguous(), k[:, :10].contiguous(),
+                           v[:, :10].contiguous(), w[:, :10].contiguous(),
+                           u, s0)
+    y2, s2 = wkv.wkv6_cuda(r[:, 10:].contiguous(), k[:, 10:].contiguous(),
+                           v[:, 10:].contiguous(), w[:, 10:].contiguous(),
+                           u, s1)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(s2, s)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_has_no_backward(gen):
+    r, k, v, w, u, _ = _wkv_inputs(gen, 1, 16, 2, 32)
+    r.requires_grad_(True)
+    y, _ = wkv_ops.wkv6(r, k, v, w, u, chunk=16)
+    with pytest.raises(wkv_ops.NoBackwardError):
+        y.sum().backward()
+
+
+@pytest.mark.cuda
+def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    r, k, v, w, u, _ = _wkv_inputs(gen, 1, 16, 2, 24)          # D = 24
+    with pytest.raises(ValueError, match="head dim"):
+        wkv.wkv6_cuda(r, k, v, w, u)
+    r, k, v, w, u, _ = _wkv_inputs(gen, 1, 16, 2, 32)
+    with pytest.raises(TypeError):
+        wkv.wkv6_cuda(r.bfloat16(), k, v, w, u)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv.wkv6_cuda(r.transpose(1, 2), k, v, w, u)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        wkv.wkv6_cuda(r, k.cpu(), v, w, u)
+    with pytest.raises(ValueError, match="s0"):
+        wkv.wkv6_cuda(r, k, v, w, u, torch.zeros((1, 2, 32, 16),
+                                                 device="cuda"))
+    with pytest.raises(ValueError, match="u "):
+        wkv.wkv6_cuda(r, k, v, w, u[:1])

@@ -249,3 +249,166 @@ def test_serve_cli_runs_on_cpu():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "trie hits" in proc.stderr
+
+
+# --------------------------------------------------------------------- #
+# RWKV6 on the slot-resident plane
+# --------------------------------------------------------------------- #
+
+def rwkv_requests_spec(vocab, n=5, seed=0):
+    """``tests/test_engine.py::requests_for``: prompts of 8-24 tokens and
+    3-8 output tokens, as (rid, input_len, output_len, arrival, prompt)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        I, O = int(rs.randint(8, 25)), int(rs.randint(3, 9))
+        out.append((i, I, O, 0.0, rs.randint(0, vocab, size=I).tolist()))
+    return out
+
+
+#: (plane, page_size): ``paged`` keeps RWKV6's O(1) state slot-resident,
+#: as in the JAX engine; page_size 1 is tests/test_engine.py's default
+RWKV_RUNS = [("batched", 1), ("paged", 1), ("batched", 8)]
+
+
+@pytest.fixture(scope="module")
+def rwkv_models():
+    jcfg, tcfg = reduced_pair("rwkv6-7b")
+    jp, tp = params_pair(jcfg)
+    return jcfg, tcfg, jp, tp
+
+
+def _rwkv_engine(pkg, models, plane, page_size, M_kv=60):
+    """tests/test_engine.py's setting: vLLM + SRF, M=60, 4 slots,
+    cache_len 64, chunk 16."""
+    jcfg, tcfg, jp, tp = models
+    ekw = dict(nslots=4, cache_len=CACHE_LEN, chunk=16, plane=plane,
+               page_size=page_size)
+    if pkg == "jax":
+        return JEngine(jcfg, jp, j_sched("vllm", M_kv, S=128,
+                                         replacement="srf"),
+                       JEngineConfig(**ekw),
+                       cost_model=JCost(jcfg, j_hw("tpu_v5e")))
+    return TEngine(tcfg, tp, t_sched("vllm", M_kv, S=128, replacement="srf"),
+                   TEngineConfig(**ekw),
+                   cost_model=TCost(tcfg, t_hw("tpu_v5e")), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def rwkv_runs(rwkv_models):
+    spec = rwkv_requests_spec(rwkv_models[0].vocab_size)
+    out = {}
+    for plane, page in RWKV_RUNS:
+        res = {}
+        for pkg, R in (("jax", JRequest), ("torch", TRequest)):
+            reqs = [R(rid=i, input_len=I, output_len=O, arrival=a,
+                      prompt=list(p)) for i, I, O, a, p in spec]
+            eng = _rwkv_engine(pkg, rwkv_models, plane, page)
+            res[pkg] = eng.run(reqs)
+            res[pkg + "_engine"] = eng
+        out[(plane, page)] = res
+    return spec, out
+
+
+@pytest.mark.parametrize("run", RWKV_RUNS, ids=str)
+def test_rwkv_outputs_identical_to_jax_engine(rwkv_runs, run):
+    res = rwkv_runs[1][run]
+    assert res["torch"].outputs == res["jax"].outputs
+
+
+@pytest.mark.parametrize("run", RWKV_RUNS, ids=str)
+def test_rwkv_batch_schedule_identical_to_jax_engine(rwkv_runs, run):
+    res = rwkv_runs[1][run]
+    jb, tb = res["jax"].metrics.batches, res["torch"].metrics.batches
+    assert len(tb) == len(jb)
+    assert [_strip(b) for b in tb] == [_strip(b) for b in jb]
+
+
+@pytest.mark.parametrize("run", RWKV_RUNS, ids=str)
+def test_rwkv_recompute_preemptions_identical(rwkv_runs, run):
+    res = rwkv_runs[1][run]
+    assert res["torch"].metrics.num_preemptions == \
+        res["jax"].metrics.num_preemptions > 0
+    eng = res["torch_engine"]
+    assert eng.k_pools is None and set(eng.cache) == {"index", "S", "x_tm",
+                                                      "x_cm"}
+    assert eng.prefill_rounds > 0 and eng.decode_steps > 0
+
+
+@pytest.mark.parametrize("run", RWKV_RUNS[:2], ids=str)
+def test_rwkv_tokens_equal_both_references(rwkv_models, rwkv_runs, run):
+    jcfg, tcfg, jp, tp = rwkv_models
+    spec, out = rwkv_runs
+    for rid, _, O, _, prompt in spec:
+        want = t_reference(tcfg, tp, prompt, O, cache_len=CACHE_LEN,
+                           device="cpu")
+        assert out[run]["torch"].outputs[rid] == want, rid
+        assert j_reference(jcfg, jp, prompt, O, cache_len=CACHE_LEN) == want
+
+
+def test_rwkv_warmup_and_claims_touch_only_their_slots(rwkv_models):
+    """Warmup runs every bucket and the decode step with no live row:
+    the slots' state stays bit for bit, the step counters do not move.
+    Claiming a slot zeroes that slot's state, and only it."""
+    eng = _rwkv_engine("torch", rwkv_models, "batched", 1)
+    for leaf in eng.cache.values():
+        leaf.copy_(torch.arange(leaf.numel()).reshape(leaf.shape))
+    before = {k: v.clone() for k, v in eng.cache.items()}
+    eng.warmup()
+    for k in before:
+        assert torch.equal(eng.cache[k], before[k]), k
+    assert (eng.prefill_rounds, eng.decode_steps) == (0, 0)
+    slot = eng._claim_slot(7)
+    for k, v in eng.cache.items():
+        row = v[slot] if v.dim() == 1 else v[:, slot]
+        assert not row.any(), k
+        rest = [s for s in range(4) if s != slot]
+        kept = (v[rest] if v.dim() == 1 else v[:, rest])
+        assert torch.equal(kept, before[k][rest] if v.dim() == 1
+                           else before[k][:, rest]), k
+
+
+def test_rwkv_step_counters_count_chunk_and_decode_calls(rwkv_models):
+    """``prefill_rounds`` counts the slot plane's ``prefill_chunk`` calls
+    (each runs every layer's WKV6 kernel once: what the smoke script
+    holds the kernel's launches against), ``decode_steps`` its decode
+    calls."""
+    eng = _rwkv_engine("torch", rwkv_models, "batched", 1)
+    calls = {"chunk": 0, "decode": 0}
+
+    def counted(kind, fn):
+        def wrapped(*a):
+            calls[kind] += 1
+            return fn(*a)
+        return wrapped
+
+    eng._chunk_fn = counted("chunk", eng._chunk_fn)
+    eng._decode_fn = counted("decode", eng._decode_fn)
+    spec = rwkv_requests_spec(rwkv_models[1].vocab_size, n=4, seed=1)
+    eng.run([TRequest(rid=i, input_len=I, output_len=O, arrival=a,
+                      prompt=p) for i, I, O, a, p in spec])
+    assert calls == {"chunk": eng.prefill_rounds,
+                     "decode": eng.decode_steps}
+
+
+@pytest.mark.parametrize("ekw,skw,item", [
+    (dict(plane="legacy"), {}, "A5"),
+    ({}, dict(preempt_mode="swap"), "A5"),
+    ({}, dict(partial_preempt=True), "A5"),
+])
+def test_rwkv_unported_settings_raise(rwkv_models, ekw, skw, item):
+    _, tcfg, _, tp = rwkv_models
+    sched = t_sched("vllm", 64, S=128, page_size=8, **skw)
+    with pytest.raises(ValueError, match=item):
+        TEngine(tcfg, tp, sched, TEngineConfig(page_size=8, **ekw),
+                device="cpu")
+
+
+def test_serve_cli_runs_rwkv_on_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "rwkv6-7b"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "arch=rwkv6-7b-reduced" in proc.stderr

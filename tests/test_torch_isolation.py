@@ -19,7 +19,7 @@ JAXPKG = REPO / "src" / "repro"
 COPIES = [
     "configs/base.py", "configs/tinyllama_1_1b.py", "configs/llama2_7b.py",
     "configs/llama3_8b.py", "configs/qwen3_4b.py", "configs/smollm_360m.py",
-    "configs/starcoder2_3b.py",
+    "configs/starcoder2_3b.py", "configs/rwkv6_7b.py",
     "core/invariants.py", "core/stat_keys.py", "core/histogram.py",
     "core/request.py", "core/policies.py", "core/kvcache.py",
     "core/cost_model.py", "core/scheduler.py", "data/workloads.py",
@@ -47,7 +47,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     for m in ("serving.engine", "serving.serve_step",
               "kernels.flash_attention.ops", "training.train_step",
               "checkpoint.manager", "distributed.fault_tolerance",
-              "data.synthetic", "launch.train"):
+              "data.synthetic", "launch.train", "kernels.rwkv_scan.ops",
+              "models.rwkv"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -114,7 +115,8 @@ def test_kernel_sources_are_plain_c_interfaces():
     assert [str(p.relative_to(PORT / "kernels")) for p in srcs] == [
         "flash_attention/csrc/flash_attention.cu",
         "paged_attention/csrc/paged_decode.cu",
-        "paged_attention/csrc/paged_prefill.cu"]
+        "paged_attention/csrc/paged_prefill.cu",
+        "rwkv_scan/csrc/wkv6.cu"]
     for p in srcs + sorted(p for c in csrcs for p in c.glob("*.cuh")):
         text = p.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text, p
