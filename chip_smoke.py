@@ -10,43 +10,56 @@ Phases — each raises on failure, so any failure exits non-zero:
 2. Hold each kernel against its plain PyTorch version on the card: the
    paged decode (B1) and the fused paged prefill (B2), at the serving
    path's shapes (TinyLlama: Hkv=4, G=8, D=64, page 16) and over a sweep
-   of shapes, page sizes, padded/length-0 rows, shared prefix pages and a
-   mid-page (copy-on-write) start; fp32 at 2e-5 and bf16 at 2e-2.  The
+   of shapes, page sizes 8-64, starts that are not multiples of the
+   64-key tile, padded/length-0 rows, a prefix ending mid-page, shared
+   prefix pages and the copy-on-write boundary page; fp32 at 2e-5 and
+   bf16 at 2e-2.  B2 and B3 pick their kernel by dtype (bf16: the
+   tensor-core ``wgmma`` kernel; fp32: the CUDA-core one): every case
+   checks that exactly one launch of its dtype's variant was made.  The
    prefill must leave every pool byte outside its written slots as it
-   was, bit for bit.
+   was, bit for bit, in both dtypes, and write zeros for padded rows.
 3. Serve full-width TinyLlama-1.1B (22 layers, random weights from a
    seed) in fp32 through ``repro_torch.serving.Engine`` on the paged
    plane: the shared-prefix workload of
    ``repro_torch.launch.serve.smoke_server``, with prefix-registry hits
    and recompute preemptions.  Every request's tokens must equal
    ``generate_reference``, and the kernels' launch counts, zeroed just
-   before the run, must equal layers x prefill rounds (B2) and layers x
-   decode steps (B1).
-4. Serve the same workload in bf16 and report tokens/s; time both
-   kernels at the serving path's shapes with CUDA events (L2 flushed
-   before each launch, as the serving loop finds it), beside their plain
-   versions, ``scaled_dot_product_attention`` on pre-gathered dense K/V
-   (a yardstick only: the port never calls it) and the least time the
-   card could take (bytes over 3.35 TB/s or operations over the peak
-   rate of the inputs' type, whichever is larger; K/V bytes count each
-   distinct pool slot read once, however many rows map its page).
+   before the run, must equal layers x prefill rounds (B2, every one
+   through the CUDA-core variant) and layers x decode steps (B1).
+4. Serve the same workload in bf16 and report tokens/s; B2's launches,
+   zeroed just before, must all be ``wgmma`` ones, layers x prefill
+   rounds.  Time B1 and both B2 variants at the serving path's shapes
+   with CUDA events (L2 flushed before each launch, as the serving loop
+   finds it), beside their plain versions, ``scaled_dot_product_
+   attention`` on pre-gathered dense K/V (a yardstick only: the port
+   never calls it) and the least time the card could take (bytes over
+   3.35 TB/s or operations over the peak rate of the inputs' type,
+   whichever is larger; K/V bytes count each distinct pool slot read
+   once, however many rows map its page).
 5. Hold the full-sequence flash-attention kernel (B3) against its plain
-   version: the sweep of ``tests/test_kernels.py`` (fp32 at 2e-5, bf16
-   at 2e-2), windows 16 and 64, a 32-token prefix, ``causal=False`` on a
-   ragged S, and both models' full widths (TinyLlama H=32/Hkv=4,
-   SmolLM H=15/Hkv=5) at S=512.
+   version in both dtypes: the sweep of ``tests/test_kernels.py`` (fp32
+   at 2e-5, bf16 at 2e-2), ragged S (100, 37, 200), D=128, S=2048,
+   windows 16, 64, 100 and 130, prefixes of 32-200 tokens,
+   ``causal=False`` on a ragged S, and both models' full widths
+   (TinyLlama H=32/Hkv=4, SmolLM H=15/Hkv=5) at S=512; each case through
+   its dtype's variant.
 6. Full prefill at full width: TinyLlama-1.1B in fp32 (random weights
    from seed 0), ``prefill(impl="flash")`` against ``impl="reference"``
    at B=2, S=512 (logits and cache), and ``generate_reference`` tokens
-   of both impls for a few prompts.  B3's launch count, zeroed just
-   before, must equal layers x prefill calls.
+   of both impls for a few prompts; B3's launch count, zeroed just
+   before, must equal layers x prefill calls, all CUDA-core launches.
+   Then the same weights in bf16: ``prefill(impl="flash")`` must launch
+   the ``wgmma`` kernel once per layer, and its logits and cache may be
+   at most ``BF16_PREFILL_RATIO`` times as far (relative L2) from the
+   fp32 reference on the same weights as the bf16 reference's are.
 7. The trainer at full width (SmolLM-360M): bf16 steps through
    ``repro_torch.launch.train``'s own loop with fp32 AdamW state (loss
    and grad norm finite at every step, the loss falling); one fp32 step
    with 2 microbatches reporting the loss of 1; ``train_loss`` on the
    flash kernel (no grad) equal to the reference attention's.
-8. Time B3 at the full prefill's shapes (bf16 and fp32, B=2, S=512) and
-   at S=2048 (bf16), beside its plain version, ``scaled_dot_product_
+8. Time both B3 variants at the full prefill's shapes (bf16 and fp32,
+   B=2, S=512), and the bf16 one at S=2048 and at SmolLM's heads, beside
+   its plain version, ``scaled_dot_product_
    attention`` (a yardstick only) and its bound (bytes over 3.35 TB/s or
    the operations of the visible (query, key) pairs over the peak rate,
    whichever is larger); and the train step's tokens/s.
@@ -81,8 +94,10 @@ Phases — each raises on failure, so any failure exits non-zero:
 
 Each phase prints the seconds since the start when it is done.
 
-The last two lines of standard output are the kernels' JSON line and
-``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
+The last two lines of standard output are the kernels' JSON line (one
+entry per kernel and variant: ``paged_prefill`` and ``flash_attention``
+are the bf16 ``wgmma`` kernels, ``..._simt`` the fp32 CUDA-core ones)
+and ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
 measurement as JSON.  Without a CUDA device, or outside a checkout of the
 repository, the script exits with code 1 and prints no result.
 """
@@ -92,6 +107,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -184,6 +200,10 @@ def decode_case(torch, inp, B, H, Hkv, D, page, npages, dtype, ctx,
 
 def prefill_case(torch, inp, B, c, H, Hkv, D, page, maxp, dtype, starts,
                  lengths, P=None, shared=()):
+    """``shared`` rows map the same first pages; where their start lies
+    mid-page, each row's boundary page is a copy of the first row's (the
+    engine's copy-on-write guard makes the page a row writes into private
+    first)."""
     P = P or B * maxp + 3
     q = inp.randn(B, c, H, D, dtype=dtype)
     k = inp.randn(B, c, Hkv, D, dtype=dtype)
@@ -192,6 +212,12 @@ def prefill_case(torch, inp, B, c, H, Hkv, D, page, maxp, dtype, starts,
     vp = inp.randn(P, page, Hkv, D, dtype=dtype)
     need = [max(1, -(-(s + ln) // page)) for s, ln in zip(starts, lengths)]
     bt = tables(torch, inp, need, maxp, P, shared)
+    for rows, n in shared:
+        if starts[rows[0]] % page:
+            for b in rows[1:]:
+                dst, src = int(bt[b, n]), int(bt[rows[0], n])
+                kp[dst] = kp[src]
+                vp[dst] = vp[src]
     st = torch.tensor(starts, dtype=torch.int32, device=DEVICE)
     ln = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
     return q, k, v, kp, vp, bt, st, ln
@@ -200,6 +226,26 @@ def prefill_case(torch, inp, B, c, H, Hkv, D, page, maxp, dtype, starts,
 # --------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------- #
+
+#: the kernel each dtype selects in B2 and B3 (the C entries' choice)
+VARIANT = {"float32": "simt", "bfloat16": "wgmma"}
+
+
+def one_launch_of(fn, before, dtype, what) -> None:
+    """``fn`` launched once since ``before`` (its ``launches_by_variant``
+    then), through the variant ``dtype`` selects."""
+    after = fn.launches_by_variant
+    want = {k: n + (k == VARIANT[dtype]) for k, n in before.items()}
+    check(after == want, f"{what}: launches by variant {before} -> {after},"
+          f" expected one {VARIANT[dtype]}")
+
+
+def zero_counts(*fns) -> None:
+    for fn in fns:
+        fn.launches = 0
+        if hasattr(fn, "launches_by_variant"):
+            fn.launches_by_variant = {"wgmma": 0, "simt": 0}
+
 
 def compare(torch, got, want, dtype, what) -> float:
     err = (got.float() - want.float()).abs()
@@ -222,12 +268,16 @@ def check_prefill(torch, pa, ref, case, dtype, what) -> float:
     q, k, v, kp, vp, bt, st, ln = case
     kp0, vp0 = kp.clone(), vp.clone()
     kp2, vp2 = kp.clone(), vp.clone()
+    before = dict(pa.paged_prefill_cuda.launches_by_variant)
     got = pa.paged_prefill_cuda(q, k, v, kp, vp, bt, st, ln)
+    one_launch_of(pa.paged_prefill_cuda, before, dtype, what)
     want = ref.paged_prefill_reference(q, k, v, kp2, vp2, bt, st, ln)
     torch.cuda.synchronize()
     c = q.shape[1]
     valid = torch.arange(c, device=DEVICE)[None] < ln[:, None]
     err = compare(torch, got[valid], want[valid], dtype, what)
+    check(not bool(got[~valid].float().abs().any()),
+          f"{what}: padded rows are not zero")
     check(torch.equal(kp, kp2) and torch.equal(vp, vp2),
           f"{what}: pools differ from the plain version's")
     # every byte outside the written slots is the input's, bit for bit
@@ -306,6 +356,19 @@ def phase_kernels(torch, pa, ref, P_main, ecfg):
             (2, 8, 4, 2, 64, 8, 3, [8, 8], [8, 8], [((0, 1), 1)]),
             (1, 8, 4, 2, 64, 8, 2, [5], [3], ()),               # mid-page
             (2, 32, 24, 4, 128, 32, 4, [64, 3], [32, 29], ()),
+            # page sizes 8 / 16 / 32 / 64 with starts that are not
+            # multiples of the 64-key tile
+            (2, 32, 16, 2, 64, 8, 20, [37, 100], [32, 20], ()),
+            (2, 32, 16, 2, 64, 16, 10, [70, 3], [25, 32], ()),
+            (2, 64, 8, 1, 64, 32, 6, [90, 0], [64, 40], ()),
+            (2, 64, 8, 1, 128, 64, 4, [130, 65], [50, 64], ()),
+            # a prefix ending mid-page, a padded row and a length-0 row
+            (3, 16, 24, 4, 128, 16, 6, [40, 41, 0], [16, 9, 0], ()),
+            # the copy-on-write boundary page: rows sharing two full pages
+            # resume mid-page, each in its own copy of the third
+            (2, 16, 8, 1, 64, 16, 6, [40, 40], [16, 12], [((0, 1), 2)]),
+            (4, 16, 32, 4, 64, 16, 6, [45, 45, 45, 8], [16, 7, 0, 16],
+             [((0, 1, 2), 2)]),
         ] + [(2, c, 8, 2, 64, 16, -(-c // 16) + 1, [0, 16], [ln, max(1, ln - 1)],
               ()) for c in (8, 16, 64, 128) for ln in (1, c - 1, c)
              if ln >= 1]
@@ -332,14 +395,14 @@ def phase_serve_fp32(torch, pa, cfg, params):
     from repro_torch.serving import generate_reference
     eng, reqs = smoke_server(cfg, params, device=DEVICE)
     torch.cuda.synchronize()
-    pa.paged_decode_cuda.launches = 0
-    pa.paged_prefill_cuda.launches = 0
+    zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
     t0 = time.perf_counter()
     res = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"paged_decode": pa.paged_decode_cuda.launches,
                 "paged_prefill": pa.paged_prefill_cuda.launches}
+    variants = dict(pa.paged_prefill_cuda.launches_by_variant)
     L = cfg.num_layers
     print(f"fp32 serve: {len(reqs)} requests, "
           f"{sum(len(o) for o in res.outputs.values())} tokens in "
@@ -353,6 +416,9 @@ def phase_serve_fp32(torch, pa, cfg, params):
     check(launches["paged_decode"] == L * eng.decode_steps > 0,
           f"paged_decode launched {launches['paged_decode']} times, "
           f"expected {L} x {eng.decode_steps}")
+    check(variants == {"wgmma": 0, "simt": launches["paged_prefill"]},
+          f"fp32 paged_prefill launches by variant {variants}: every one "
+          "should be the CUDA-core kernel")
     check(res.metrics.num_preemptions >= 1, "no recompute preemption")
     check(res.swap_stats["trie_hits"] > 0, "no prefix-registry hit")
     check(all(r.finished for r in reqs), "unfinished requests")
@@ -372,6 +438,7 @@ def phase_serve_fp32(torch, pa, cfg, params):
     check(not mismatched, f"tokens differ from generate_reference "
           f"(rid, first position): {mismatched}")
     return {"wall_s": wall, "launches": launches,
+            "prefill_variants": variants,
             "prefill_rounds": eng.prefill_rounds,
             "decode_steps": eng.decode_steps,
             "preemptions": res.metrics.num_preemptions,
@@ -379,20 +446,38 @@ def phase_serve_fp32(torch, pa, cfg, params):
             "tokens": sum(len(o) for o in res.outputs.values())}
 
 
-def phase_serve_bf16(torch, cfg, params):
+def phase_serve_bf16(torch, pa, cfg, params):
     from repro_torch.launch.serve import smoke_server
     eng, reqs = smoke_server(cfg, params, device=DEVICE)
     torch.cuda.synchronize()
+    zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
     t0 = time.perf_counter()
     res = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = {"paged_decode": pa.paged_decode_cuda.launches,
+                "paged_prefill": pa.paged_prefill_cuda.launches}
+    variants = dict(pa.paged_prefill_cuda.launches_by_variant)
+    L = cfg.num_layers
     tokens = sum(len(o) for o in res.outputs.values())
     print(f"bf16 serve: {tokens} tokens in {wall:.3f} s = "
-          f"{tokens / wall:.1f} tok/s (phases {res.phase_stats})")
+          f"{tokens / wall:.1f} tok/s (phases {res.phase_stats}); "
+          f"{eng.prefill_rounds} prefill rounds, {eng.decode_steps} decode "
+          f"steps; launches {launches}, paged_prefill by variant {variants}")
+    check(variants == {"wgmma": L * eng.prefill_rounds, "simt": 0}
+          and eng.prefill_rounds > 0,
+          f"bf16 paged_prefill launches by variant {variants}, expected "
+          f"{L} x {eng.prefill_rounds} through wgmma and none other")
+    check(launches["paged_decode"] == L * eng.decode_steps > 0,
+          f"paged_decode launched {launches['paged_decode']} times, "
+          f"expected {L} x {eng.decode_steps}")
+    check(all(r.finished for r in reqs), "unfinished requests")
     return {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
             "phase_stats": res.phase_stats, "pool_pages":
-            int(eng.k_pools.shape[1])}
+            int(eng.k_pools.shape[1]), "launches": launches,
+            "prefill_variants": variants,
+            "prefill_rounds": eng.prefill_rounds,
+            "decode_steps": eng.decode_steps}
 
 
 # --------------------------------------------------------------------- #
@@ -507,7 +592,9 @@ def flash_case(inp, B, S, H, Hkv, D, dtype):
 
 
 def check_flash(torch, fa, fref, case, dtype, what, **kw) -> float:
+    before = dict(fa.flash_attention_cuda.launches_by_variant)
     got = fa.flash_attention_cuda(*case, **kw)
+    one_launch_of(fa.flash_attention_cuda, before, dtype, what)
     want = fref.attention_reference(*case, **kw)
     torch.cuda.synchronize()
     check(got.dtype == case[0].dtype and got.shape == case[0].shape,
@@ -517,6 +604,8 @@ def check_flash(torch, fa, fref, case, dtype, what, **kw) -> float:
 
 #: (B, S, H, Hkv, D) of the full prefill: TinyLlama-1.1B at S=512
 FLASH_MAIN = (2, 512, 32, 4, 64)
+#: the same heads at S=2048
+FLASH_LONG = (1, 2048, 32, 4, 64)
 
 
 def phase_flash_kernel(torch, fa, fref):
@@ -526,7 +615,9 @@ def phase_flash_kernel(torch, fa, fref):
         for shape in [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64),
                       (1, 128, 8, 1, 128), (2, 100, 4, 2, 64),
                       (1, 512, 2, 2, 128), FLASH_MAIN,
-                      (2, 512, 15, 5, 64)]:       # SmolLM-360M, G = 3
+                      (2, 512, 15, 5, 64),        # SmolLM-360M, G = 3
+                      (1, 37, 6, 2, 128), (2, 37, 15, 5, 64),   # ragged S
+                      (1, 200, 6, 3, 128), FLASH_LONG]:
             name = "flash B{} S{} H{} Hkv{} D{} {}".format(*shape, dtype)
             errs[name] = check_flash(torch, fa, fref,
                                      flash_case(inp, *shape, dtype), dtype,
@@ -535,7 +626,10 @@ def phase_flash_kernel(torch, fa, fref):
                       (128, dict(prefix_len=32)),
                       (256, dict(prefix_len=200)),    # above the diagonal
                       (256, dict(window=16, prefix_len=48)),
-                      (100, dict(causal=False))]:
+                      (100, dict(causal=False)),
+                      (700, dict(window=100)),        # whole tiles skipped
+                      (500, dict(window=130, prefix_len=70)),
+                      (37, dict(causal=False)), (37, {})]:
             name = f"flash S{S} {kw} {dtype}"
             errs[name] = check_flash(torch, fa, fref,
                                      flash_case(inp, 1, S, 4, 2, 64, dtype),
@@ -571,7 +665,7 @@ def phase_full_prefill(torch, fa, M, cfg, params):
                              device=DEVICE).tolist() for n in (37, 200, 448)]
     new_tokens, cache_len = 16, 512
     torch.cuda.synchronize()
-    fa.flash_attention_cuda.launches = 0
+    zero_counts(fa.flash_attention_cuda)
     t0 = time.perf_counter()
     fl_logits, fl_cache = M.prefill(cfg, params, {"tokens": toks},
                                     cache_len=cache_len, impl="flash")
@@ -581,11 +675,15 @@ def phase_full_prefill(torch, fa, M, cfg, params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fa.flash_attention_cuda.launches
+    variants = dict(fa.flash_attention_cuda.launches_by_variant)
     prefill_calls = 1 + len(prompts)
     L = cfg.num_layers
     check(launches == L * prefill_calls,
           f"flash_attention launched {launches} times, expected {L} x "
           f"{prefill_calls}")
+    check(variants == {"wgmma": 0, "simt": launches},
+          f"fp32 flash_attention launches by variant {variants}: every one "
+          "should be the CUDA-core kernel")
     ref_logits, ref_cache = M.prefill(cfg, params, {"tokens": toks},
                                       cache_len=cache_len)
     ref_tokens = [generate_reference(cfg, params, p, new_tokens,
@@ -615,8 +713,81 @@ def phase_full_prefill(torch, fa, M, cfg, params):
           f"flash_attention launches {launches} = {L} x {prefill_calls}; "
           f"{wall:.2f} s")
     return {"max_abs_err": err, "launches": launches,
-            "prefill_calls": prefill_calls, "wall_s": wall,
-            "tokens": flash_tokens}
+            "variants": variants, "prefill_calls": prefill_calls,
+            "wall_s": wall, "tokens": flash_tokens}
+
+
+def rel_l2(torch, got, want) -> float:
+    return (torch.linalg.vector_norm((got - want).float())
+            / torch.linalg.vector_norm(want.float())).item()
+
+
+#: bf16 full prefill: flash's logits and cache may be at most this many
+#: times further from the fp32 truth (the reference attention in fp32 on the
+#: same bf16 weights) than the bf16 reference attention's are.  Both bf16
+#: runs round the same activations and weights to bf16 and differ only in
+#: where the attention rounds (the kernel rounds unnormalised P, the
+#: reference the normalised weights), which are errors of one size; a
+#: fault in the kernel (a wrong mask, tile or row) moves the logits by
+#: far more than bf16's own noise.
+BF16_PREFILL_RATIO = 2.0
+
+
+def phase_full_prefill_bf16(torch, fa, M, cfg16, params16):
+    """TinyLlama-1.1B in bf16 at B=2, S=512: ``prefill(impl="flash")``
+    against ``impl="reference"``, both held against the reference in fp32
+    on the same weights."""
+    B, S = FLASH_MAIN[:2]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(6)
+    toks = torch.randint(0, cfg16.vocab_size, (B, S), generator=gen,
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    zero_counts(fa.flash_attention_cuda)
+    t0 = time.perf_counter()
+    fl, fl_cache = M.prefill(cfg16, params16, {"tokens": toks}, cache_len=S,
+                             impl="flash")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention_cuda.launches
+    variants = dict(fa.flash_attention_cuda.launches_by_variant)
+    L = cfg16.num_layers
+    check(variants == {"wgmma": L, "simt": 0} and launches == L,
+          f"bf16 full prefill: flash_attention launches by variant "
+          f"{variants}, expected {L} through wgmma")
+    ref16, ref_cache = M.prefill(cfg16, params16, {"tokens": toks},
+                                 cache_len=S)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    truth, truth_cache = M.prefill(cfg32, _tree_to(params16, torch.float32),
+                                   {"tokens": toks}, cache_len=S)
+    for name, t in (("flash", fl), ("reference", ref16)):
+        check(bool(torch.isfinite(t.float()).all()), f"bf16 prefill {name}: "
+              "non-finite logits")
+        check(t.shape == truth.shape and t.dtype == ref16.dtype,
+              f"bf16 prefill {name}: {t.dtype} {tuple(t.shape)}")
+    err = {}          # rel L2 to the fp32 truth: (flash, bf16 reference)
+    for name in ("logits", "k", "v"):
+        got, want, tr = ((fl, ref16, truth) if name == "logits" else
+                         (fl_cache[name], ref_cache[name], truth_cache[name]))
+        err[name] = (rel_l2(torch, got, tr), rel_l2(torch, want, tr))
+    e_pair = rel_l2(torch, fl, ref16)
+    agree = (torch.argmax(fl.float(), -1) == torch.argmax(ref16.float(), -1)
+             ).float().mean().item()
+    print(f"full prefill (TinyLlama-1.1B bf16, B={B}, S={S}): rel L2 to the "
+          f"fp32 reference, flash / bf16 reference: "
+          + ", ".join(f"{n} {a:.4g} / {b:.4g}" for n, (a, b) in err.items())
+          + f" (flash may be {BF16_PREFILL_RATIO}x); logits flash vs bf16 "
+          f"reference rel L2 {e_pair:.4g}, max abs "
+          f"{(fl.float() - ref16.float()).abs().max().item():.3g}, argmax "
+          f"agreement {agree:.3f}; flash_attention launches {variants} "
+          f"({wall:.2f} s)")
+    for name, (a, b) in err.items():
+        check(a <= BF16_PREFILL_RATIO * b,
+              f"bf16 prefill {name}: flash {a:.4g} from the fp32 reference, "
+              f"beyond {BF16_PREFILL_RATIO} x the bf16 reference's {b:.4g}")
+    return {"rel_l2_to_fp32": err, "rel_l2_flash_vs_reference": e_pair,
+            "argmax_agreement": agree, "launches": launches,
+            "variants": variants, "wall_s": wall}
 
 
 # --------------------------------------------------------------------- #
@@ -921,6 +1092,24 @@ def time_wkv(torch, wkv, wref, case):
 
 # --------------------------------------------------------------------- #
 
+def ptxas_report(log: str):
+    """(kernel, "N registers, S bytes spill stores, ...") per entry
+    function of an ``nvcc -Xptxas -v`` log; the kernel named by its
+    mangled name's identifier and template arguments."""
+    out, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN\d+\w+?\d+(\w+?)I(\w+?)EE",
+                      line)
+        if m:
+            fn = f"{m.group(1)}<{m.group(2)}>"
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and fn:
+            out.append((fn, f"{line.split(':', 1)[1].strip()}; {spill}"))
+            fn = None
+    return out
+
+
 def _tree_to(tree, dtype):
     return {k: _tree_to(v, dtype) if isinstance(v, dict) else v.to(dtype)
             for k, v in tree.items()}
@@ -978,9 +1167,8 @@ def main(argv=None) -> int:
           f"parallel: {build_s:.1f} s wall")
     for stem, (secs, log) in sorted(cuda_build.BUILD_REPORT.items()):
         print(f"  {stem}: {secs:.1f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
+        for fn, report in ptxas_report(log):
+            print(f"    {fn}: {report}")
 
     report = {"card": card, "kind": kind, "torch": torch.__version__,
               "build_s": build_s}
@@ -1003,7 +1191,9 @@ def main(argv=None) -> int:
         cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
         params16 = _tree_to(params, torch.bfloat16)
         del params
-        bf16 = phase_serve_bf16(torch, cfg16, params16)
+        prefill16 = phase_full_prefill_bf16(torch, fa, M, cfg16, params16)
+        lap("bf16 full prefill")
+        bf16 = phase_serve_bf16(torch, pa, cfg16, params16)
         check(bf16["pool_pages"] == P_main, "pool size changed")
         del params16
         lap("bf16 serve")
@@ -1017,19 +1207,21 @@ def main(argv=None) -> int:
         times = {
             "paged_decode": time_decode(
                 torch, pa, ref, main_path_decode(torch, inp, "bfloat16",
-                                                 P_main, ecfg), "bfloat16"),
-            "paged_prefill": time_prefill(
-                torch, pa, ref, main_path_prefill(torch, inp, "bfloat16",
-                                                  P_main, ecfg), "bfloat16"),
-            "flash_attention": time_flash(
-                torch, fa, fref, flash_case(inp, *FLASH_MAIN, "bfloat16"),
-                "bfloat16")}
+                                                 P_main, ecfg), "bfloat16")}
+        # B2 and B3: "paged_prefill" / "flash_attention" the bf16 (wgmma)
+        # kernels, "..._simt" the fp32 (CUDA-core) ones
+        for dtype, sfx in (("bfloat16", ""), ("float32", "_simt")):
+            times["paged_prefill" + sfx] = time_prefill(
+                torch, pa, ref, main_path_prefill(torch, inp, dtype, P_main,
+                                                  ecfg), dtype)
+            times["flash_attention" + sfx] = time_flash(
+                torch, fa, fref, flash_case(inp, *FLASH_MAIN, dtype), dtype)
         flash_more = {
-            "float32": time_flash(torch, fa, fref,
-                                  flash_case(inp, *FLASH_MAIN, "float32"),
-                                  "float32"),
             "bfloat16_S2048": time_flash(
-                torch, fa, fref, flash_case(inp, 1, 2048, 32, 4, 64,
+                torch, fa, fref, flash_case(inp, *FLASH_LONG, "bfloat16"),
+                "bfloat16"),
+            "bfloat16_smollm": time_flash(
+                torch, fa, fref, flash_case(inp, 2, 512, 15, 5, 64,
                                             "bfloat16"), "bfloat16")}
         lap("timing")
 
@@ -1054,28 +1246,46 @@ def main(argv=None) -> int:
         times["wkv6_B8"] = time_wkv(torch, wkv, wref, wkv_case(
             torch, inp, 8, *WKV_ROUND, s0=True))
         lap("wkv6 timing")
-    launches = dict(fp32["launches"], flash_attention=prefill["launches"],
-                    wkv6=rwkv32["launches"])
-    shapes = {"paged_decode": "serving shapes",
-              "paged_prefill": "serving shapes",
-              "flash_attention": "full-prefill shapes B2 S512 H32 Hkv4",
-              "wkv6": "engine round B{} S{} H{} D{}".format(
-                  SMOKE_RWKV_ENGINE.nslots, *WKV_ROUND)}
+    # each entry: its launches on its main path (counts zeroed just before
+    # that run), its comparison with the plain version at the main shapes,
+    # and its times at those shapes
+    entries = [
+        # (entry, kernel, variant, dtype, launches, max abs err, shapes)
+        ("paged_decode", "paged_decode", "simt", "bfloat16",
+         fp32["launches"]["paged_decode"],
+         errs["paged_decode"]["main_float32"], "serving shapes"),
+        ("paged_prefill", "paged_prefill", "wgmma", "bfloat16",
+         bf16["prefill_variants"]["wgmma"],
+         errs["paged_prefill"]["main_bfloat16"], "serving shapes"),
+        ("paged_prefill_simt", "paged_prefill", "simt", "float32",
+         fp32["prefill_variants"]["simt"],
+         errs["paged_prefill"]["main_float32"], "serving shapes"),
+        ("flash_attention", "flash_attention", "wgmma", "bfloat16",
+         prefill16["variants"]["wgmma"],
+         errs["flash_attention"]["main_bfloat16"],
+         "full-prefill shapes B2 S512 H32 Hkv4"),
+        ("flash_attention_simt", "flash_attention", "simt", "float32",
+         prefill["variants"]["simt"], errs["flash_attention"]["main_float32"],
+         "full-prefill shapes B2 S512 H32 Hkv4"),
+        ("wkv6", "wkv6", "simt", "float32", rwkv32["launches"],
+         errs["wkv6"]["main_float32"], "engine round B{} S{} H{} D{}".format(
+             SMOKE_RWKV_ENGINE.nslots, *WKV_ROUND)),
+    ]
     kernels = []
-    for name in ("paged_decode", "paged_prefill", "flash_attention", "wkv6"):
-        t = times[name]
+    for entry, name, var, dtype, launches, err, shape in entries:
+        t = times[entry]
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
-        print(f"{name} ({'fp32' if name == 'wkv6' else 'bf16'}, "
-              f"{shapes[name]}): {t['ms']:.4f} ms; plain "
+        print(f"{entry} ({var}, {dtype}, {shape}): {t['ms']:.4f} ms; plain "
               f"{t['plain_ms']:.4f} ms; library {lib}; "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-              f"{t['bytes']:.3g} B, {t['ops']:.3g} ops)")
-        kernels.append({"name": name, "route": "cuda",
+              f"{t['bytes']:.3g} B, {t['ops']:.3g} ops); launches {launches}")
+        check(launches > 0, f"{entry}: no launch on its main path")
+        kernels.append({"name": entry, "route": "cuda",
                         "source": KERNELS[name][0],
                         "replaces": KERNELS[name][1],
-                        "launches": launches[name],
-                        "max_abs_err": errs[name]["main_float32"],
+                        "variant": var, "dtype": dtype,
+                        "launches": launches, "max_abs_err": err,
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
@@ -1092,7 +1302,8 @@ def main(argv=None) -> int:
           f"{t['bytes']:.3g} B, {t['ops']:.3g} ops)")
     times["flash_attention_more"] = flash_more
     report.update(errors=errs, serve_fp32=fp32, serve_bf16=bf16,
-                  full_prefill=prefill, train=train, timings=times,
+                  full_prefill=prefill, full_prefill_bf16=prefill16,
+                  train=train, timings=times,
                   rwkv_serve_fp32=rwkv32, rwkv_serve_bf16=rwkv16,
                   seconds=time.perf_counter() - t_start)
     if args.report:

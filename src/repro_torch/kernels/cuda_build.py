@@ -6,10 +6,14 @@ with a plain C interface (no PyTorch headers, so a build takes seconds)
 for ``sm_90a``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -I csrc -I ../common/csrc \\
+         -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the sources and flags, so an edited
-kernel is rebuilt and a stale one is never loaded.  Builds run on first
+Headers shared by several kernels live in ``kernels/common/csrc/``, which
+every build puts on the include path next to the source's own ``csrc/``.
+The library name carries a hash of the flags, the source, the headers
+beside it and the shared headers, so an edited kernel or header is rebuilt
+and a stale library is never loaded.  Builds run on first
 use (never at import), all missing sources in parallel, into a ``build/``
 directory next to the sources that ``.gitignore`` lists.  ``nvcc`` is
 looked up in ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``, then
@@ -49,13 +53,28 @@ def nvcc_path() -> str:
     return found
 
 
+def common_dir(src: Path) -> Path:
+    """``kernels/common/csrc`` of the tree that holds
+    ``kernels/<package>/csrc/<name>.cu``."""
+    return src.parent.parent.parent / "common" / "csrc"
+
+
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(src.parent.glob("*.cuh")) + [src]:
+    headers = sorted(src.parent.glob("*.cuh")) + \
+        sorted(common_dir(src).glob("*.cuh"))
+    for f in headers + [src]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return src.parent.parent / "build" / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_args(src: Path, out: Path) -> List[str]:
+    """The ``nvcc`` arguments (without the compiler) that build ``src``
+    into the shared library ``out``."""
+    return [*NVCC_FLAGS, "-I", str(src.parent), "-I", str(common_dir(src)),
+            "-o", str(out), str(src)]
 
 
 def build(sources: Iterable[Path]) -> Dict[str, Path]:
@@ -71,8 +90,7 @@ def build(sources: Iterable[Path]) -> Dict[str, Path]:
             continue
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(src.parent), "-o",
-               str(tmp), str(src)]
+        cmd = [nvcc_path(), *nvcc_args(src, tmp)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((src.stem, lib, tmp, proc, time.perf_counter()))

@@ -24,10 +24,19 @@
 // H = 32, Hkv = 4, D = 64) the function reads q, k, v once and writes out
 // once (a few MB) but does ~2 * B * H * S^2 * D operations under the causal
 // mask; in bf16 the tensor cores' 989 TFLOP/s and the 3.35 TB/s of HBM give
-// bounds of the same order, and at longer S the operations dominate.  This
-// first kernel does its products on the fp32 CUDA cores (67 TFLOP/s), not
-// the tensor cores, so it sits well above that bound; wgmma tiles are a
-// later step.
+// bounds of the same order, and at longer S the operations dominate.
+//
+// Two kernels, chosen by dtype in the C entry (one place, no fallback):
+//   bf16 -> flash_fwd_wgmma: the products on the tensor cores (wgmma), over
+//           the shared Hopper attention core (common/csrc/
+//           hopper_attention.cuh): a CTA of one warpgroup holds 64 query
+//           vectors of one kv head and walks 64-key tiles through a 2-stage
+//           cp.async ring; keys >= S are zero-filled and masked.
+//   fp32 -> flash_fwd_kernel: the CUDA-core kernel below, whose products
+//           stay in full fp32 (67 TFLOP/s) so the fp32 path keeps its exact
+//           agreement with the reference; TF32 wgmma would keep ~3 digits.
+// Both share the grid, the query-vector numbering, the masks and the tile
+// skipping described next.
 //
 // Design.  The TPU grid's sequential kv axis (scratch carried from one grid
 // step to the next) becomes a loop inside the block.  Grid = (query tiles,
@@ -49,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "hopper_attention.cuh"
 
 namespace flash {
 
@@ -76,22 +87,8 @@ struct Smem {
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<unsigned*>(&a);
-  u.y = *reinterpret_cast<unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // max / sum over the kTX lanes that hold one score row
@@ -298,10 +295,118 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16: tensor cores ---------------------------------------------------
+
+// Is key tile k0 outside the window of every query row of the tile (rows
+// r_first and up) and outside the prefix?  Such a tile is skipped.
+__device__ __forceinline__ bool tile_skipped(int k0, int r_first, int causal,
+                                             int window, int prefix_len) {
+  return causal && window && k0 >= prefix_len &&
+         r_first - (k0 + hopper::kBN - 1) >= window;
+}
+
+template <int D>
+__global__ void __launch_bounds__(hopper::kThreads)
+    flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ out, int S, int Hkv, int G,
+                    int causal, int window, int prefix_len,
+                    float scale_log2) {
+  using hopper::bf16;
+  using hopper::kBN;
+  using SM = hopper::Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_base(smem_raw);
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int H = Hkv * G;
+  const int nqv = S * G;
+  const int qv0 = tile * hopper::kBM;
+  const int r_first = qv0 / G;
+  const int r_last = (min(qv0 + hopper::kBM, nqv) - 1) / G;
+
+  hopper::load_tile<D>(
+      SM::q(base),
+      [&](int i) -> const bf16* {
+        const int qv = qv0 + i;
+        if (qv >= nqv) return nullptr;
+        return q + (((size_t)b * S + qv / G) * H + hk * G + qv % G) * D;
+      },
+      q);
+  hopper::cp_async_commit();
+
+  int row[2];   // sequence position of each owned query vector
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qv = qv0 + hopper::frag_row(h);
+    row[h] = qv < nqv ? qv / G : S - 1;   // tail vectors: computed, unused
+  }
+
+  // keys any row of the tile may see: up to the last row (causal), or the
+  // whole prefix, or everything
+  const int kend = causal ? min(S, max(r_last + 1, prefix_len)) : S;
+  auto next = [&](int k0) {
+    while (k0 < kend && tile_skipped(k0, r_first, causal, window, prefix_len))
+      k0 += kBN;
+    return k0;
+  };
+  auto kv_row = [&](int k0, int jj) -> hopper::KVRow {
+    const int j = k0 + jj;
+    if (j >= S) return {nullptr, nullptr};
+    const size_t o = (((size_t)b * S + j) * Hkv + hk) * D;
+    return {k + o, v + o};
+  };
+  auto visible = [&](int h, int j) {       // branch-free
+    const int r = row[h];
+    const bool in_window = (j <= r) & ((window == 0) | (r - j < window));
+    return (j < S) & (!causal | in_window | (j < prefix_len));
+  };
+  // a tile every row sees whole needs no mask
+  auto partial = [&](int k0) {
+    const int k1 = k0 + kBN - 1;
+    if (k1 >= S) return true;
+    if (!causal || k1 < prefix_len) return false;
+    return !(k1 <= r_first && (window == 0 || r_last - k0 < window));
+  };
+
+  hopper::AttnTile<D> acc;
+  acc.init();
+  hopper::attend<D>(acc, base, next(0), kend, next, kv_row, partial, visible,
+                    scale_log2, k);
+
+  acc.finish([&](int h) -> hopper::OutRow {
+    const int qv = qv0 + hopper::frag_row(h);
+    if (qv >= nqv) return {nullptr, false};
+    return {out + (((size_t)b * S + qv / G) * H + hk * G + qv % G) * D, false};
+  });
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int B, int S, int Hkv, int G, int causal, int window,
+                 int prefix_len, cudaStream_t stream) {
+  constexpr int bytes = hopper::Smem<D>::kBytes;
+  auto kern = flash_fwd_wgmma<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long ntiles = ((long long)S * G + hopper::kBM - 1) / hopper::kBM;
+  if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)ntiles, Hkv, B);
+  kern<<<grid, hopper::kThreads, bytes, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, Hkv, G, causal,
+      window, prefix_len, 1.4426950408889634f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace flash
 
-// q/out (B, S, Hkv * G, D), k/v (B, S, Hkv, D); dtype: 0 = float32,
-// 1 = bfloat16.  Validated by the Python wrapper.
+// q/out (B, S, Hkv * G, D), k/v (B, S, Hkv, D); dtype: 0 = float32 (the
+// CUDA-core kernel), 1 = bfloat16 (the wgmma kernel).  Validated by the
+// Python wrapper; q, k, v 16-byte aligned.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int S, int Hkv, int G,
                                int D, int causal, int window, int prefix_len,
@@ -318,10 +423,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return launch<float, 128>(q, k, v, out, B, S, Hkv, G, causal, window,
                               prefix_len, st);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, B, S, Hkv, G, causal,
-                                     window, prefix_len, st);
+    return launch_wgmma<64>(q, k, v, out, B, S, Hkv, G, causal, window,
+                            prefix_len, st);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, B, S, Hkv, G, causal,
-                                      window, prefix_len, st);
+    return launch_wgmma<128>(q, k, v, out, B, S, Hkv, G, causal, window,
+                             prefix_len, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,7 +12,10 @@ The wrapper checks device, dtype, shape, contiguity and alignment and
 raises on anything the kernel does not take; launches on
 ``torch.cuda.current_stream()``; allocates only its output; never
 synchronises; and raises if the launch reports an error.  Its
-``launches`` attribute counts the launches it made.  The kernel is built
+``launches`` attribute counts the launches it made, and
+``launches_by_variant`` splits them by the kernel the dtype selects:
+``"wgmma"`` (bf16, tensor cores over ``kernels/common/csrc/
+hopper_attention.cuh``) and ``"simt"`` (fp32, CUDA cores).  The kernel is built
 from the source on first call (``kernels.cuda_build``).  The plain
 version is in ``ref``; ``ops`` dispatches between the two by the
 tensors' device.
@@ -30,6 +33,8 @@ SRC = Path(__file__).parent / "csrc" / "flash_attention.cu"
 
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel each dtype runs, as the C entry chooses it
+_VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 
 
 def build_all() -> None:
@@ -70,6 +75,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         flash_attention_cuda.launches += 1
+        flash_attention_cuda.launches_by_variant[_VARIANT[dtype]] += 1
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, S, Hkv, H // Hkv, D, int(bool(causal)), int(window),
                  int(prefix_len), _DTYPE_CODE[dtype], stream)
@@ -78,3 +84,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_variant = {"wgmma": 0, "simt": 0}

@@ -25,10 +25,11 @@
 // the pipeline would not flush stale bytes; here there is nothing to
 // flush.  Grid = (query tiles, kv heads, rows).  A query vector is
 // (chunk row r, query head g), numbered r*G + g; a block of 4 warps owns
-// a tile of consecutive query vectors and walks the keys in tiles of 32
-// positions staged as fp32 in shared memory -- keys below `start` come
-// from the pool through the block table, keys at or above it from the
-// chunk operands -- folding each into every warp's online softmax.
+// a tile of consecutive query vectors; keys below `start` come from the
+// pool through the block table, keys at or above it from the chunk
+// operands.  The fp32 kernel walks the keys in tiles of 32 positions
+// staged as fp32 in shared memory, folding each into every warp's online
+// softmax.
 //   * Exactly one block per (row, kv head), query tile 0, writes the
 //     chunk rows into the pool.  No block reads a pool position >= start,
 //     and every write lands at a position >= start, so blocks never race.
@@ -40,6 +41,7 @@
 //     guard makes the page a row writes into private first.
 // Launch contract: launches on the given stream, allocates nothing,
 // never synchronises; returns cudaGetLastError().
+#include "hopper_attention.cuh"
 #include "paged_common.cuh"
 
 namespace paged {
@@ -162,10 +164,134 @@ void launch(const void* q, const void* kc, const void* vc, void* kp, void* vp,
       maxp);
 }
 
+// ---- bf16: tensor cores ---------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(hopper::kThreads)
+    paged_prefill_wgmma(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ kc,
+                        const __nv_bfloat16* __restrict__ vc,
+                        __nv_bfloat16* __restrict__ kp,
+                        __nv_bfloat16* __restrict__ vp,
+                        const int* __restrict__ block_tables,
+                        const int* __restrict__ starts,
+                        const int* __restrict__ lengths,
+                        __nv_bfloat16* __restrict__ out, int c, int Hkv,
+                        int G, int P, int page, int maxp, float scale_log2) {
+  using hopper::bf16;
+  using hopper::kBN;
+  using SM = hopper::Smem<D>;
+  constexpr int kC = D / 8;     // 16-byte chunks per row
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_base(smem_raw);
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int H = Hkv * G;
+  const int start = starts[b];
+  const int len = max(0, min(lengths[b], c));
+  const int* bt = block_tables + (size_t)b * maxp;
+  const int page_shift = __ffs(page) - 1;   // page: a power of two
+  auto pool_row = [&](int pos) {   // element offset of position pos's row
+    const int pid =
+        clampi(bt[clampi(pos >> page_shift, 0, maxp - 1)], 0, P - 1);
+    return (((size_t)pid * page + (pos & (page - 1))) * Hkv + h) * D;
+  };
+
+  // ---- write: query tile 0 of each (row, kv head) owns the pool writes
+  if (tile == 0) {
+    for (int i = threadIdx.x; i < len * kC; i += hopper::kThreads) {
+      const int r = i / kC, ch = i % kC;
+      const size_t dst = pool_row(start + r) + ch * 8;
+      const size_t src = (((size_t)b * c + r) * Hkv + h) * D + ch * 8;
+      *reinterpret_cast<uint4*>(kp + dst) =
+          *reinterpret_cast<const uint4*>(kc + src);
+      *reinterpret_cast<uint4*>(vp + dst) =
+          *reinterpret_cast<const uint4*>(vc + src);
+    }
+  }
+
+  // ---- attend
+  const int nqv = c * G;
+  const int qv0 = tile * hopper::kBM;
+  const int qv_last = min(qv0 + hopper::kBM, nqv) - 1;
+  const int r_first = qv0 / G;
+  const int nchunk = min(qv_last / G + 1, len);  // chunk keys any row sees
+  const int nkeys = r_first < len ? start + nchunk : 0;  // padded tile: none
+
+  hopper::load_tile<D>(
+      SM::q(base),
+      [&](int i) -> const bf16* {
+        const int qv = qv0 + i;
+        if (qv >= nqv) return nullptr;
+        return q + (((size_t)b * c + qv / G) * H + h * G + qv % G) * D;
+      },
+      q);
+  hopper::cp_async_commit();
+
+  int row[2];   // chunk row of each owned query vector (c: a tail vector)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qv = qv0 + hopper::frag_row(hh);
+    row[hh] = qv < nqv ? qv / G : c;
+  }
+
+  auto kv_row = [&](int k0, int jj) -> hopper::KVRow {
+    const int j = k0 + jj;
+    if (j < start) {
+      const size_t o = pool_row(j);
+      return {kp + o, vp + o};
+    }
+    if (j < nkeys) {
+      const size_t o = (((size_t)b * c + (j - start)) * Hkv + h) * D;
+      return {kc + o, vc + o};
+    }
+    return {nullptr, nullptr};
+  };
+  auto visible = [&](int hh, int j) {       // branch-free
+    return (j < start) | ((j - start <= row[hh]) & (j - start < len));
+  };
+  // a tile wholly inside the cached prefix is seen whole by every row
+  auto partial = [&](int k0) { return k0 + kBN > start; };
+
+  hopper::AttnTile<D> acc;
+  acc.init();
+  hopper::attend<D>(acc, base, 0, nkeys, [](int k0) { return k0; }, kv_row,
+                    partial, visible, scale_log2, q);
+
+  acc.finish([&](int hh) -> hopper::OutRow {
+    const int qv = qv0 + hopper::frag_row(hh);
+    if (qv >= nqv) return {nullptr, false};
+    const int r = qv / G;
+    return {out + (((size_t)b * c + r) * H + h * G + qv % G) * D, r >= len};
+  });
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* kc, const void* vc, void* kp,
+                 void* vp, const void* bt, const void* starts,
+                 const void* lengths, void* out, int B, int c, int Hkv, int G,
+                 int P, int page, int maxp, cudaStream_t stream) {
+  if (page < 1 || (page & (page - 1)))   // the kernel shifts by log2(page)
+    return (int)cudaErrorInvalidValue;
+  constexpr int bytes = hopper::Smem<D>::kBytes;
+  auto kern = paged_prefill_wgmma<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((c * G + hopper::kBM - 1) / hopper::kBM, Hkv, B);
+  typedef __nv_bfloat16 T;
+  kern<<<grid, hopper::kThreads, bytes, stream>>>(
+      (const T*)q, (const T*)kc, (const T*)vc, (T*)kp, (T*)vp,
+      (const int*)bt, (const int*)starts, (const int*)lengths, (T*)out, c,
+      Hkv, G, P, page, maxp, 1.4426950408889634f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace paged
 
 // q (B, c, H, D), k/v (B, c, Hkv, D), pools (P, page, Hkv, D), out like q.
-// dtype: 0 = float32, 1 = bfloat16.  Validated by the Python wrapper.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the wgmma
+// kernel).  Validated by the Python wrapper; bf16 operands 16-byte aligned.
 extern "C" int paged_prefill(const void* q, const void* k, const void* v,
                              void* k_pool, void* v_pool,
                              const void* block_tables, const void* starts,
@@ -182,11 +308,11 @@ extern "C" int paged_prefill(const void* q, const void* k, const void* v,
     launch<float, 128>(q, k, v, k_pool, v_pool, block_tables, starts, lengths,
                        out, B, c, Hkv, G, P, page, maxp, st);
   else if (dtype == 1 && D == 64)
-    launch<__nv_bfloat16, 64>(q, k, v, k_pool, v_pool, block_tables, starts,
-                              lengths, out, B, c, Hkv, G, P, page, maxp, st);
+    return launch_wgmma<64>(q, k, v, k_pool, v_pool, block_tables, starts,
+                            lengths, out, B, c, Hkv, G, P, page, maxp, st);
   else if (dtype == 1 && D == 128)
-    launch<__nv_bfloat16, 128>(q, k, v, k_pool, v_pool, block_tables, starts,
-                               lengths, out, B, c, Hkv, G, P, page, maxp, st);
+    return launch_wgmma<128>(q, k, v, k_pool, v_pool, block_tables, starts,
+                             lengths, out, B, c, Hkv, G, P, page, maxp, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

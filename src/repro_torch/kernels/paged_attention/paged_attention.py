@@ -18,7 +18,11 @@ Each wrapper checks device, dtype, shape and contiguity and raises on
 anything its kernel does not take; launches on
 ``torch.cuda.current_stream()``; allocates only its output; never
 synchronises; and raises if the launch reports an error.  Its
-``launches`` attribute counts the launches it made.  The kernels are
+``launches`` attribute counts the launches it made;
+``paged_prefill_cuda.launches_by_variant`` splits the prefill's by the
+kernel the dtype selects: ``"wgmma"`` (bf16, tensor cores over
+``kernels/common/csrc/hopper_attention.cuh``) and ``"simt"`` (fp32, CUDA
+cores).  The kernels are
 built from the sources on first call (``kernels.cuda_build``).  The
 plain versions are in ``ref``; ``ops`` dispatches between the two by the
 tensors' device.
@@ -40,6 +44,8 @@ HEAD_DIMS = (64, 128)
 PAGE_SIZES = (8, 16, 32, 64)
 MAX_GROUPS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel each dtype runs, as the C entry chooses it
+_VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 
 
 def build_all() -> None:
@@ -131,6 +137,10 @@ def paged_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, c, H, D = q.shape
     check_tensor("k", k, dev, dtype, 4)
     check_tensor("v", v, dev, dtype, 4)
+    for name, t in (("q", q), ("k", k), ("v", v), ("k_pool", k_pool),
+                    ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
     if k.shape != v.shape or k.shape[:2] != (B, c) or k.shape[3] != D:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -152,6 +162,7 @@ def paged_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         paged_prefill_cuda.launches += 1
+        paged_prefill_cuda.launches_by_variant[_VARIANT[dtype]] += 1
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), starts.data_ptr(),
@@ -162,3 +173,4 @@ def paged_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 paged_prefill_cuda.launches = 0
+paged_prefill_cuda.launches_by_variant = {"wgmma": 0, "simt": 0}

@@ -21,6 +21,21 @@ from repro_torch.models.ssm import pick_chunk
 
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+#: the kernel each dtype selects in B2 and B3
+VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+
+
+def _variants(fn):
+    return dict(fn.launches_by_variant)
+
+
+def _assert_one_launch_of(fn, before, dtype):
+    """``fn`` made exactly one launch since ``before``, of the variant
+    ``dtype`` selects, and none of the other."""
+    after = _variants(fn)
+    for var, n in after.items():
+        assert n == before[var] + (var == VARIANT[dtype]), (dtype, before,
+                                                            after)
 
 
 @pytest.fixture
@@ -63,17 +78,41 @@ def test_decode_kernel_matches_plain(gen, dtype, B, H, Hkv, D, page, npages):
                                **TOL[dtype])
 
 
+def _written_slots(bt, st, ln, c, P, page):
+    """(P, page) bool: the pool slots the prefill writes (chunk row
+    r < length[b] at position start[b] + r, through the block table)."""
+    pos = st[:, None].long() + torch.arange(c, device="cuda")[None]
+    valid = torch.arange(c, device="cuda")[None] < ln[:, None]
+    slot = torch.clamp(pos // page, 0, bt.shape[1] - 1)
+    dest = torch.gather(bt.long(), 1, slot) * page + pos % page
+    written = torch.zeros(P * page, dtype=torch.bool, device="cuda")
+    written[dest[valid]] = True
+    return written.view(P, page)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,c,H,Hkv,D,page,maxp,starts,lengths", [
-    (2, 8, 4, 2, 64, 8, 3, [8, 0], [8, 8]),
-    (3, 8, 4, 2, 64, 8, 3, [0, 4, 0], [8, 3, 0]),          # padded rows
-    (1, 8, 4, 2, 64, 8, 2, [5], [3]),                      # mid-page start
-    (2, 16, 4, 1, 128, 16, 3, [16, 0], [16, 1]),
+@pytest.mark.parametrize("B,c,H,Hkv,D,page,maxp,starts,lengths,shared", [
+    (2, 8, 4, 2, 64, 8, 3, [8, 0], [8, 8], 0),
+    (3, 8, 4, 2, 64, 8, 3, [0, 4, 0], [8, 3, 0], 0),   # padded, length-0
+    (1, 8, 4, 2, 64, 8, 2, [5], [3], 0),               # mid-page start
+    (2, 16, 4, 1, 128, 16, 3, [16, 0], [16, 1], 0),
     (8, 128, 32, 4, 64, 16, 32, [0, 128, 0, 128, 192, 192, 0, 128],
-     [128, 128, 128, 128, 64, 64, 128, 128])])
+     [128, 128, 128, 128, 64, 64, 128, 128], 0),       # the serving round
+    # page sizes 8 / 16 / 32 / 64, starts not multiples of the 64-key tile
+    (2, 32, 16, 2, 64, 8, 20, [37, 100], [32, 20], 0),
+    (2, 32, 16, 2, 64, 16, 10, [70, 3], [25, 32], 0),
+    (2, 64, 8, 1, 64, 32, 6, [90, 0], [64, 40], 0),
+    (2, 64, 8, 1, 128, 64, 4, [130, 65], [50, 64], 0),
+    # a prefix that ends mid-page, with padded rows
+    (3, 16, 24, 4, 128, 16, 6, [40, 41, 0], [16, 9, 0], 0),
+    # a prefix-registry attach: two rows share their first full pages; at
+    # a mid-page start each writes into its own copy of the boundary page
+    # (the copy-on-write guard's), at a page boundary into fresh pages
+    (2, 16, 8, 1, 64, 16, 6, [40, 40], [16, 12], 2),
+    (2, 16, 8, 1, 64, 16, 6, [48, 48], [16, 16], 3)])
 def test_prefill_kernel_matches_plain(gen, dtype, B, c, H, Hkv, D, page,
-                                      maxp, starts, lengths):
+                                      maxp, starts, lengths, shared):
     P = B * maxp + 3
     q = _randn(gen, B, c, H, D, dtype=dtype)
     k = _randn(gen, B, c, Hkv, D, dtype=dtype)
@@ -81,15 +120,27 @@ def test_prefill_kernel_matches_plain(gen, dtype, B, c, H, Hkv, D, page,
     kp = _randn(gen, P, page, Hkv, D, dtype=dtype)
     vp = _randn(gen, P, page, Hkv, D, dtype=dtype)
     bt = _tables(gen, B, maxp, P)
+    if shared:
+        bt[1:, :shared] = bt[0, :shared]
+        if starts[0] % page:         # the boundary page, copied on write
+            kp[bt[1:, shared].long()] = kp[bt[0, shared].long()].clone()
+            vp[bt[1:, shared].long()] = vp[bt[0, shared].long()].clone()
     st = torch.tensor(starts, dtype=torch.int32, device="cuda")
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kp0, vp0 = kp.clone(), vp.clone()
     kp2, vp2 = kp.clone(), vp.clone()
+    before = _variants(pa.paged_prefill_cuda)
     got = ops.paged_prefill(q, k, v, kp, vp, bt, st, ln)
+    _assert_one_launch_of(pa.paged_prefill_cuda, before, dtype)
     want = ref.paged_prefill_reference(q, k, v, kp2, vp2, bt, st, ln)
     valid = torch.arange(c, device="cuda")[None] < ln[:, None]
     torch.testing.assert_close(got[valid].float(), want[valid].float(),
                                **TOL[dtype])
+    assert not got[~valid].float().abs().any()   # padded rows: zeros
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    keep = ~_written_slots(bt, st, ln, c, P, page)
+    assert torch.equal(kp[keep], kp0[keep]) and \
+        torch.equal(vp[keep], vp0[keep])
 
 
 @pytest.mark.cuda
@@ -130,28 +181,41 @@ def _qkv(gen, B, S, H, Hkv, D, dtype):
     (2, 100, 4, 2, 64), (1, 512, 2, 2, 128),
     (2, 512, 32, 4, 64),              # TinyLlama-1.1B, G = 8
     (1, 512, 15, 5, 64),              # SmolLM-360M, G = 3, H = 15
-    (1, 37, 6, 2, 128)])
+    (2, 512, 15, 5, 64),
+    (1, 37, 6, 2, 128), (2, 37, 15, 5, 64), (1, 200, 6, 3, 128),
+    (1, 2048, 32, 4, 64)])            # long S: the heaviest tiles first
 def test_flash_kernel_matches_plain(gen, dtype, B, S, H, Hkv, D):
     q, k, v = _qkv(gen, B, S, H, Hkv, D, dtype)
     n0 = fa.flash_attention_cuda.launches
+    before = _variants(fa.flash_attention_cuda)
     got = fa_ops.flash_attention(q, k, v)
     assert fa.flash_attention_cuda.launches == n0 + 1
+    _assert_one_launch_of(fa.flash_attention_cuda, before, dtype)
     want = fa_ref.attention_reference(q.float(), k.float(), v.float())
     torch.testing.assert_close(got.float(), want, **TOL[dtype])
     assert got.dtype == dtype
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window,prefix_len,S", [
     (True, 16, 0, 256), (True, 64, 0, 256), (True, 0, 32, 128),
     (True, 0, 200, 256),               # prefix tiles above the diagonal
-    (True, 16, 48, 256), (False, 0, 0, 100), (False, 0, 0, 128)])
-def test_flash_kernel_masks_match_plain(gen, causal, window, prefix_len, S):
-    q, k, v = _qkv(gen, 1, S, 4, 2, 64, torch.float32)
+    (True, 16, 48, 256), (False, 0, 0, 100), (False, 0, 0, 128),
+    (True, 100, 0, 700),               # whole tiles outside the window
+    (True, 130, 70, 500),              # a window and a mid-tile prefix
+    (True, 0, 0, 37), (False, 0, 0, 37)])
+def test_flash_kernel_masks_match_plain(gen, dtype, causal, window,
+                                        prefix_len, S):
+    q, k, v = _qkv(gen, 1, S, 4, 2, 64, dtype)
     kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    before = _variants(fa.flash_attention_cuda)
     got = fa.flash_attention_cuda(q, k, v, **kw)
-    torch.testing.assert_close(got, fa_ref.attention_reference(q, k, v, **kw),
-                               **TOL[torch.float32])
+    _assert_one_launch_of(fa.flash_attention_cuda, before, dtype)
+    torch.testing.assert_close(got.float(),
+                               fa_ref.attention_reference(
+                                   q.float(), k.float(), v.float(), **kw),
+                               **TOL[dtype])
 
 
 @pytest.mark.cuda
