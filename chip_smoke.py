@@ -13,9 +13,16 @@ Phases — each raises on failure, so any failure exits non-zero:
    of shapes, page sizes 8-64, starts that are not multiples of the
    64-key tile, padded/length-0 rows, a prefix ending mid-page, shared
    prefix pages and the copy-on-write boundary page; fp32 at 2e-5 and
-   bf16 at 2e-2.  B2 and B3 pick their kernel by dtype (bf16: the
-   tensor-core ``wgmma`` kernel; fp32: the CUDA-core one): every case
-   checks that exactly one launch of its dtype's variant was made.  The
+   bf16 at 2e-2.  B1's cases include contexts on, one before and one
+   past its split boundaries at spans 64, 128 and 256, ctx = 1 and the
+   table's full width, G = 1, 3 and 8, D = 128 with pages 8 and 64,
+   B = 1 at ctx 2048, Llama-3-8B's heads at ctx 2048, a stale row
+   (zeroed table, ctx 10,000), rows sharing prefix pages, and a repeated
+   call that must give the same bits (nothing persists between calls).
+   Every kernel picks its variant by dtype (B1: bf16 the tensor-core
+   ``split_mma`` kernel, fp32 the CUDA-core ``split_simt``; B2 and B3:
+   bf16 ``wgmma``, fp32 ``simt``): every case checks that exactly one
+   launch of its dtype's variant was made.  The
    prefill must leave every pool byte outside its written slots as it
    was, bit for bit, in both dtypes, and write zeros for padded rows.
 3. Serve full-width TinyLlama-1.1B (22 layers, random weights from a
@@ -25,15 +32,19 @@ Phases — each raises on failure, so any failure exits non-zero:
    and recompute preemptions.  Every request's tokens must equal
    ``generate_reference``, and the kernels' launch counts, zeroed just
    before the run, must equal layers x prefill rounds (B2, every one
-   through the CUDA-core variant) and layers x decode steps (B1).
+   through the CUDA-core variant) and layers x decode steps (B1, every
+   one through ``split_simt``).
 4. Serve the same workload in bf16 and report tokens/s; B2's launches,
    zeroed just before, must all be ``wgmma`` ones, layers x prefill
-   rounds.  Time B1 and both B2 variants at the serving path's shapes
-   with CUDA events (L2 flushed before each launch, as the serving loop
-   finds it), beside their plain versions, ``scaled_dot_product_
-   attention`` on pre-gathered dense K/V (a yardstick only: the port
-   never calls it) and the least time the card could take (bytes over
-   3.35 TB/s or operations over the peak rate of the inputs' type,
+   rounds, and B1's all ``split_mma`` ones, layers x decode steps.  Time
+   both variants of B1 and of B2 at the serving path's shapes, and B1
+   at two long shapes (B=1, ctx 2048 with TinyLlama's heads; B=8, ctx
+   2048 with Llama-3-8B's: H=32, Hkv=8, D=128), with CUDA events (L2
+   flushed before each launch, as the serving loop finds it), beside
+   their plain versions, ``scaled_dot_product_attention`` on
+   pre-gathered dense K/V (a yardstick only: the port never calls it;
+   fp32 with TF32 off) and the least time the card could take (bytes
+   over 3.35 TB/s or operations over the peak rate of the inputs' type,
    whichever is larger; K/V bytes count each distinct pool slot read
    once, however many rows map its page).
 5. Hold the full-sequence flash-attention kernel (B3) against its plain
@@ -95,8 +106,9 @@ Phases — each raises on failure, so any failure exits non-zero:
 Each phase prints the seconds since the start when it is done.
 
 The last two lines of standard output are the kernels' JSON line (one
-entry per kernel and variant: ``paged_prefill`` and ``flash_attention``
-are the bf16 ``wgmma`` kernels, ``..._simt`` the fp32 CUDA-core ones)
+entry per kernel and variant: ``paged_decode`` is B1's bf16
+``split_mma`` kernel, ``paged_prefill`` and ``flash_attention`` the bf16
+``wgmma`` kernels, ``..._simt`` the fp32 CUDA-core ones)
 and ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
 measurement as JSON.  Without a CUDA device, or outside a checkout of the
 repository, the script exits with code 1 and prints no result.
@@ -229,22 +241,24 @@ def prefill_case(torch, inp, B, c, H, Hkv, D, page, maxp, dtype, starts,
 
 #: the kernel each dtype selects in B2 and B3 (the C entries' choice)
 VARIANT = {"float32": "simt", "bfloat16": "wgmma"}
+#: ... and in B1
+DECODE_VARIANT = {"float32": "split_simt", "bfloat16": "split_mma"}
 
 
-def one_launch_of(fn, before, dtype, what) -> None:
+def one_launch_of(fn, before, dtype, what, variants=VARIANT) -> None:
     """``fn`` launched once since ``before`` (its ``launches_by_variant``
     then), through the variant ``dtype`` selects."""
     after = fn.launches_by_variant
-    want = {k: n + (k == VARIANT[dtype]) for k, n in before.items()}
+    want = {k: n + (k == variants[dtype]) for k, n in before.items()}
     check(after == want, f"{what}: launches by variant {before} -> {after},"
-          f" expected one {VARIANT[dtype]}")
+          f" expected one {variants[dtype]}")
 
 
 def zero_counts(*fns) -> None:
     for fn in fns:
         fn.launches = 0
         if hasattr(fn, "launches_by_variant"):
-            fn.launches_by_variant = {"wgmma": 0, "simt": 0}
+            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
 
 def compare(torch, got, want, dtype, what) -> float:
@@ -257,11 +271,34 @@ def compare(torch, got, want, dtype, what) -> float:
     return err.max().item()
 
 
-def check_decode(torch, pa, ref, case, dtype, what) -> float:
+def check_decode(torch, pa, ref, case, dtype, what, repeat=False) -> float:
+    before = dict(pa.paged_decode_cuda.launches_by_variant)
     got = pa.paged_decode_cuda(*case)
+    one_launch_of(pa.paged_decode_cuda, before, dtype, what, DECODE_VARIANT)
     want = ref.paged_decode_reference(*case)
     torch.cuda.synchronize()
+    if repeat:      # nothing persists between calls: the same bits
+        for _ in range(3):
+            check(torch.equal(pa.paged_decode_cuda(*case), got),
+                  f"{what}: a repeated call gave other bits")
     return compare(torch, got, want, dtype, what)
+
+
+def split_edges(pa, B, Hkv, width):
+    """B contexts on, one before and one past B1's split boundaries (the
+    span its C entry picks for these shapes), ctx = 1 and the table's
+    full width."""
+    span = pa.decode_span(B, Hkv, width)
+    edges = [1, span - 1, span, span + 1, 2 * span - 1, 2 * span,
+             2 * span + 1, 3 * span, width - 1, width]
+    edges = sorted({min(max(c, 1), width) for c in edges})
+    return [edges[b % len(edges)] for b in range(B)], span
+
+
+#: B1 at long contexts: (B, H, Hkv, D, page, npages, ctx) -- TinyLlama's
+#: heads at B=1, and Llama-3-8B's (32 query heads over 8, D=128) at B=8
+DECODE_LONG = {"B1_ctx2048_tinyllama": (1, 32, 4, 64, 16, 128, [2048]),
+               "B8_ctx2048_llama3_8b": (8, 32, 8, 128, 16, 128, [2048] * 8)}
 
 
 def check_prefill(torch, pa, ref, case, dtype, what) -> float:
@@ -322,7 +359,27 @@ def phase_kernels(torch, pa, ref, P_main, ecfg):
         e = errs["paged_decode"]
         e[f"main_{dtype}"] = check_decode(
             torch, pa, ref, main_path_decode(torch, inp, dtype, P_main, ecfg),
-            dtype, f"decode main path {dtype}")
+            dtype, f"decode main path {dtype}", repeat=True)
+        # split edges: spans 64 (G = 8, 3, 1; D = 128, pages 8 and 64),
+        # 128 and 256 (two and four chunks per warp)
+        for B, H, Hkv, D, page, npages in [(10, 8, 1, 64, 16, 16),
+                                           (10, 3, 1, 64, 16, 16),
+                                           (10, 2, 2, 64, 16, 16),
+                                           (10, 16, 2, 128, 8, 40),
+                                           (10, 8, 4, 128, 64, 6),
+                                           (16, 16, 8, 64, 16, 64),
+                                           (32, 16, 8, 64, 16, 64)]:
+            ctx, span = split_edges(pa, B, Hkv, page * npages)
+            name = (f"decode edges span{span} B{B} H{H} Hkv{Hkv} D{D} "
+                    f"page{page} {dtype}")
+            e[name] = check_decode(
+                torch, pa, ref, decode_case(torch, inp, B, H, Hkv, D, page,
+                                            npages, dtype, ctx), dtype, name)
+        for what, (B, H, Hkv, D, page, npages, ctx) in DECODE_LONG.items():
+            e[f"{what}_{dtype}"] = check_decode(
+                torch, pa, ref, decode_case(torch, inp, B, H, Hkv, D, page,
+                                            npages, dtype, ctx), dtype,
+                f"decode {what} {dtype}")
         for B, H, Hkv, D, page, npages in [(2, 8, 2, 64, 16, 4),
                                            (4, 4, 4, 64, 32, 2),
                                            (1, 8, 1, 128, 64, 3),
@@ -342,6 +399,12 @@ def phase_kernels(torch, pa, ref, P_main, ecfg):
         cl[1] = 10_000
         e[f"stale_row_{dtype}"] = check_decode(
             torch, pa, ref, (q, kp, vp, bt, cl), dtype, "decode stale row")
+        # two rows that map the same prefix pages, across split boundaries
+        e[f"shared_prefix_{dtype}"] = check_decode(
+            torch, pa, ref, decode_case(torch, inp, 4, 16, 2, 64, 16, 12,
+                                        dtype, [150, 190, 64, 129],
+                                        shared=[((0, 1), 6)]), dtype,
+            "decode shared prefix pages")
 
         e = errs["paged_prefill"]
         e[f"main_{dtype}"] = check_prefill(
@@ -403,6 +466,7 @@ def phase_serve_fp32(torch, pa, cfg, params):
     launches = {"paged_decode": pa.paged_decode_cuda.launches,
                 "paged_prefill": pa.paged_prefill_cuda.launches}
     variants = dict(pa.paged_prefill_cuda.launches_by_variant)
+    dvariants = dict(pa.paged_decode_cuda.launches_by_variant)
     L = cfg.num_layers
     print(f"fp32 serve: {len(reqs)} requests, "
           f"{sum(len(o) for o in res.outputs.values())} tokens in "
@@ -418,6 +482,10 @@ def phase_serve_fp32(torch, pa, cfg, params):
           f"expected {L} x {eng.decode_steps}")
     check(variants == {"wgmma": 0, "simt": launches["paged_prefill"]},
           f"fp32 paged_prefill launches by variant {variants}: every one "
+          "should be the CUDA-core kernel")
+    check(dvariants == {"split_mma": 0,
+                        "split_simt": launches["paged_decode"]},
+          f"fp32 paged_decode launches by variant {dvariants}: every one "
           "should be the CUDA-core kernel")
     check(res.metrics.num_preemptions >= 1, "no recompute preemption")
     check(res.swap_stats["trie_hits"] > 0, "no prefix-registry hit")
@@ -438,7 +506,7 @@ def phase_serve_fp32(torch, pa, cfg, params):
     check(not mismatched, f"tokens differ from generate_reference "
           f"(rid, first position): {mismatched}")
     return {"wall_s": wall, "launches": launches,
-            "prefill_variants": variants,
+            "prefill_variants": variants, "decode_variants": dvariants,
             "prefill_rounds": eng.prefill_rounds,
             "decode_steps": eng.decode_steps,
             "preemptions": res.metrics.num_preemptions,
@@ -458,12 +526,14 @@ def phase_serve_bf16(torch, pa, cfg, params):
     launches = {"paged_decode": pa.paged_decode_cuda.launches,
                 "paged_prefill": pa.paged_prefill_cuda.launches}
     variants = dict(pa.paged_prefill_cuda.launches_by_variant)
+    dvariants = dict(pa.paged_decode_cuda.launches_by_variant)
     L = cfg.num_layers
     tokens = sum(len(o) for o in res.outputs.values())
     print(f"bf16 serve: {tokens} tokens in {wall:.3f} s = "
           f"{tokens / wall:.1f} tok/s (phases {res.phase_stats}); "
           f"{eng.prefill_rounds} prefill rounds, {eng.decode_steps} decode "
-          f"steps; launches {launches}, paged_prefill by variant {variants}")
+          f"steps; launches {launches}, paged_prefill by variant {variants},"
+          f" paged_decode by variant {dvariants}")
     check(variants == {"wgmma": L * eng.prefill_rounds, "simt": 0}
           and eng.prefill_rounds > 0,
           f"bf16 paged_prefill launches by variant {variants}, expected "
@@ -471,11 +541,15 @@ def phase_serve_bf16(torch, pa, cfg, params):
     check(launches["paged_decode"] == L * eng.decode_steps > 0,
           f"paged_decode launched {launches['paged_decode']} times, "
           f"expected {L} x {eng.decode_steps}")
+    check(dvariants == {"split_mma": launches["paged_decode"],
+                        "split_simt": 0},
+          f"bf16 paged_decode launches by variant {dvariants}: every one "
+          "should be the tensor-core kernel")
     check(all(r.finished for r in reqs), "unfinished requests")
     return {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
             "phase_stats": res.phase_stats, "pool_pages":
             int(eng.k_pools.shape[1]), "launches": launches,
-            "prefill_variants": variants,
+            "prefill_variants": variants, "decode_variants": dvariants,
             "prefill_rounds": eng.prefill_rounds,
             "decode_steps": eng.decode_steps}
 
@@ -484,10 +558,15 @@ def phase_serve_bf16(torch, pa, cfg, params):
 # phase 4: timing at the serving shapes
 # --------------------------------------------------------------------- #
 
+#: MB that ``time_ms`` writes before each timed call to flush the L2
+FLUSH_MB = 256
+
+
 def time_ms(torch, fn, iters=30, warm=3) -> float:
     """Mean device time of ``fn`` from CUDA events around each call,
     with the 50 MB L2 flushed (a 256 MB write) before each."""
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
+    flush = torch.empty(FLUSH_MB * 256 * 1024, dtype=torch.float32,
+                        device=DEVICE)
     for _ in range(warm):
         fn()
     ev = [(torch.cuda.Event(enable_timing=True),
@@ -542,7 +621,8 @@ def time_decode(torch, pa, ref, case, dtype):
         qd, kd, vd, attn_mask=mask, enable_gqa=True)
     lib_ms = time_ms(torch, lib)
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, bytes=nbytes, ops=ops)
+                library_ms=lib_ms, bytes=nbytes, ops=ops, dtype=dtype,
+                shape=list(q.shape), kv_heads=Hkv)
 
 
 def time_prefill(torch, pa, ref, case, dtype):
@@ -1204,13 +1284,21 @@ def main(argv=None) -> int:
 
     with torch.no_grad():
         inp = Inputs(torch, 2)
-        times = {
-            "paged_decode": time_decode(
-                torch, pa, ref, main_path_decode(torch, inp, "bfloat16",
-                                                 P_main, ecfg), "bfloat16")}
-        # B2 and B3: "paged_prefill" / "flash_attention" the bf16 (wgmma)
-        # kernels, "..._simt" the fp32 (CUDA-core) ones
+        times = {}
+        decode_more = {}
+        # "paged_decode" / "paged_prefill" / "flash_attention" the bf16
+        # (tensor-core) kernels, "..._simt" the fp32 (CUDA-core) ones
         for dtype, sfx in (("bfloat16", ""), ("float32", "_simt")):
+            times["paged_decode" + sfx] = time_decode(
+                torch, pa, ref, main_path_decode(torch, inp, dtype, P_main,
+                                                 ecfg), dtype)
+            for what, (B, H, Hkv, D, page, npages, ctx) in \
+                    DECODE_LONG.items():
+                t = decode_more[f"{what}_{dtype}"] = time_decode(
+                    torch, pa, ref, decode_case(torch, inp, B, H, Hkv, D,
+                                                page, npages, dtype, ctx),
+                    dtype)
+                t["span"] = pa.decode_span(B, Hkv, page * npages)
             times["paged_prefill" + sfx] = time_prefill(
                 torch, pa, ref, main_path_prefill(torch, inp, dtype, P_main,
                                                   ecfg), dtype)
@@ -1251,8 +1339,11 @@ def main(argv=None) -> int:
     # and its times at those shapes
     entries = [
         # (entry, kernel, variant, dtype, launches, max abs err, shapes)
-        ("paged_decode", "paged_decode", "simt", "bfloat16",
-         fp32["launches"]["paged_decode"],
+        ("paged_decode", "paged_decode", "split_mma", "bfloat16",
+         bf16["decode_variants"]["split_mma"],
+         errs["paged_decode"]["main_bfloat16"], "serving shapes"),
+        ("paged_decode_simt", "paged_decode", "split_simt", "float32",
+         fp32["decode_variants"]["split_simt"],
          errs["paged_decode"]["main_float32"], "serving shapes"),
         ("paged_prefill", "paged_prefill", "wgmma", "bfloat16",
          bf16["prefill_variants"]["wgmma"],
@@ -1289,6 +1380,12 @@ def main(argv=None) -> int:
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
+    for what, t in decode_more.items():
+        print(f"paged_decode ({t['dtype']}, {what}, q {t['shape']}, Hkv "
+              f"{t['kv_heads']}, span {t['span']}): {t['ms']:.4f} ms; plain "
+              f"{t['plain_ms']:.4f} ms; sdpa {t['library_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.3g} B, "
+              f"{t['ops']:.3g} ops)")
     for what, t in flash_more.items():
         print(f"flash_attention ({t['dtype']}, shape {t['shape']}, Hkv "
               f"{t['kv_heads']}): {t['ms']:.4f} ms; plain {t['plain_ms']:.4f}"
@@ -1301,6 +1398,7 @@ def main(argv=None) -> int:
           f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
           f"{t['bytes']:.3g} B, {t['ops']:.3g} ops)")
     times["flash_attention_more"] = flash_more
+    times["paged_decode_more"] = decode_more
     report.update(errors=errs, serve_fp32=fp32, serve_bf16=bf16,
                   full_prefill=prefill, full_prefill_bf16=prefill16,
                   train=train, timings=times,

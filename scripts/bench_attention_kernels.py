@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Time the attention kernels B2 (fused paged prefill) and B3 (flash
-attention) of one source tree at the main path's shapes, in bf16 and fp32,
-on one NVIDIA card: the timing of ``chip_smoke.py`` (CUDA events, L2
-flushed before each launch) beside the plain version, SDPA and the bound.
+"""Time the attention kernels B1 (paged decode), B2 (fused paged prefill)
+and B3 (flash attention) of one source tree at the main path's shapes, in
+bf16 and fp32, on one NVIDIA card, and B1 also at its two long shapes
+(``chip_smoke.DECODE_LONG``: B=1, ctx 2048 with TinyLlama's heads; B=8,
+ctx 2048 with Llama-3-8B's): the timing of ``chip_smoke.py`` (CUDA
+events, L2 flushed before each launch) beside the plain version, SDPA
+and the bound.
 
 It times the kernels of the tree given by ``--src`` (default: this
 checkout's ``src/``), so two trees can be compared on one card in one run,
@@ -14,8 +17,12 @@ in turns (parent, change, change, parent)::
     done
 
 Each run prints the card (``nvidia-smi`` name and power limit), one line
-per kernel and shape, and, with ``--out PATH``, writes them as JSON.
-Without a CUDA device it exits with code 1.
+per kernel and shape (for B1 at the serving step also the host time of
+one wrapper call), and, with ``--out PATH``, writes them as JSON.
+``--flush-mb N`` writes N MB instead of ``chip_smoke.py``'s 256 before
+each timed call: a call whose host side outlasts the flush leaves the
+card idle inside the events, so a longer flush shows how much of a
+reading is host time.  Without a CUDA device it exits with code 1.
 """
 from __future__ import annotations
 
@@ -23,9 +30,25 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+def host_us(torch, fn, iters=200) -> float:
+    """Host time of one call of ``fn`` (a kernel wrapper: its checks,
+    allocations and launch), in us: what a host-bound serving step pays
+    per call.  The loop enqueues without waiting for the card, since
+    the launch queue holds more than ``iters`` launches."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
 
 
 def main(argv=None) -> int:
@@ -33,6 +56,9 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is timed")
     ap.add_argument("--out", help="also write the times here as JSON")
+    ap.add_argument("--flush-mb", type=int, default=None,
+                    help="MB written before each timed call (default: "
+                         "chip_smoke.FLUSH_MB, 256)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -42,6 +68,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
+    if args.flush_mb is not None:
+        cs.FLUSH_MB = args.flush_mb
     import repro_torch
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -57,14 +85,24 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
-    print(f"{card}; tree {src}")
-    cuda_build.build([pa.PREFILL_SRC, fa.SRC])
+    print(f"{card}; tree {src}; flush {cs.FLUSH_MB} MB")
+    cuda_build.build([pa.DECODE_SRC, pa.PREFILL_SRC, fa.SRC])
     ecfg = SMOKE_ENGINE
     P = -(-SMOKE_M // ecfg.page_size) + 1
     inp = cs.Inputs(torch, 2)
     res = {}
     with torch.no_grad():
         for dtype in ("bfloat16", "float32"):
+            case = cs.main_path_decode(torch, inp, dtype, P, ecfg)
+            t = res[f"paged_decode {dtype} serving step"] = cs.time_decode(
+                torch, pa, ref, case, dtype)
+            t["host_us"] = host_us(torch, lambda: pa.paged_decode_cuda(*case))
+            for what, (B, H, Hkv, D, page, npages, ctx) in \
+                    cs.DECODE_LONG.items():
+                res[f"paged_decode {dtype} {what}"] = cs.time_decode(
+                    torch, pa, ref, cs.decode_case(torch, inp, B, H, Hkv, D,
+                                                   page, npages, dtype, ctx),
+                    dtype)
             res[f"paged_prefill {dtype} serving round"] = cs.time_prefill(
                 torch, pa, ref, cs.main_path_prefill(torch, inp, dtype, P,
                                                      ecfg), dtype)
@@ -75,13 +113,16 @@ def main(argv=None) -> int:
             torch, fa, fref, cs.flash_case(inp, *cs.FLASH_LONG, "bfloat16"),
             "bfloat16")
     for what, t in res.items():
+        host = f"; host {t['host_us']:.1f} us per call" if "host_us" in t \
+            else ""
         print(f"{what}: {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
               f"sdpa {t['library_ms']:.4f} ms; bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']})")
+              f"({t['bound_by']}){host}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "src": str(src), "times": res}, indent=1))
+            {"card": card, "src": str(src), "flush_mb": cs.FLUSH_MB,
+             "times": res}, indent=1))
     return 0
 
 

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels for paged attention (CUDA C++, ``sm_90a``).
 
-* ``paged_decode_cuda`` — flash-decoding, one query token per row
+* ``paged_decode_cuda`` — flash-decoding, one query token per row, the
+  context split over blocks and the partials merged in the same launch
   (``csrc/paged_decode.cu``; replaces the TPU kernel
   ``repro/kernels/paged_attention/paged_attention.py::paged_decode_bhd``).
 * ``paged_prefill_cuda`` — fused chunked prefill: writes the chunk's
@@ -16,19 +17,25 @@ needed around them.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything its kernel does not take; launches on
-``torch.cuda.current_stream()``; allocates only its output; never
-synchronises; and raises if the launch reports an error.  Its
+``torch.cuda.current_stream()``; allocates only its output (and the
+decode its workspace); never synchronises; and raises if the launch reports an error.  Its
 ``launches`` attribute counts the launches it made;
-``paged_prefill_cuda.launches_by_variant`` splits the prefill's by the
-kernel the dtype selects: ``"wgmma"`` (bf16, tensor cores over
+``launches_by_variant`` splits them by the kernel the dtype selects:
+for the prefill ``"wgmma"`` (bf16, tensor cores over
 ``kernels/common/csrc/hopper_attention.cuh``) and ``"simt"`` (fp32, CUDA
-cores).  The kernels are
+cores), for the decode ``"split_mma"`` (bf16, ``mma.sync`` tensor cores)
+and ``"split_simt"`` (fp32, CUDA cores).  The decode's partials go to a
+workspace the wrapper takes from the caching allocator at every call,
+sized by the span its C entry picks (``decode_span``); nothing persists
+between calls.  The kernels are
 built from the sources on first call (``kernels.cuda_build``).  The
 plain versions are in ``ref``; ``ops`` dispatches between the two by the
 tensors' device.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -44,15 +51,33 @@ HEAD_DIMS = (64, 128)
 PAGE_SIZES = (8, 16, 32, 64)
 MAX_GROUPS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel each dtype runs, as the C entry chooses it
+#: the kernel each dtype runs, as the C entries choose it
 _VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+_DECODE_VARIANT = {torch.float32: "split_simt", torch.bfloat16: "split_mma"}
 
 
 def build_all() -> None:
     """Compile (in parallel) and load every kernel of this module."""
     cuda_build.build([DECODE_SRC, PREFILL_SRC])
-    cuda_build.c_function(DECODE_SRC, "paged_decode", 6, 8)
+    cuda_build.c_function(DECODE_SRC, "paged_decode", 7, 9)
     cuda_build.c_function(PREFILL_SRC, "paged_prefill", 9, 9)
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_span(B: int, Hkv: int, width: int) -> int:
+    """The span (keys per block) the decode kernel picks for B rows, Hkv
+    kv heads and a table of ``width`` positions: its C entry's own rule,
+    so the wrapper sizes the workspace for ceil(width / span) splits."""
+    f = cuda_build.load(DECODE_SRC).paged_decode_span
+    f.argtypes = [ctypes.c_int] * 3
+    f.restype = ctypes.c_int
+    return f(B, Hkv, width)
+
+
+def _check_aligned(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
 def _check_pools(k_pool, v_pool, dev, dtype, Hkv_D):
@@ -96,6 +121,7 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     G = _groups(H, Hkv)
     check_tensor("block_tables", block_tables, dev, torch.int32, 2)
     check_tensor("context_lens", context_lens, dev, torch.int32, 1)
+    _check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
     npages = block_tables.shape[1]
     if block_tables.shape[0] != B or context_lens.shape[0] != B \
             or npages < 1:
@@ -105,19 +131,25 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    fn = cuda_build.c_function(DECODE_SRC, "paged_decode", 6, 8)
+    width = npages * page
+    ws_splits = -(-width // decode_span(B, Hkv, width))
+    ws = torch.empty(B * Hkv * ws_splits * G * (D + 2), dtype=torch.float32,
+                     device=dev)
+    fn = cuda_build.c_function(DECODE_SRC, "paged_decode", 7, 9)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         paged_decode_cuda.launches += 1
+        paged_decode_cuda.launches_by_variant[_DECODE_VARIANT[dtype]] += 1
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), context_lens.data_ptr(),
-                 out.data_ptr(), B, Hkv, G, D, P, page, npages,
-                 _DTYPE_CODE[dtype], stream)
+                 out.data_ptr(), ws.data_ptr(), B, Hkv, G, D, P, page,
+                 npages, ws_splits, _DTYPE_CODE[dtype], stream)
     cuda_build.raise_on(err, "paged_decode")
     return out
 
 
 paged_decode_cuda.launches = 0
+paged_decode_cuda.launches_by_variant = {"split_mma": 0, "split_simt": 0}
 
 
 def paged_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -137,10 +169,7 @@ def paged_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, c, H, D = q.shape
     check_tensor("k", k, dev, dtype, 4)
     check_tensor("v", v, dev, dtype, 4)
-    for name, t in (("q", q), ("k", k), ("v", v), ("k_pool", k_pool),
-                    ("v_pool", v_pool)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: data must be 16-byte aligned")
+    _check_aligned(q=q, k=k, v=v, k_pool=k_pool, v_pool=v_pool)
     if k.shape != v.shape or k.shape[:2] != (B, c) or k.shape[3] != D:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")

@@ -44,6 +44,53 @@ def paged_decode_reference(q: torch.Tensor, k_pool: torch.Tensor,
     return out.reshape(B, H, D)
 
 
+def paged_decode_split_model(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, block_tables: torch.Tensor,
+                             context_lens: torch.Tensor,
+                             span: int) -> torch.Tensor:
+    """The CUDA decode kernel's split-and-merge, in plain PyTorch (tests
+    only; ``paged_decode_reference`` stays the oracle).
+
+    Row b attends over positions [0, min(ctx[b], npages * page)).  Split
+    s owns positions [s * span, (s + 1) * span) and computes its fp32
+    partial (m, l, acc): its max score (-inf when it has no visible key),
+    sum of exp(score - m) and the weighted sum of values.  The merge
+    rescales every partial by exp(m_s - max m) (0 for an empty split) and
+    divides by the merged l clamped to 1e-30, so a row with no visible key
+    gives zeros.  q (B,H,D); pools (P, page, Hkv, D) -> (B,H,D), q's
+    dtype."""
+    B, H, D = q.shape
+    page, Hkv = k_pool.shape[1], k_pool.shape[2]
+    G = H // Hkv
+    npages = block_tables.shape[1]
+    S = npages * page
+    nsplit = -(-S // span)
+    bt = block_tables.long().clamp(0, k_pool.shape[0] - 1)
+    k = k_pool[bt].reshape(B, S, Hkv, D).float()
+    v = v_pool[bt].reshape(B, S, Hkv, D).float()
+    pad = nsplit * span - S
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    nkeys = context_lens.long().clamp(0, S)
+    visible = (torch.arange(nsplit * span, device=q.device)[None]
+               < nkeys[:, None])                                # (B, S')
+    s = torch.einsum("bhgd,bkhd->bhgk", q.reshape(B, Hkv, G, D).float(), k)
+    s = (s / math.sqrt(D)).masked_fill(~visible[:, None, None], -math.inf)
+    s = s.reshape(B, Hkv, G, nsplit, span)
+    m = s.amax(-1)                                              # (B,Hkv,G,n)
+    empty = torch.isinf(m)
+    p = torch.exp(s - torch.where(empty, 0.0, m)[..., None])
+    l_s = p.sum(-1)
+    acc = torch.einsum("bhgnk,bnkhd->bhgnd", p,
+                       v.reshape(B, nsplit, span, Hkv, D))
+    M = m.amax(-1, keepdim=True)
+    w = torch.where(empty, 0.0, torch.exp(m - torch.where(torch.isinf(M),
+                                                          0.0, M)))
+    out = (w[..., None] * acc).sum(-2) \
+        / (w * l_s).sum(-1).clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
+
+
 def scatter_rows(pool: torch.Tensor, dest: torch.Tensor,
                  rows: torch.Tensor) -> None:
     """Write rows (..., Hkv, D) into a (P, page, Hkv, D) pool at flat

@@ -119,6 +119,63 @@ def test_wrappers_count_launches_by_variant(fn):
                for n in fn.launches_by_variant.values())
 
 
+def test_the_decode_counts_launches_by_split_variant():
+    """B1's wrapper counts its launches by the kernel the dtype selects:
+    ``split_mma`` (bf16, tensor cores), ``split_simt`` (fp32)."""
+    fn = pa.paged_decode_cuda
+    assert set(fn.launches_by_variant) == {"split_mma", "split_simt"}
+    assert all(isinstance(n, int) and n >= 0
+               for n in fn.launches_by_variant.values())
+    assert set(pa._DECODE_VARIANT) == set(pa._DTYPE_CODE)
+    assert pa._DECODE_VARIANT[torch.bfloat16] == "split_mma"
+    assert pa._DECODE_VARIANT[torch.float32] == "split_simt"
+
+
+def test_the_decode_kernel_is_split_mma_sync_with_no_library_call():
+    """B1 issues its bf16 products with mma.sync (keys as M, heads as N),
+    gathers with cp.async, launches its split and merge kernels from one
+    C entry, keeps no state between calls (no atomics, no counters) and
+    calls no library or allocator; its fp32 path uses no TF32."""
+    text = pa.DECODE_SRC.read_text()
+    for op in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+               "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+               "cp.async.cg.shared.global"):
+        assert op in text, op
+    code = re.sub(r"//[^\n]*", "", text).lower()
+    for banned in ("tf32", "cublas", "cudamalloc", "synchronize", "torch",
+                   "atomic"):
+        assert banned not in code, banned
+    assert text.count("<<<") == 2          # the split, then the merge
+
+
+def _c_entries(src: Path):
+    """{name: (pointers, ints)} of the extern "C" entries of ``src`` that
+    end with the stream (a ``void*`` after the ints)."""
+    out = {}
+    for name, params in re.findall(
+            r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+        kinds = ["ptr" if "*" in p else "int" for p in params.split(",")]
+        if kinds and kinds[-1] == "ptr" and "int" in kinds:
+            body = kinds[:-1]
+            nptr = body.index("int")
+            assert all(k == "int" for k in body[nptr:]), name
+            out[name] = (nptr, len(body) - nptr)
+    return out
+
+
+@pytest.mark.parametrize("mod", [pa, fa, wkv], ids=lambda m: m.__name__)
+def test_ctypes_signatures_match_the_c_entries(mod):
+    """Every ``c_function(SRC, name, nptrs, nints)`` a wrapper makes types
+    the entry as its source declares it: a wrong count would only show as
+    a ctypes error on the card."""
+    text = Path(mod.__file__).read_text()
+    calls = re.findall(r'c_function\((\w+), "(\w+)", (\d+), (\d+)\)', text)
+    assert calls
+    for var, name, nptrs, nints in calls:
+        assert _c_entries(getattr(mod, var))[name] == (int(nptrs),
+                                                       int(nints)), name
+
+
 @pytest.mark.parametrize("mod", [fa, pa], ids=lambda m: m.__name__)
 def test_every_dtype_the_wrapper_takes_selects_one_variant(mod):
     assert set(mod._VARIANT) == set(mod._DTYPE_CODE)
@@ -134,7 +191,9 @@ def test_cpu_tensors_launch_no_kernel(dtype):
     before = (fa.flash_attention_cuda.launches,
               dict(fa.flash_attention_cuda.launches_by_variant),
               pa.paged_prefill_cuda.launches,
-              dict(pa.paged_prefill_cuda.launches_by_variant))
+              dict(pa.paged_prefill_cuda.launches_by_variant),
+              pa.paged_decode_cuda.launches,
+              dict(pa.paged_decode_cuda.launches_by_variant))
     q = torch.randn(1, 16, 4, 64, generator=g).to(dtype)
     kv = torch.randn(1, 16, 2, 64, generator=g).to(dtype)
     fa_ops.flash_attention(q, kv, kv)
@@ -143,8 +202,11 @@ def test_cpu_tensors_launch_no_kernel(dtype):
     st = torch.tensor([3], dtype=torch.int32)
     ln = torch.tensor([16], dtype=torch.int32)
     pa_ops.paged_prefill(q, kv, kv, pools, pools.clone(), bt, st, ln)
+    pa_ops.paged_decode(q[:, 0], pools, pools, bt, st)
     after = (fa.flash_attention_cuda.launches,
              dict(fa.flash_attention_cuda.launches_by_variant),
              pa.paged_prefill_cuda.launches,
-             dict(pa.paged_prefill_cuda.launches_by_variant))
+             dict(pa.paged_prefill_cuda.launches_by_variant),
+             pa.paged_decode_cuda.launches,
+             dict(pa.paged_decode_cuda.launches_by_variant))
     assert after == before

@@ -56,26 +56,150 @@ def _tables(gen, B, maxp, P):
     return perm.reshape(B, maxp).to(torch.int32)
 
 
+#: the decode kernel each dtype selects (B1)
+DECODE_VARIANT = {torch.float32: "split_simt", torch.bfloat16: "split_mma"}
+
+
+def _split_edges(B, Hkv, width):
+    """B contexts on, one before and one past the kernel's split
+    boundaries, ctx = 1 and the table's full width."""
+    span = pa.decode_span(B, Hkv, width)
+    edges = [1, span - 1, span, span + 1, 2 * span - 1, 2 * span,
+             2 * span + 1, 3 * span, width - 1, width]
+    edges = sorted({min(max(c, 1), width) for c in edges})
+    return [edges[b % len(edges)] for b in range(B)]
+
+
+def _check_decode(q, kp, vp, bt, ctx, dtype):
+    n0 = pa.paged_decode_cuda.launches
+    before = dict(pa.paged_decode_cuda.launches_by_variant)
+    got = ops.paged_decode(q, kp, vp, bt, ctx)
+    assert pa.paged_decode_cuda.launches == n0 + 1
+    after = pa.paged_decode_cuda.launches_by_variant
+    assert after == {k: n + (k == DECODE_VARIANT[dtype])
+                     for k, n in before.items()}, (dtype, before, after)
+    torch.testing.assert_close(got.float(),
+                               ref.paged_decode_reference(q, kp, vp, bt,
+                                                          ctx).float(),
+                               **TOL[dtype])
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,Hkv,D,page,npages", [
-    (2, 8, 2, 64, 16, 4), (4, 4, 4, 64, 32, 2), (1, 8, 1, 128, 64, 3),
-    (8, 32, 4, 64, 16, 32), (3, 6, 1, 128, 8, 5)])
-def test_decode_kernel_matches_plain(gen, dtype, B, H, Hkv, D, page, npages):
+@pytest.mark.parametrize("B,H,Hkv,D,page,npages,ctx", [
+    (2, 8, 2, 64, 16, 4, None), (4, 4, 4, 64, 32, 2, None),
+    (1, 8, 1, 128, 64, 3, None), (8, 32, 4, 64, 16, 32, None),
+    (3, 6, 1, 128, 8, 5, None),
+    # contexts at the split boundaries (span 64): G = 8, 3 and 1
+    (10, 8, 1, 64, 16, 16, "edges"), (10, 3, 1, 64, 16, 16, "edges"),
+    (10, 2, 2, 64, 16, 16, "edges"),
+    # D = 128 with pages 8 and 64
+    (10, 16, 2, 128, 8, 40, "edges"), (10, 8, 4, 128, 64, 6, "edges"),
+    # spans 128 and 256: two and four chunks per warp through the ring
+    (16, 16, 8, 64, 16, 64, "edges"), (32, 16, 8, 64, 16, 64, "edges"),
+    # B = 1 at ctx 2048 (TinyLlama's heads); Llama-3-8B's heads at 2048
+    (1, 32, 4, 64, 16, 128, [2048]), (8, 32, 8, 128, 16, 128, [2048] * 8),
+    (8, 32, 8, 128, 16, 128, [1, 127, 128, 129, 1000, 2047, 2048, 64])])
+def test_decode_kernel_matches_plain(gen, dtype, B, H, Hkv, D, page, npages,
+                                     ctx):
     P = B * npages + 3
     q = _randn(gen, B, H, D, dtype=dtype)
     kp = _randn(gen, P, page, Hkv, D, dtype=dtype)
     vp = _randn(gen, P, page, Hkv, D, dtype=dtype)
     bt = _tables(gen, B, npages, P)
-    ctx = torch.randint(1, page * npages + 1, (B,), generator=gen,
-                        device="cuda", dtype=torch.int32)
-    n0 = pa.paged_decode_cuda.launches
-    got = ops.paged_decode(q, kp, vp, bt, ctx)
-    assert pa.paged_decode_cuda.launches == n0 + 1
-    torch.testing.assert_close(got.float(),
-                               ref.paged_decode_reference(q, kp, vp, bt,
-                                                          ctx).float(),
-                               **TOL[dtype])
+    if ctx is None:
+        ctx = torch.randint(1, page * npages + 1, (B,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    else:
+        if ctx == "edges":
+            ctx = _split_edges(B, Hkv, page * npages)
+        ctx = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    _check_decode(q, kp, vp, bt, ctx, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_stale_and_shared_rows(gen, dtype):
+    """An inactive row (zeroed table, ctx 10,000) reads page 0 only; two
+    rows that map the same prefix pages read them each."""
+    B, H, Hkv, D, page, npages = 4, 16, 2, 64, 16, 12
+    P = B * npages + 3
+    q = _randn(gen, B, H, D, dtype=dtype)
+    kp = _randn(gen, P, page, Hkv, D, dtype=dtype)
+    vp = _randn(gen, P, page, Hkv, D, dtype=dtype)
+    bt = _tables(gen, B, npages, P)
+    bt[1] = 0
+    bt[3, :6] = bt[2, :6]
+    ctx = torch.tensor([70, 10_000, 150, 190], dtype=torch.int32,
+                       device="cuda")
+    _check_decode(q, kp, vp, bt, ctx, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_repeats_bit_for_bit(gen, dtype):
+    """Two calls in a row give the same bits: nothing persists between
+    calls, and the merge adds the partials in split order."""
+    B, H, Hkv, D, page, npages = 8, 32, 4, 64, 16, 32
+    P = B * npages + 3
+    q = _randn(gen, B, H, D, dtype=dtype)
+    kp = _randn(gen, P, page, Hkv, D, dtype=dtype)
+    vp = _randn(gen, P, page, Hkv, D, dtype=dtype)
+    bt = _tables(gen, B, npages, P)
+    ctx = torch.tensor([260 + 5 * b for b in range(B)], dtype=torch.int32,
+                       device="cuda")
+    first = _check_decode(q, kp, vp, bt, ctx, dtype)
+    for _ in range(3):
+        assert torch.equal(pa.paged_decode_cuda(q, kp, vp, bt, ctx), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_on_two_streams_at_once(gen, dtype):
+    """Decodes enqueued on two streams, neither waiting for the other,
+    each match the plain version: no state is shared between calls."""
+    B, H, Hkv, D, page, npages = 8, 32, 4, 64, 16, 32
+    P = B * npages + 3
+    cases = []
+    for _ in range(2):
+        q = _randn(gen, B, H, D, dtype=dtype)
+        kp = _randn(gen, P, page, Hkv, D, dtype=dtype)
+        vp = _randn(gen, P, page, Hkv, D, dtype=dtype)
+        bt = _tables(gen, B, npages, P)
+        ctx = torch.randint(65, page * npages + 1, (B,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        cases.append((q, kp, vp, bt, ctx))
+    streams = [torch.cuda.Stream() for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(20):
+        for st, case in zip(streams, cases):
+            with torch.cuda.stream(st):
+                outs.append(pa.paged_decode_cuda(*case))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        torch.testing.assert_close(
+            got.float(), ref.paged_decode_reference(*cases[i % 2]).float(),
+            **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_decode_span_rule(gen):
+    """The span the kernel picks: 64 at the serving shapes, doubling
+    while the grid passes 1,024 blocks or 64 splits per (row, kv head),
+    never more than 64 splits."""
+    assert pa.decode_span(8, 4, 512) == 64
+    assert pa.decode_span(1, 4, 2048) == 64
+    assert pa.decode_span(8, 8, 2048) == 128
+    assert pa.decode_span(32, 8, 1024) == 256
+    assert pa.decode_span(1, 1, 1 << 16) == 1024
+    assert pa.decode_span(2, 2, 40) == 64
+    for B, Hkv, width in [(8, 4, 512), (64, 8, 4096), (1, 1, 1 << 16),
+                          (3, 5, 40), (128, 8, 8192)]:
+        span = pa.decode_span(B, Hkv, width)
+        assert -(-width // span) <= 64
 
 
 def _written_slots(bt, st, ln, c, P, page):

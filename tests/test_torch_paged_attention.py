@@ -90,6 +90,99 @@ def test_decode_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol("f"))
 
 
+# --------------------------------------------------------------------- #
+# decode: the CUDA kernel's split-and-merge, modelled in plain PyTorch
+# --------------------------------------------------------------------- #
+
+#: every span the kernel may pick up to a 4096-position table (it doubles
+#: from 64 until the grid is small enough), and one wider than the table
+SPANS = [64, 128, 256, 512, 1024, 2048, 4096]
+
+
+def _split_edges(span, width):
+    """Contexts on, one before and one past the split boundaries, ctx=1,
+    the table's full width and a stale context beyond it."""
+    ctx = [1, span - 1, span, span + 1, 2 * span - 1, 2 * span,
+           2 * span + 1, width, 10_000]
+    return [min(c, width) if c != 10_000 else c for c in ctx]
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("H,Hkv,D,page", [(8, 1, 64, 16), (6, 2, 128, 8),
+                                          (2, 2, 64, 64)])
+def test_decode_split_model_matches_jax_oracle(span, H, Hkv, D, page):
+    """G = 8, 3 and 1; pages 16, 8 and 64; the table 2 * min(span, 256) +
+    64 wide, so the larger spans cover it in one split and the smaller
+    ones leave splits wholly past every short context."""
+    width = 2 * min(span, 256) + 64
+    ctx = _split_edges(min(span, width), width)
+    q, kp, vp, bt, ctx = _decode_inputs(len(ctx), H, Hkv, D, page,
+                                        width // page, seed=span, ctx=ctx)
+    bt[-1] = 0                                # an inactive row, stale ctx
+    want = JR.paged_decode_reference(*map(jnp.asarray, (q, kp, vp, bt, ctx)))
+    got = TR.paged_decode_split_model(*map(torch.from_numpy,
+                                           (q, kp, vp, bt, ctx)), span)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol("f"))
+
+
+@pytest.mark.parametrize("span", [64, 128, 256])
+@pytest.mark.parametrize("H,Hkv,D,page,npages,ctx", [
+    (4, 2, 64, 8, 20, [1, 65, 160]), (8, 1, 64, 16, 10, [1, 64, 129, 160]),
+    (6, 2, 128, 8, 20, [63, 128, 160]), (3, 3, 64, 32, 9, [257, 31, 288])])
+def test_decode_split_model_matches_pallas_interpret(span, H, Hkv, D, page,
+                                                     npages, ctx):
+    """The Pallas kernel in interpret mode, contexts across splits: G 2,
+    8, 3 and 1, D 64 and 128, pages 8-32."""
+    q, kp, vp, bt, ctx = _decode_inputs(len(ctx), H, Hkv, D, page, npages,
+                                        seed=7, ctx=ctx)
+    want = paged_decode_attention(*map(jnp.asarray, (q, kp, vp, bt, ctx)),
+                                  interpret=True)
+    got = TR.paged_decode_split_model(*map(torch.from_numpy,
+                                           (q, kp, vp, bt, ctx)), span)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol("f"))
+
+
+@pytest.mark.parametrize("span", SPANS)
+def test_decode_split_model_bf16_matches_jax_oracle(span):
+    """bf16 inputs (the kernel's ``split_mma`` path): fp32 partials and
+    merge, the output rounded to bf16, against the JAX oracle on the same
+    rounded values at the bf16 tolerance."""
+    width = 2 * min(span, 256) + 64
+    ctx = _split_edges(min(span, width), width)
+    q, kp, vp, bt, ctx = _decode_inputs(len(ctx), 16, 2, 64, 16,
+                                        width // 16, seed=span + 1, ctx=ctx)
+    q, kp, vp = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, kp, vp))
+    got = TR.paged_decode_split_model(q, kp, vp, torch.from_numpy(bt),
+                                      torch.from_numpy(ctx), span)
+    assert got.dtype == torch.bfloat16
+    want = JR.paged_decode_reference(*map(jnp.asarray, (
+        q.float().numpy(), kp.float().numpy(), vp.float().numpy(), bt, ctx)))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
+                               **tol("bfloat16"))
+
+
+def test_decode_split_model_shared_prefix_pages():
+    """Two rows that map the same prefix pages read them each."""
+    q, kp, vp, bt, ctx = _decode_inputs(2, 8, 2, 64, 16, 12, seed=3,
+                                        ctx=[150, 190])
+    bt[1, :5] = bt[0, :5]
+    want = JR.paged_decode_reference(*map(jnp.asarray, (q, kp, vp, bt, ctx)))
+    for span in (64, 128, 256):
+        got = TR.paged_decode_split_model(*map(torch.from_numpy,
+                                               (q, kp, vp, bt, ctx)), span)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **tol("f"))
+
+
+def test_decode_split_model_no_visible_key_gives_zeros():
+    """ctx = 0: every split is empty and the row is zeros (the kernel's
+    rule; the oracles, which mask with -1e30, average the values)."""
+    q, kp, vp, bt, ctx = _decode_inputs(2, 4, 2, 64, 16, 8, ctx=[0, 70])
+    got = TR.paged_decode_split_model(*map(torch.from_numpy,
+                                           (q, kp, vp, bt, ctx)), 64)
+    assert not got[0].abs().any() and got[1].abs().sum() > 0
+
+
 def test_scatter_rows_sentinel_is_the_jax_drop():
     """Rows aimed at the sentinel page past the pool's real pages are the
     JAX scatter's out-of-range drop: the real pages match bit for bit."""
