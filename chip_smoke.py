@@ -78,9 +78,15 @@ Phases — each raises on failure, so any failure exits non-zero:
    chunked form at ``pick_chunk``'s chunk, and the per-token oracle) in
    fp32: the sweep of ``tests/test_kernels.py`` and its decay extremes
    (w = 0.01 and 0.999, at 1e-4; 3e-5 elsewhere), a random nonzero initial
-   state, S in {37, 200, 448, 127}, the engine round at full width (B=8,
-   S=64, H=64, D=64); padded steps (w=1, k=0) must leave the state bit
-   for bit as it was.
+   state, S in {37, 200, 448, 127}, the engine round at full width (B=8
+   and B=4, S=64, H=64, D=64), and both sides of every edge of the
+   kernel's grid rule (``WKV_EDGES``: tile length and columns per CTA for
+   D=64, the one split of D=32 and D=8; S off the tile); padded steps
+   (w=1, k=0) must leave the state bit for bit as it was, a call split in
+   two with the state carried across and a repeated call must give the
+   same bits, every row of a B=8 call must equal that row called alone
+   (the two calls split the state differently), and calls on two streams
+   at once must each match.
 10. Serve full-width RWKV6-7B (random weights from a seed) in fp32, cut
    to its first 4 layers, through the engine's slot-resident plane: the
    workload of
@@ -98,20 +104,24 @@ Phases — each raises on failure, so any failure exits non-zero:
    without any fault (``scripts/rwkv_sensitivity.py``).
 11. The same workload in bf16 at full depth: tokens/s, B4 launches and
    the wall of a decode step.
-12. Time B4 at the engine round's shape beside its plain chunked version
-   and its bound (bytes over 3.35 TB/s or its ~4 D^2 fp32 operations
-   per token and head over 67 TFLOP/s, whichever is larger); no single
-   PyTorch call computes WKV6, so its library time is null.
+12. Time B4 at its three shapes (``WKV_SHAPES``: the engine round from a
+   state at the smoke engine's 4 slots and at EngineConfig's default 8,
+   and the full prefill of one 512-token prompt from a zero state) beside
+   its plain chunked version and its bound (bytes over 3.35 TB/s, s0
+   counted only when given, or its ~4 D^2 fp32 operations per token and
+   head over 67 TFLOP/s, whichever is larger); no single PyTorch call
+   computes WKV6, so its library time is null.
 
 Each phase prints the seconds since the start when it is done.
 
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
 ``split_mma`` kernel, ``paged_prefill`` and ``flash_attention`` the bf16
-``wgmma`` kernels, ``..._simt`` the fp32 CUDA-core ones)
-and ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
-measurement as JSON.  Without a CUDA device, or outside a checkout of the
-repository, the script exits with code 1 and prints no result.
+``wgmma`` kernels, ``..._simt`` the fp32 CUDA-core ones, ``wkv6`` B4's
+column-split ``colsplit`` kernel) and ``{"ok": true, "device": {...}}``.
+``--report PATH`` also writes every measurement as JSON.  Without a CUDA
+device, or outside a checkout of the repository, the script exits with
+code 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -963,6 +973,18 @@ WKV_TOL, WKV_TOL_EXTREME = 3e-5, 1e-4
 #: of 64); its B is the engine's slot count: 4 in the smoke engine, 8 in
 #: EngineConfig's default
 WKV_ROUND = (64, 64, 64)
+#: the shapes B4 is timed at, (B, S, H, D, s0): the engine round from a
+#: state at both slot counts, and the full prefill of one 512-token prompt
+WKV_SHAPES = {"round_B4": (4, *WKV_ROUND, True),
+              "round_B8": (8, *WKV_ROUND, True),
+              "prefill_B1_S512": (1, 512, 64, 64, False)}
+#: (B, S, H, D) on each side of B4's grid rule (``rwkv_scan.columns``):
+#: D = 64 moves from 16-step to 8-step tiles past 66 heads and from 32 to
+#: 64 columns per CTA past 264; D = 32 and D = 8 have one split each; S is
+#: off the tile (tests/test_torch_cuda_kernels.py's WKV_EDGES)
+WKV_EDGES = [(1, 37, 66, 64), (1, 37, 67, 64), (4, 21, 66, 64),
+             (5, 21, 53, 64), (1, 5, 265, 64), (8, 1, 64, 64),
+             (2, 37, 4, 32), (3, 13, 5, 8)]
 
 
 def wkv_case(torch, inp, B, S, H, D, wval=None, s0=False):
@@ -1024,19 +1046,66 @@ def phase_wkv_kernel(torch, wkv, wref, pick_chunk, nslots):
                                wkv_case(torch, inp, B, *WKV_ROUND, s0=True),
                                64, WKV_TOL, name)
     errs["main_float32"] = errs[name]
-    # padded steps (w = 1, k = 0) leave the state bit for bit as it was
+    for B, S, H, D in WKV_EDGES:
+        name = f"wkv6 B{B} S{S} H{H} D{D} columns{wkv.columns(B, H, D)} s0"
+        errs[name] = check_wkv(torch, wkv, wref,
+                               wkv_case(torch, inp, B, S, H, D, s0=True),
+                               pick_chunk(S, 64), WKV_TOL, name)
+    # padded steps (w = 1, k = 0) leave the state bit for bit as it was;
+    # a call split in two with the state carried over, and a repeated
+    # call, give the same bits
     r, k, v, w, u, s0 = wkv_case(torch, inp, 4, 40, 64, 64, s0=True)
-    _, s = wkv.wkv6_cuda(r, k, v, w, u, s0)
+    y, s = wkv.wkv6_cuda(r, k, v, w, u, s0)
     pad = lambda t, val: torch.cat(  # noqa: E731
         [t, torch.full_like(t[:, :24], val)], dim=1)
     _, sp = wkv.wkv6_cuda(pad(r, 0.5), pad(k, 0.0), pad(v, 0.7), pad(w, 1.0),
                           u, s0)
+    part = lambda t, a, b: t[:, a:b].contiguous()  # noqa: E731
+    y1, s1 = wkv.wkv6_cuda(*(part(t, 0, 13) for t in (r, k, v, w)), u, s0)
+    y2, s2 = wkv.wkv6_cuda(*(part(t, 13, 40) for t in (r, k, v, w)), u, s1)
+    y3, s3 = wkv.wkv6_cuda(r, k, v, w, u, s0)
     torch.cuda.synchronize()
     check(torch.equal(sp, s), "wkv6: padded steps changed the state")
+    check(torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(s2, s),
+          "wkv6: a call split in two differs from one call")
+    check(torch.equal(y3, y) and torch.equal(s3, s),
+          "wkv6: a repeated call differs")
+    # every row of a batched call equals that row called alone, though the
+    # two calls split the state differently
+    r, k, v, w, u, s0 = wkv_case(torch, inp, 8, *WKV_ROUND, s0=True)
+    check(wkv.columns(8, 64, 64) != wkv.columns(1, 64, 64),
+          "wkv6: the batch test no longer crosses a split edge")
+    y, s = wkv.wkv6_cuda(r, k, v, w, u, s0)
+    for b in range(8):
+        yb, sb = wkv.wkv6_cuda(*(t[b:b + 1].contiguous()
+                                 for t in (r, k, v, w)), u,
+                               s0[b:b + 1].contiguous())
+        check(torch.equal(yb, y[b:b + 1]) and torch.equal(sb, s[b:b + 1]),
+              f"wkv6: row {b} of a B=8 call differs from the row alone")
+    # two streams at once, neither waiting for the other
+    cases = [wkv_case(torch, inp, 4, *WKV_ROUND, s0=True),
+             wkv_case(torch, inp, 1, 200, 64, 64)]
+    streams = [torch.cuda.Stream() for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(4):
+        for st, case in zip(streams, cases):
+            with torch.cuda.stream(st):
+                outs.append(wkv.wkv6_cuda(*case))
+    torch.cuda.synchronize()
+    for i, (yi, si) in enumerate(outs):
+        wy, ws = wref.wkv6_reference(*cases[i % 2])
+        for got, want in ((yi, wy), (si, ws)):
+            check(bool(((got - want).abs() <= WKV_TOL + WKV_TOL * want.abs())
+                       .all()), "wkv6: a call on a second stream disagrees")
+        check(torch.equal(yi, outs[i % 2][0]), "wkv6: two-stream repeats "
+              "differ")
     print(f"wkv6: {len(errs) - 1} comparisons with both plain versions pass "
           f"(rtol=atol {WKV_TOL}, {WKV_TOL_EXTREME} at the decay extremes); "
           f"engine-round shape max abs err {errs['main_float32']:.3g}; "
-          f"padded steps leave the state bit-equal")
+          f"padded steps, a split call and a repeat bit-equal; 8 batched "
+          f"rows bit-equal to single rows; two streams at once agree")
     return errs
 
 
@@ -1160,7 +1229,8 @@ def phase_rwkv_serve_bf16(torch, wkv, cfg, params):
 def time_wkv(torch, wkv, wref, case):
     r, k, v, w, u, s0 = case
     B, S, H, D = r.shape
-    nbytes = (5 * r.numel() + u.numel() + 2 * B * H * D * D) * 4
+    states = 1 if s0 is None else 2          # s_last, and s0 when given
+    nbytes = (5 * r.numel() + u.numel() + states * B * H * D * D) * 4
     ops = 4 * D * D * B * S * H
     b_ms, b_by = bound(nbytes, ops, "float32")
     ms = time_ms(torch, lambda: wkv.wkv6_cuda(*case))
@@ -1329,10 +1399,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         lap("RWKV6-7B bf16 serve")
 
-        times["wkv6"] = time_wkv(torch, wkv, wref, wkv_case(
-            torch, inp, SMOKE_RWKV_ENGINE.nslots, *WKV_ROUND, s0=True))
-        times["wkv6_B8"] = time_wkv(torch, wkv, wref, wkv_case(
-            torch, inp, 8, *WKV_ROUND, s0=True))
+        wkv_more = {what: time_wkv(torch, wkv, wref, wkv_case(
+            torch, inp, B, S, H, D, s0=s0))
+            for what, (B, S, H, D, s0) in WKV_SHAPES.items()}
+        check(WKV_SHAPES["round_B4"][0] == SMOKE_RWKV_ENGINE.nslots,
+              "the timed round is not the smoke engine's")
+        times["wkv6"] = wkv_more["round_B4"]
         lap("wkv6 timing")
     # each entry: its launches on its main path (counts zeroed just before
     # that run), its comparison with the plain version at the main shapes,
@@ -1358,7 +1430,7 @@ def main(argv=None) -> int:
         ("flash_attention_simt", "flash_attention", "simt", "float32",
          prefill["variants"]["simt"], errs["flash_attention"]["main_float32"],
          "full-prefill shapes B2 S512 H32 Hkv4"),
-        ("wkv6", "wkv6", "simt", "float32", rwkv32["launches"],
+        ("wkv6", "wkv6", "colsplit", "float32", rwkv32["launches"],
          errs["wkv6"]["main_float32"], "engine round B{} S{} H{} D{}".format(
              SMOKE_RWKV_ENGINE.nslots, *WKV_ROUND)),
     ]
@@ -1392,12 +1464,13 @@ def main(argv=None) -> int:
               f" ms; sdpa {t['library_ms']:.4f} ms; bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.3g} B, "
               f"{t['ops']:.3g} ops)")
-    t = times["wkv6_B8"]
-    print(f"wkv6 (fp32, B{t['shape'][0]} S{t['shape'][1]} H{t['shape'][2]} "
-          f"D{t['shape'][3]}): {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} "
-          f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-          f"{t['bytes']:.3g} B, {t['ops']:.3g} ops)")
+    for what, t in wkv_more.items():
+        print(f"wkv6 (fp32, {what}, B{t['shape'][0]} S{t['shape'][1]} "
+              f"H{t['shape'][2]} D{t['shape'][3]}): {t['ms']:.4f} ms; plain "
+              f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}: {t['bytes']:.3g} B, {t['ops']:.3g} ops)")
     times["flash_attention_more"] = flash_more
+    times["wkv6_more"] = wkv_more
     times["paged_decode_more"] = decode_more
     report.update(errors=errs, serve_fp32=fp32, serve_bf16=bf16,
                   full_prefill=prefill, full_prefill_bf16=prefill16,

@@ -5,7 +5,10 @@ bf16 and fp32, on one NVIDIA card, and B1 also at its two long shapes
 (``chip_smoke.DECODE_LONG``: B=1, ctx 2048 with TinyLlama's heads; B=8,
 ctx 2048 with Llama-3-8B's): the timing of ``chip_smoke.py`` (CUDA
 events, L2 flushed before each launch) beside the plain version, SDPA
-and the bound.
+and the bound.  It also times the WKV6 kernel B4 at its three shapes
+(``chip_smoke.WKV_SHAPES``: the engine round at B=4 and B=8 from a
+state, and the full prefill of one 512-token prompt), which has no
+library yardstick.
 
 It times the kernels of the tree given by ``--src`` (default: this
 checkout's ``src/``), so two trees can be compared on one card in one run,
@@ -76,6 +79,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.paged_attention import ref
+    from repro_torch.kernels.rwkv_scan import ref as wref
+    from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
     from repro_torch.launch.serve import SMOKE_ENGINE, SMOKE_M
     if not Path(repro_torch.__file__).resolve().is_relative_to(src):
         raise SystemExit(f"repro_torch came from {repro_torch.__file__}, "
@@ -86,7 +91,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     print(f"{card}; tree {src}; flush {cs.FLUSH_MB} MB")
-    cuda_build.build([pa.DECODE_SRC, pa.PREFILL_SRC, fa.SRC])
+    cuda_build.build([pa.DECODE_SRC, pa.PREFILL_SRC, fa.SRC, wkv.SRC])
     ecfg = SMOKE_ENGINE
     P = -(-SMOKE_M // ecfg.page_size) + 1
     inp = cs.Inputs(torch, 2)
@@ -112,11 +117,17 @@ def main(argv=None) -> int:
         res[f"flash_attention bfloat16 {cs.FLASH_LONG}"] = cs.time_flash(
             torch, fa, fref, cs.flash_case(inp, *cs.FLASH_LONG, "bfloat16"),
             "bfloat16")
+        for what, (B, S, H, D, s0) in cs.WKV_SHAPES.items():
+            res[f"wkv6 float32 {what}"] = cs.time_wkv(
+                torch, wkv, wref, cs.wkv_case(torch, inp, B, S, H, D,
+                                              s0=s0))
     for what, t in res.items():
         host = f"; host {t['host_us']:.1f} us per call" if "host_us" in t \
             else ""
+        lib = "none" if t["library_ms"] is None \
+            else f"{t['library_ms']:.4f} ms"
         print(f"{what}: {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
-              f"sdpa {t['library_ms']:.4f} ms; bound {t['bound_ms']:.6f} ms "
+              f"sdpa {lib}; bound {t['bound_ms']:.6f} ms "
               f"({t['bound_by']}){host}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_port_serve.py [--arch tinyllama-1.1b|rwkv6-7b]
                                           [--dtype bfloat16] [--report PATH]
+                                          [--src DIR]
 
 Serves the smoke workload of ``repro_torch.launch.serve.smoke_server``
 (full-width TinyLlama-1.1B, the paged engine, its two CUDA kernels), or
@@ -13,8 +14,11 @@ steps 40-59 (decode steps, mostly) under
 step), for the device time and launch counts by kernel name; the
 device's busy share is that device time over the unprofiled wall of the
 same steps (the schedule is deterministic).  It also times the host's
-cost of enqueuing one tiny eager op.  Prints a table of the top kernels
-and one JSON summary line; ``--report`` writes the summary as a file.
+cost of enqueuing one tiny eager op.  Prints a table of the top kernels,
+the device time of the WKV6 kernel (B4) in the window, and one JSON
+summary line; ``--report`` writes the summary as a file.  ``--src DIR``
+profiles the ``repro_torch`` of another tree (a parent checkout unpacked
+under an ignored directory), so a parent and a change run in one call.
 Exits 1 without a CUDA device.
 """
 from __future__ import annotations
@@ -95,12 +99,19 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--report")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src/ directory whose repro_torch is profiled")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("profile_port_serve: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    import repro_torch
+    if not Path(repro_torch.__file__).resolve().is_relative_to(src):
+        raise SystemExit(f"repro_torch came from {repro_torch.__file__}, "
+                         f"not {src}")
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
@@ -165,6 +176,9 @@ def main(argv=None) -> int:
                device_ms_per_step=device_s / ACTIVE * 1e3,
                device_busy_share=device_s / window["wall_s"])
     out["top_kernels"] = top_kernels(by_kernel)
+    wkv = [(c, t) for name, (c, t) in by_kernel.items() if "wkv6" in name]
+    out["wkv6"] = {"count": sum(c for c, _ in wkv),
+                   "ms": sum(t for _, t in wkv) / 1e3}
     print(f"{out['card']}, {args.arch} {args.dtype}: {steps} steps "
           f"({eng.decode_steps} decode) in {wall:.3f} s unprofiled = "
           f"{out['wall_ms_per_step']:.2f} ms/step, "
@@ -178,6 +192,10 @@ def main(argv=None) -> int:
           f"unprofiled wall)")
     for k in out["top_kernels"]:
         print(f"  {k['ms']:10.2f} ms  {k['count']:7d}  {k['name']}")
+    share = out["wkv6"]["ms"] / 1e3 / device_s
+    print(f"wkv6 (B4) in the window: {out['wkv6']['ms']:.3f} ms in "
+          f"{out['wkv6']['count']} launches ({share:.1%} of the device "
+          f"time); tree {src}")
     print(json.dumps(out))
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

@@ -1,6 +1,6 @@
 """Paper core: scheduling, cache management, cost models (a copy of
-``repro.core``'s modules; ``csp``, ``five_minute_rule``, ``slo`` and the
-simulation loop are not part of this port yet)."""
+``repro.core``'s modules; ``csp``, ``slo`` and the simulation loop are
+not part of this port yet)."""
 from repro_torch.core.cost_model import (  # noqa: F401
     HARDWARE,
     BatchSpec,
@@ -13,6 +13,7 @@ from repro_torch.core.cost_model import (  # noqa: F401
     get_hardware,
     profile_synthetic,
 )
+from repro_torch.core.five_minute_rule import break_even_interval, break_even_table  # noqa: F401
 from repro_torch.core.histogram import OutputLengthHistogram  # noqa: F401
 from repro_torch.core.kvcache import (  # noqa: F401
     OutOfPagesError,

@@ -2,14 +2,16 @@
 ``sm_90a``): ``wkv6_cuda`` runs ``csrc/wkv6.cu``, which replaces the TPU
 kernel ``repro/kernels/rwkv_scan/rwkv_scan.py::wkv6_chunked``
 (``_wkv_kernel``) and adds the initial state ``s0`` that the TPU kernel
-lacks.
+lacks.  The kernel is a column-split scan: each CTA owns ``columns(B, H,
+D)`` value columns of one head's state, fed by a producer warp through a
+2-stage cp.async ring (the source's head note has the design).
 
 It takes the projections' own layout, r/k/v/w ``(B, S, H, D)``, so no
 transpose is needed around it; any ``S >= 1`` (it runs token by token,
 so no chunk size applies), ``D`` in ``HEAD_DIMS``.
 
-The wrapper checks device, dtype, shape and contiguity and raises on
-anything the kernel does not take; launches on
+The wrapper checks device, dtype, shape, contiguity and 16-byte
+alignment and raises on anything the kernel does not take; launches on
 ``torch.cuda.current_stream()``; allocates only its outputs; never
 synchronises; and raises if the launch reports an error.  Its
 ``launches`` attribute counts the launches it made.  The kernel is built
@@ -19,6 +21,8 @@ device.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -36,6 +40,17 @@ def build_all() -> None:
     """Compile and load this module's kernel."""
     cuda_build.build([SRC])
     cuda_build.c_function(SRC, "wkv6_forward", 8, 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def columns(B: int, H: int, D: int) -> int:
+    """Columns of each head's state per CTA that the kernel picks for B
+    rows of H heads of dim D: its C entry's own rule (0 for a D it does
+    not take)."""
+    f = cuda_build.load(SRC).wkv6_columns
+    f.argtypes = [ctypes.c_int] * 3
+    f.restype = ctypes.c_int
+    return f(B, H, D)
 
 
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,6 +79,9 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(B, S, H) < 1 or B * H > 2 ** 31 - 1:
         raise ValueError(f"(B, S, H) = {(B, S, H)}: empty, or beyond the "
                          "grid")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("s0", s0)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
     y = torch.empty_like(r)
     s_last = torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
     fn = cuda_build.c_function(SRC, "wkv6_forward", 8, 4)

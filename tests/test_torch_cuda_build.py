@@ -210,3 +210,20 @@ def test_cpu_tensors_launch_no_kernel(dtype):
              pa.paged_decode_cuda.launches,
              dict(pa.paged_decode_cuda.launches_by_variant))
     assert after == before
+
+
+def test_the_wkv6_kernel_is_one_cp_async_launch_with_no_library_call():
+    """B4 stages its inputs with cp.async, launches one kernel per call
+    from one C entry (beside it only the grid-rule query wkv6_columns),
+    keeps no state between calls (no atomics), calls no library or
+    allocator and runs fp32 on the CUDA cores (no TF32, no tensor-core
+    products)."""
+    text = wkv.SRC.read_text()
+    assert "cp.async.cg.shared.global" in text
+    code = re.sub(r"//[^\n]*", "", text).lower()
+    for banned in ("tf32", "cublas", "cudamalloc", "synchronize", "torch",
+                   "atomic", "wgmma", "mma.sync"):
+        assert banned not in code, banned
+    assert code.count("<<<") == 1
+    assert sorted(re.findall(r'extern "C" int (\w+)\(', text)) == \
+        ["wkv6_columns", "wkv6_forward"]

@@ -451,6 +451,73 @@ def test_wkv6_kernel_padded_steps_keep_the_state(gen):
     assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(s2, s)
 
 
+#: (B, S, H, D) on each side of the kernel's grid rule (rwkv_scan.columns):
+#: D = 64 switches from 16-step to 8-step tiles past 66 heads and from 32
+#: to 64 columns per CTA past 264; D = 32 and D = 8 have one split each.
+#: S is off the tile so the last tile is partial.
+WKV_EDGES = [(1, 37, 66, 64), (1, 37, 67, 64), (4, 21, 66, 64),
+             (5, 21, 53, 64), (1, 5, 265, 64), (8, 1, 64, 64),
+             (2, 37, 4, 32), (3, 13, 5, 8)]
+
+
+@pytest.mark.cuda
+def test_wkv6_columns_rule(gen):
+    """The split the C entry picks: 32 columns per CTA while two CTAs per
+    head fit four per SM on 132 SMs, then a head per CTA; one split for
+    D = 32 and D = 8; 0 for a head dim it does not take."""
+    assert [wkv.columns(B, H, D) for B, _, H, D in WKV_EDGES] == \
+        [32, 32, 32, 64, 64, 64, 32, 8]
+    assert wkv.columns(4, 64, 64) == 32 and wkv.columns(8, 64, 64) == 64
+    assert wkv.columns(1, 1, 24) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D", WKV_EDGES)
+def test_wkv6_kernel_at_the_split_edges(gen, B, S, H, D):
+    _check_wkv(_wkv_inputs(gen, B, S, H, D, s0=True), pick_chunk(S, 64),
+               WKV_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(8, 64), (6, 53)])
+def test_wkv6_batched_rows_equal_single_rows(gen, B, H):
+    """Row b of a batched call is bit-equal to row b called alone, though
+    the two calls split the state differently (64 and 32 columns per
+    CTA): every sum's order depends on D alone."""
+    r, k, v, w, u, s0 = _wkv_inputs(gen, B, 64, H, 64, s0=True)
+    assert wkv.columns(B, H, 64) != wkv.columns(1, H, 64)
+    y, s = wkv.wkv6_cuda(r, k, v, w, u, s0)
+    for b in range(B):
+        one = [t[b:b + 1].contiguous() for t in (r, k, v, w)]
+        yb, sb = wkv.wkv6_cuda(*one, u, s0[b:b + 1].contiguous())
+        assert torch.equal(yb, y[b:b + 1]) and torch.equal(sb, s[b:b + 1]), b
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_on_two_streams_at_once(gen):
+    """Calls enqueued on two streams, neither waiting for the other, each
+    match the plain version and repeat bit for bit: nothing is shared
+    between calls."""
+    cases = [_wkv_inputs(gen, 4, 64, 64, 64, s0=True),
+             _wkv_inputs(gen, 1, 200, 64, 64)]
+    streams = [torch.cuda.Stream() for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(5):
+        for st, case in zip(streams, cases):
+            with torch.cuda.stream(st):
+                outs.append(wkv.wkv6_cuda(*case))
+    torch.cuda.synchronize()
+    for i, (y, s) in enumerate(outs):
+        case = cases[i % 2]
+        wy, ws = wkv_ref.wkv6_reference(*case)
+        torch.testing.assert_close(y, wy, **WKV_TOL)
+        torch.testing.assert_close(s, ws, **WKV_TOL)
+        assert torch.equal(y, outs[i % 2][0]) and \
+            torch.equal(s, outs[i % 2][1])
+
+
 @pytest.mark.cuda
 def test_wkv6_kernel_has_no_backward(gen):
     r, k, v, w, u, _ = _wkv_inputs(gen, 1, 16, 2, 32)
@@ -477,3 +544,6 @@ def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(gen):
                                                  device="cuda"))
     with pytest.raises(ValueError, match="u "):
         wkv.wkv6_cuda(r, k, v, w, u[:1])
+    flat = torch.zeros(r.numel() + 1, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wkv.wkv6_cuda(flat[1:].view(r.shape), k, v, w, u)

@@ -48,9 +48,9 @@ def requests_spec(vocab, n=5, seed=0, max_i=25, max_o=9):
     return out
 
 
-def shared_prefix_spec(vocab):
+def shared_prefix_spec(vocab, n=8):
     return [(r.rid, r.input_len, r.output_len, r.arrival, list(r.prompt))
-            for r in j_shared_prefix(n=8, input_len=32, prefix_frac=0.75,
+            for r in j_shared_prefix(n=n, input_len=32, prefix_frac=0.75,
                                      output_len=6, vocab=vocab,
                                      stagger=1e-6, seed=3)]
 
@@ -63,6 +63,11 @@ WORKLOADS = {
                            dict(M_kv=400, nslots=8, page_size=8, S=512,
                                 cache_policy="break_even"),
                            {"trie_hits": 7}),
+    # a pool small enough that the break-even policy reclaims prefix pages
+    "shared_prefix_reclaim": (lambda v: shared_prefix_spec(v, n=16),
+                              dict(M_kv=160, nslots=8, page_size=8, S=512,
+                                   cache_policy="break_even"),
+                              {"reclaimed": 1}),
     "churn_small_M": (lambda v: requests_spec(v, n=8, seed=3, max_i=30,
                                               max_o=10),
                       dict(M_kv=40, nslots=4, page_size=8),
@@ -100,17 +105,20 @@ def _engine(pkg, models, M_kv, nslots, page_size, S=128, **ekw):
 @pytest.fixture(scope="module")
 def runs(models):
     """Each workload run once per package (a JAX engine compiles for
-    seconds; every test below reads these results)."""
+    seconds; every test below reads these results), with each engine's
+    allocator stats after the run."""
     out = {}
     vocab = models[0].vocab_size
     for name, (spec_fn, kw, _) in WORKLOADS.items():
         spec = spec_fn(vocab)
-        res = {}
+        res, stats = {}, {}
         for pkg, R in (("jax", JRequest), ("torch", TRequest)):
             reqs = [R(rid=i, input_len=I, output_len=O, arrival=a,
                       prompt=list(p)) for i, I, O, a, p in spec]
-            res[pkg] = _engine(pkg, models, **kw).run(reqs)
-        out[name] = (spec, res)
+            eng = _engine(pkg, models, **kw)
+            res[pkg] = eng.run(reqs)
+            stats[pkg] = dict(eng.allocator.stats)
+        out[name] = (spec, res, stats)
     return out
 
 
@@ -122,13 +130,13 @@ def _strip(b):
 
 @pytest.mark.parametrize("name", list(WORKLOADS))
 def test_outputs_identical_to_jax_engine(runs, name):
-    _, res = runs[name]
+    _, res, _ = runs[name]
     assert res["torch"].outputs == res["jax"].outputs
 
 
 @pytest.mark.parametrize("name", list(WORKLOADS))
 def test_batch_schedule_identical_to_jax_engine(runs, name):
-    _, res = runs[name]
+    _, res, _ = runs[name]
     jb, tb = res["jax"].metrics.batches, res["torch"].metrics.batches
     assert len(tb) == len(jb)
     assert [_strip(b) for b in tb] == [_strip(b) for b in jb]
@@ -136,7 +144,7 @@ def test_batch_schedule_identical_to_jax_engine(runs, name):
 
 @pytest.mark.parametrize("name", list(WORKLOADS))
 def test_preemption_and_prefix_counts_identical(runs, name):
-    _, res = runs[name]
+    _, res, _ = runs[name]
     j, t = res["jax"], res["torch"]
     assert t.metrics.num_preemptions == j.metrics.num_preemptions
     for key in ("trie_hits", "partial_hit_tokens"):
@@ -145,12 +153,15 @@ def test_preemption_and_prefix_counts_identical(runs, name):
     assert t.metrics.num_preemptions >= want.get("preemptions", 0)
     assert t.swap_stats["trie_hits"] >= want.get("trie_hits", 0)
     assert t.num_compiles == 0
+    jst, tst = runs[name][2]["jax"], runs[name][2]["torch"]
+    assert tst["reclaimed"] == jst["reclaimed"]
+    assert jst["reclaimed"] >= want.get("reclaimed", 0)
 
 
 @pytest.mark.parametrize("name", list(WORKLOADS))
 def test_tokens_equal_both_references(runs, models, name):
     jcfg, tcfg, jp, tp = models
-    spec, res = runs[name]
+    spec, res, _ = runs[name]
     for rid, _, O, _, prompt in spec:
         want = t_reference(tcfg, tp, prompt, O, cache_len=CACHE_LEN,
                            device="cpu")

@@ -22,7 +22,8 @@ COPIES = [
     "configs/starcoder2_3b.py", "configs/rwkv6_7b.py",
     "core/invariants.py", "core/stat_keys.py", "core/histogram.py",
     "core/request.py", "core/policies.py", "core/kvcache.py",
-    "core/cost_model.py", "core/scheduler.py", "data/workloads.py",
+    "core/cost_model.py", "core/scheduler.py", "core/five_minute_rule.py",
+    "data/workloads.py",
 ]
 
 _IMPORT = re.compile(r"^(\s*)(from|import) repro(\.|\s)", re.M)
