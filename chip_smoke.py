@@ -112,6 +112,45 @@ Phases — each raises on failure, so any failure exits non-zero:
    head over 67 TFLOP/s, whichever is larger); no single PyTorch call
    computes WKV6, so its library time is null.
 
+13. The swap data plane's transfers against the compute stream (run
+   after phase 2), fp32 and bf16: a 304-token run of TinyLlama pool pages
+   is gathered and its copy to pinned host memory started on the
+   engine's copy stream; before the drain the pages are freed, handed to
+   another request and overwritten on the compute stream, and buffers of
+   the snapshot's size are allocated and filled.  The drained bytes must
+   equal the pre-overwrite ones bit for bit, and writing them into other
+   page ids must give the same bits.  The same for one full-width RWKV6-7B
+   slot (``index``, ``S``, ``x_tm``, ``x_cm``; 34.1 MB in bf16), the slot
+   overwritten by the slot plane's ``_merge`` before the drain.
+14. TinyLlama-1.1B at full width under swap (``launch.serve.
+   smoke_swap_server``: 32 requests on 8 Zipf-hot prompt templates, 256
+   prompt and 48 output tokens, Sarathi-CS with page-level partial
+   preemption in swap mode, break-even replacement with the host demotion
+   tier, the h100 cost model), run after phases 3 and 4 on their weights.
+   fp32: every request's tokens equal ``generate_reference``; swap-outs
+   equal swap-ins and are > 0, and partial preemptions, demotions and
+   promotions are > 0; the store and the pending set are empty at the
+   end; B1 and B2 launches, zeroed just before, equal layers x decode
+   steps and layers x prefill rounds through the fp32 variants.  bf16:
+   tokens/s, the swap counters and their host walls (``wall_out_s``,
+   ``wall_in_s``, ``wall_demote_s``, ``wall_promote_s``) and
+   ``drains_on_swapin``, B1/B2 through the bf16 variants; and beside it,
+   in the same process, the same workload under recompute with no
+   demotion (a reading, not a target).
+15. RWKV6-7B under swap (``rwkv_smoke_server(preempt_mode="swap")``, run
+   after phases 10 and 11 on their weights): the workload's preemptions
+   become swaps of a whole slot.  fp32 at 4 layers: tokens against
+   ``generate_reference`` under phase 10's top-2 tie rule, B4 launches =
+   layers x prefill rounds; bf16 at full depth: tokens/s and the swap
+   walls.
+16. The host link (after phase 12): for a slot (RWKV6-7B bf16, 34.1 MB), a
+   page run (TinyLlama bf16, 304 tokens: 6.8 MB) and one page (16
+   tokens: 360,448 B), the bytes, ms per transfer and GB/s each way (CUDA
+   events on the copy stream device to host, on the compute stream host
+   to device; and the host clock across the drain), beside the 64 GB/s
+   that ``get_hardware("h100").host_bw`` prices and
+   ``cost_model.swap_time(n)`` for the tokens n of that transfer.
+
 Each phase prints the seconds since the start when it is done.
 
 The last two lines of standard output are the kernels' JSON line (one
@@ -463,10 +502,40 @@ def phase_kernels(torch, pa, ref, P_main, ecfg):
 # phases 3-4: serving
 # --------------------------------------------------------------------- #
 
-def phase_serve_fp32(torch, pa, cfg, params):
-    from repro_torch.launch.serve import SMOKE_ENGINE, smoke_server
+def swap_summary(res):
+    """The swap counters of a run, measured wall keys aside."""
+    m = res.metrics
+    return dict({k: v for k, v in res.swap_stats.items()
+                 if v and not k.startswith("wall_")},
+                preemptions=m.num_preemptions,
+                partial=m.num_partial_preempts, swaps=m.num_swaps)
+
+
+def check_swapped(eng, res, what, partial=True, demotion=True):
+    """Swaps, tail sheds, demotions and promotions all happened, and
+    nothing is left in the store or in flight."""
+    st = res.swap_stats
+    check(st["swap_outs"] == st["swap_ins"] > 0,
+          f"{what}: swap-outs {st['swap_outs']}, swap-ins {st['swap_ins']}")
+    check(not partial or res.metrics.num_partial_preempts > 0,
+          f"{what}: no partial preemption")
+    check(not demotion or st["demotions"] > 0 and st["promotions"] > 0,
+          f"{what}: demotions {st['demotions']}, promotions "
+          f"{st['promotions']}")
+    check(len(eng.swap_store) == 0 and not eng._pending_swaps
+          and not eng._pending_runs and not eng._pending_demotes,
+          f"{what}: the store or the pending set is not empty at the end")
+
+
+def phase_serve_fp32(torch, pa, cfg, params, swap=False):
+    """Phase 3 (``smoke_server``), or phase 14's fp32 run under swap
+    (``smoke_swap_server``)."""
+    from repro_torch.launch.serve import (SMOKE_ENGINE, smoke_server,
+                                          smoke_swap_server)
     from repro_torch.serving import generate_reference
-    eng, reqs = smoke_server(cfg, params, device=DEVICE)
+    eng, reqs = (smoke_swap_server if swap else smoke_server)(
+        cfg, params, device=DEVICE)
+    label = "fp32 swap serve" if swap else "fp32 serve"
     torch.cuda.synchronize()
     zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
     t0 = time.perf_counter()
@@ -478,12 +547,13 @@ def phase_serve_fp32(torch, pa, cfg, params):
     variants = dict(pa.paged_prefill_cuda.launches_by_variant)
     dvariants = dict(pa.paged_decode_cuda.launches_by_variant)
     L = cfg.num_layers
-    print(f"fp32 serve: {len(reqs)} requests, "
+    print(f"{label}: {len(reqs)} requests, "
           f"{sum(len(o) for o in res.outputs.values())} tokens in "
           f"{wall:.3f} s; {eng.prefill_rounds} prefill rounds, "
           f"{eng.decode_steps} decode steps, {len(res.metrics.batches)} "
           f"batches, preemptions {res.metrics.num_preemptions}, "
-          f"prefix hits {res.swap_stats['trie_hits']}; launches {launches}")
+          f"prefix hits {res.swap_stats['trie_hits']}; launches {launches}"
+          + (f"; swap counts {swap_summary(res)}" if swap else ""))
     check(launches["paged_prefill"] == L * eng.prefill_rounds > 0,
           f"paged_prefill launched {launches['paged_prefill']} times, "
           f"expected {L} x {eng.prefill_rounds}")
@@ -497,9 +567,11 @@ def phase_serve_fp32(torch, pa, cfg, params):
                         "split_simt": launches["paged_decode"]},
           f"fp32 paged_decode launches by variant {dvariants}: every one "
           "should be the CUDA-core kernel")
-    check(res.metrics.num_preemptions >= 1, "no recompute preemption")
+    check(res.metrics.num_preemptions >= 1, "no preemption")
     check(res.swap_stats["trie_hits"] > 0, "no prefix-registry hit")
     check(all(r.finished for r in reqs), "unfinished requests")
+    if swap:
+        check_swapped(eng, res, label)
     t0 = time.perf_counter()
     mismatched = []
     for r in reqs:
@@ -511,7 +583,7 @@ def phase_serve_fp32(torch, pa, cfg, params):
             first = next(i for i, (a, b) in enumerate(zip(got, want))
                          if a != b)
             mismatched.append((r.rid, first))
-    print(f"fp32 reference: {len(reqs) - len(mismatched)}/{len(reqs)} "
+    print(f"{label} reference: {len(reqs) - len(mismatched)}/{len(reqs)} "
           f"requests token-identical ({time.perf_counter() - t0:.1f} s)")
     check(not mismatched, f"tokens differ from generate_reference "
           f"(rid, first position): {mismatched}")
@@ -521,12 +593,19 @@ def phase_serve_fp32(torch, pa, cfg, params):
             "decode_steps": eng.decode_steps,
             "preemptions": res.metrics.num_preemptions,
             "trie_hits": res.swap_stats["trie_hits"],
-            "tokens": sum(len(o) for o in res.outputs.values())}
+            "tokens": sum(len(o) for o in res.outputs.values()),
+            "swap_stats": res.swap_stats,
+            "partial_preempts": res.metrics.num_partial_preempts,
+            "swaps": res.metrics.num_swaps}
 
 
-def phase_serve_bf16(torch, pa, cfg, params):
-    from repro_torch.launch.serve import smoke_server
-    eng, reqs = smoke_server(cfg, params, device=DEVICE)
+def phase_serve_bf16(torch, pa, cfg, params, swap=False):
+    """Phase 4 (``smoke_server``), or phase 14's bf16 run under swap, with
+    the same workload under recompute and no demotion beside it."""
+    from repro_torch.launch.serve import smoke_server, smoke_swap_server
+    eng, reqs = (smoke_swap_server if swap else smoke_server)(
+        cfg, params, device=DEVICE)
+    label = "bf16 swap serve" if swap else "bf16 serve"
     torch.cuda.synchronize()
     zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
     t0 = time.perf_counter()
@@ -539,7 +618,7 @@ def phase_serve_bf16(torch, pa, cfg, params):
     dvariants = dict(pa.paged_decode_cuda.launches_by_variant)
     L = cfg.num_layers
     tokens = sum(len(o) for o in res.outputs.values())
-    print(f"bf16 serve: {tokens} tokens in {wall:.3f} s = "
+    print(f"{label}: {tokens} tokens in {wall:.3f} s = "
           f"{tokens / wall:.1f} tok/s (phases {res.phase_stats}); "
           f"{eng.prefill_rounds} prefill rounds, {eng.decode_steps} decode "
           f"steps; launches {launches}, paged_prefill by variant {variants},"
@@ -556,12 +635,42 @@ def phase_serve_bf16(torch, pa, cfg, params):
           f"bf16 paged_decode launches by variant {dvariants}: every one "
           "should be the tensor-core kernel")
     check(all(r.finished for r in reqs), "unfinished requests")
-    return {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
-            "phase_stats": res.phase_stats, "pool_pages":
-            int(eng.k_pools.shape[1]), "launches": launches,
-            "prefill_variants": variants, "decode_variants": dvariants,
-            "prefill_rounds": eng.prefill_rounds,
-            "decode_steps": eng.decode_steps}
+    out = {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
+           "phase_stats": res.phase_stats, "pool_pages":
+           int(eng.k_pools.shape[1]), "launches": launches,
+           "prefill_variants": variants, "decode_variants": dvariants,
+           "prefill_rounds": eng.prefill_rounds,
+           "decode_steps": eng.decode_steps}
+    if swap:
+        check_swapped(eng, res, label)
+        walls = {k: v for k, v in res.swap_stats.items()
+                 if k.startswith("wall_")}
+        print(f"  {label}: swap counts {swap_summary(res)}; host walls "
+              f"{walls}; drains on swap-in "
+              f"{res.swap_stats['drains_on_swapin']}")
+        out.update(swap_stats=res.swap_stats, counts=swap_summary(res))
+        # the same workload under recompute, with no host tier: a reading
+        # beside it, not a target
+        eng2, reqs2 = smoke_swap_server(cfg, params, device=DEVICE,
+                                        preempt_mode="recompute",
+                                        demotion=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res2 = eng2.run(reqs2)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        tokens2 = sum(len(o) for o in res2.outputs.values())
+        check(all(r.finished for r in reqs2), "unfinished requests")
+        print(f"  the same workload under recompute, no demotion: {tokens2} "
+              f"tokens in {wall2:.3f} s = {tokens2 / wall2:.1f} tok/s; "
+              f"counts {swap_summary(res2)}; {eng2.prefill_rounds} prefill "
+              f"rounds, {eng2.decode_steps} decode steps")
+        out["recompute"] = {"wall_s": wall2, "tokens": tokens2,
+                            "tok_per_s": tokens2 / wall2,
+                            "counts": swap_summary(res2),
+                            "prefill_rounds": eng2.prefill_rounds,
+                            "decode_steps": eng2.decode_steps}
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -1133,10 +1242,12 @@ def reference_top2_gap(torch, M, cfg, params, prompt, tokens, pos) -> float:
     return (top[0] - top[1]).item()
 
 
-def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params):
+def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params, preempt_mode="recompute"):
+    """Phase 10, or phase 15's fp32 run with ``preempt_mode="swap"``."""
     from repro_torch.launch.serve import rwkv_smoke_server
     from repro_torch.serving import generate_reference
-    eng, reqs = rwkv_smoke_server(cfg, params, device=DEVICE)
+    eng, reqs = rwkv_smoke_server(cfg, params, device=DEVICE,
+                                  preempt_mode=preempt_mode)
     check(eng.cache is not None and eng.k_pools is None,
           "the RWKV engine is not on the slot plane")
     L = cfg.num_layers
@@ -1153,11 +1264,15 @@ def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params):
           f"(prompts {[r.input_len for r in reqs]}), {tokens} tokens in "
           f"{wall:.3f} s; {eng.prefill_rounds} prefill rounds, "
           f"{eng.decode_steps} decode steps, preemptions "
-          f"{res.metrics.num_preemptions}; wkv6 launches {launches}")
+          f"{res.metrics.num_preemptions} ({preempt_mode}); wkv6 launches "
+          f"{launches}; swap counts {swap_summary(res)}")
     check(launches == L * eng.prefill_rounds > 0,
           f"wkv6 launched {launches} times, expected {L} x "
           f"{eng.prefill_rounds} prefill rounds")
-    check(res.metrics.num_preemptions >= 1, "no recompute preemption")
+    check(res.metrics.num_preemptions >= 1, "no preemption")
+    if preempt_mode == "swap":
+        check_swapped(eng, res, "RWKV6-7B fp32 swap serve", partial=False,
+                      demotion=False)
     check(all(r.finished for r in reqs), "unfinished requests")
     t0 = time.perf_counter()
     wkv.wkv6_cuda.launches = 0
@@ -1190,12 +1305,14 @@ def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params):
             "prefill_rounds": eng.prefill_rounds,
             "decode_steps": eng.decode_steps,
             "preemptions": res.metrics.num_preemptions,
-            "diverged": diverged}
+            "diverged": diverged, "counts": swap_summary(res)}
 
 
-def phase_rwkv_serve_bf16(torch, wkv, cfg, params):
+def phase_rwkv_serve_bf16(torch, wkv, cfg, params, preempt_mode="recompute"):
+    """Phase 11, or phase 15's bf16 run with ``preempt_mode="swap"``."""
     from repro_torch.launch.serve import rwkv_smoke_server
-    eng, reqs = rwkv_smoke_server(cfg, params, device=DEVICE)
+    eng, reqs = rwkv_smoke_server(cfg, params, device=DEVICE,
+                                  preempt_mode=preempt_mode)
     torch.cuda.synchronize()
     wkv.wkv6_cuda.launches = 0
     t0 = time.perf_counter()
@@ -1215,11 +1332,18 @@ def phase_rwkv_serve_bf16(torch, wkv, cfg, params):
           f"{launches} = {cfg.num_layers} x {eng.prefill_rounds} prefill "
           f"rounds; {eng.decode_steps} decode steps, mean wall of a "
           f"decode-only batch {step_ms:.2f} ms over {len(decode_walls)}; "
-          f"phases {res.phase_stats}")
+          f"phases {res.phase_stats}; {preempt_mode}: swap counts "
+          f"{swap_summary(res)}, host walls "
+          + str({k: v for k, v in res.swap_stats.items()
+                 if k.startswith("wall_")}))
+    if preempt_mode == "swap":
+        check_swapped(eng, res, "RWKV6-7B bf16 swap serve", partial=False,
+                      demotion=False)
     return {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
             "launches": launches, "prefill_rounds": eng.prefill_rounds,
             "decode_steps": eng.decode_steps, "decode_step_ms": step_ms,
-            "phase_stats": res.phase_stats}
+            "phase_stats": res.phase_stats, "swap_stats": res.swap_stats,
+            "counts": swap_summary(res)}
 
 
 # --------------------------------------------------------------------- #
@@ -1238,6 +1362,260 @@ def time_wkv(torch, wkv, wref, case):
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, bytes=nbytes, ops=ops, shape=list(r.shape),
                 dtype="float32")
+
+
+# --------------------------------------------------------------------- #
+# phase 13: the swap data plane's transfers against the compute stream
+# --------------------------------------------------------------------- #
+
+def same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def host_tensor(torch, arr, dtype):
+    """A drained host leaf as a tensor of ``dtype`` (bf16 travels as its
+    int16 bits)."""
+    t = torch.from_numpy(arr)
+    return t if t.dtype == dtype else t.view(dtype)
+
+
+def junk_like(torch, specs, rounds=4):
+    """Buffers of the gathered snapshots' sizes, filled on the compute
+    stream: if a gathered buffer were released before its copy ended,
+    the caching allocator would hand its block to one of these."""
+    return [torch.full(shape, 5, dtype=dtype, device=DEVICE)
+            for _ in range(rounds) for shape, dtype in specs]
+
+
+def race_pages(torch, M, cfg, gen):
+    """Gather a 304-token run of pool pages and start its copy; before the
+    drain, free the pages, give them to another request and overwrite
+    them on the compute stream, and fill fresh buffers of the snapshot's
+    size.  The drained bytes must be the pre-overwrite ones, and writing
+    them into other page ids must give the same bits."""
+    from repro_torch.core import make_scheduler
+    from repro_torch.launch.serve import SMOKE_ENGINE, SMOKE_M
+    from repro_torch.serving import Engine
+    eng = Engine(cfg, None, make_scheduler("vllm", SMOKE_M, S=512),
+                 SMOKE_ENGINE, device=DEVICE)
+    for p in (eng.k_pools, eng.v_pools):
+        p.copy_(torch.randn(p.shape, generator=gen, device=DEVICE).to(
+            p.dtype))
+    pages = eng.allocator.allocate(0, 304)
+    want = {"k": eng.k_pools[:, pages].cpu(), "v": eng.v_pools[:, pages].cpu()}
+    kv, xfer = eng._gather_pages_device(pages)
+    specs = [(t.shape, t.dtype) for t in kv.values()]
+    del kv
+    eng.allocator.free(0)
+    again = eng.allocator.allocate(1, 304)
+    ids = eng._link.ids(pages)
+    eng.k_pools.index_fill_(1, ids, 3.0)
+    eng.v_pools.index_fill_(1, ids, -3.0)
+    junk = junk_like(torch, specs)
+    host = eng._link.finish(xfer)
+    ms = xfer.copy_ms()
+    del junk
+    dtype = eng.k_pools.dtype
+    for k in ("k", "v"):
+        check(same_bits(torch, host_tensor(torch, host[k], dtype), want[k]),
+              f"pages {cfg.dtype}: drained {k} bytes differ from the "
+              "pre-overwrite ones")
+    other = eng.allocator.allocate(2, 304)
+    eng._restore_pages(other, host)
+    torch.cuda.synchronize()
+    for k, pool in (("k", eng.k_pools), ("v", eng.v_pools)):
+        check(same_bits(torch, pool[:, other].cpu(), want[k]),
+              f"pages {cfg.dtype}: restored {k} bits differ")
+    return {"bytes": xfer.nbytes, "copy_ms": ms,
+            "pages_reused": sorted(again) == sorted(pages)}
+
+
+def race_slot(torch, M, cfg, gen):
+    """The same for one RWKV6 slot (every leaf): gather slot 1 and start
+    its copy; before the drain, merge new state into the slot (the slot
+    plane's ``_merge``, which replaces the leaves) and fill fresh buffers
+    of the snapshot's size; then restore the drained bytes into slot 3."""
+    from repro_torch.core import make_scheduler
+    from repro_torch.launch.serve import SMOKE_RWKV_ENGINE, SMOKE_RWKV_M
+    from repro_torch.serving import Engine
+    from repro_torch.serving.host_copy import gather_slot, restore_slot
+    eng = Engine(cfg, None, make_scheduler("vllm", SMOKE_RWKV_M, S=512),
+                 SMOKE_RWKV_ENGINE, device=DEVICE)
+    for k, leaf in eng.cache.items():
+        leaf.copy_(torch.arange(leaf.numel(), device=DEVICE).view(
+            leaf.shape) * 1000 + 7 if k == "index" else torch.randn(
+                leaf.shape, generator=gen, device=DEVICE).to(leaf.dtype))
+    ax = {k: 0 if v.dim() == 1 else 1 for k, v in eng.cache.items()}
+    want = {k: v.select(ax[k], 1).cpu() for k, v in eng.cache.items()}
+    snap = gather_slot(eng.cache, eng._link.ids([1]))
+    specs = [(t.shape, t.dtype) for t in snap.values()]
+    xfer = eng._link.start(snap)
+    del snap
+    active = torch.zeros(SMOKE_RWKV_ENGINE.nslots, dtype=torch.bool,
+                         device=DEVICE)
+    active[1] = True
+    eng._merge(active, {k: torch.full_like(v, 9) for k, v in
+                        eng.cache.items()})
+    junk = junk_like(torch, specs)
+    host = eng._link.finish(xfer)
+    ms = xfer.copy_ms()
+    del junk
+    for k, leaf in eng.cache.items():
+        got = host_tensor(torch, host[k], leaf.dtype).select(ax[k], 0)
+        check(same_bits(torch, got, want[k]), f"slot {cfg.dtype}: drained "
+              f"{k} bytes differ from the pre-merge ones")
+        check(not same_bits(torch, leaf.select(ax[k], 1).cpu(), want[k]),
+              f"slot {cfg.dtype}: the merge did not overwrite {k}")
+    restore_slot(eng.cache, eng._link.ids([3]),
+                 {k: eng._link.to_device(v, eng.cache[k])
+                  for k, v in host.items()})
+    torch.cuda.synchronize()
+    for k, leaf in eng.cache.items():
+        check(same_bits(torch, leaf.select(ax[k], 3).cpu(), want[k]),
+              f"slot {cfg.dtype}: restored {k} bits differ")
+    return {"bytes": xfer.nbytes, "copy_ms": ms}
+
+
+def phase_transfer_race(torch, M, get_config):
+    from repro_torch.launch.serve import SMOKE_ARCH, SMOKE_RWKV_ARCH
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(13)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        out[f"pages_{dtype}"] = race_pages(torch, M, dataclasses.replace(
+            get_config(SMOKE_ARCH), dtype=dtype), gen)
+        out[f"slot_{dtype}"] = race_slot(torch, M, dataclasses.replace(
+            get_config(SMOKE_RWKV_ARCH), dtype=dtype), gen)
+    print("transfer race: page runs (TinyLlama pools, 304 tokens) and one "
+          "RWKV6 slot (every leaf), fp32 and bf16: drained bytes equal the "
+          "pre-overwrite ones and restore bit for bit; "
+          + ", ".join(f"{k} {v['bytes']} B in {v['copy_ms']:.3f} ms"
+                      for k, v in out.items()))
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phase 16: the host link
+# --------------------------------------------------------------------- #
+
+#: (kind, tokens priced by cost_model.swap_time, repetitions)
+LINK_KINDS = [("slot RWKV6-7B", 304, 10), ("page run TinyLlama", 304, 20),
+              ("one page TinyLlama", 16, 50)]
+
+
+def time_link(torch, link, leaves, restore, reps):
+    """Device-to-host: CUDA events on the copy stream around each copy,
+    and the host clock from the gather to the end of the drain.
+    Host-to-device: CUDA events on the compute stream around the
+    non-blocking copies of ``restore``, and the host clock to their end."""
+    out_ms, out_wall, in_ms, in_wall = [], [], [], []
+    for i in range(reps + 2):                  # 2 warm-up rounds
+        t0 = time.perf_counter()
+        xfer = link.start(leaves())
+        host = link.finish(xfer)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t1 = time.perf_counter()
+        e0.record()
+        restore(host)
+        e1.record()
+        e1.synchronize()
+        wall_in = time.perf_counter() - t1
+        link.release()              # as the engine's step-end drain does
+        if i >= 2:
+            out_ms.append(xfer.copy_ms())
+            out_wall.append(1e3 * wall)
+            in_ms.append(e0.elapsed_time(e1))
+            in_wall.append(1e3 * wall_in)
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    return xfer.nbytes, mean(out_ms), mean(out_wall), mean(in_ms), \
+        mean(in_wall)
+
+
+def time_pinned_alloc(torch, specs, n):
+    """Host ms to allocate a snapshot's pinned buffers: while every
+    earlier one is still held (each a fresh pinned allocation, as entries
+    that stay in the store need), and when each is freed before the next
+    (the host allocator's cache hands the block back)."""
+    held = []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        held.append([torch.empty(shape, dtype=dtype, pin_memory=True)
+                     for shape, dtype in specs])
+    fresh = 1e3 * (time.perf_counter() - t0) / n
+    del held
+    t0 = time.perf_counter()
+    for _ in range(n):
+        bufs = [torch.empty(shape, dtype=dtype, pin_memory=True)
+                for shape, dtype in specs]
+        del bufs
+    return fresh, 1e3 * (time.perf_counter() - t0) / n
+
+
+def phase_host_link(torch, M, get_config):
+    from repro_torch.core import TheoreticalCostModel, get_hardware
+    from repro_torch.launch.serve import SMOKE_ARCH, SMOKE_RWKV_ARCH
+    from repro_torch.serving.host_copy import (HostLink, gather_pages,
+                                               gather_slot)
+    from repro_torch.serving.paged_plane import init_pools
+    hw = get_hardware("h100")
+    link = HostLink(DEVICE)
+    cfg = dataclasses.replace(get_config(SMOKE_ARCH), dtype="bfloat16")
+    rcfg = dataclasses.replace(get_config(SMOKE_RWKV_ARCH), dtype="bfloat16")
+    kp, vp = init_pools(cfg, 128, 16, device=DEVICE)
+    kp.normal_()
+    vp.normal_()
+    cache = M.init_cache(rcfg, 4, 0, device=DEVICE)
+    for leaf in cache.values():
+        leaf.copy_(torch.randn(leaf.shape, device=DEVICE).to(leaf.dtype))
+    run, page = link.ids(list(range(3, 22))), link.ids([40])
+    slot = link.ids([1])
+
+    def to_pages(ids):
+        def restore(host):
+            for k, pool in (("k", kp), ("v", vp)):
+                link.to_device(host[k], pool)
+        return restore
+
+    def to_slot(host):
+        for k, leaf in cache.items():
+            link.to_device(host[k], leaf)
+
+    cases = {"slot RWKV6-7B": (lambda: gather_slot(cache, slot), to_slot,
+                               TheoreticalCostModel(rcfg, hw)),
+             "page run TinyLlama": (lambda: gather_pages(kp, vp, run),
+                                    to_pages(run),
+                                    TheoreticalCostModel(cfg, hw)),
+             "one page TinyLlama": (lambda: gather_pages(kp, vp, page),
+                                    to_pages(page),
+                                    TheoreticalCostModel(cfg, hw))}
+    out = {}
+    for kind, n, reps in LINK_KINDS:
+        leaves, restore, cm = cases[kind]
+        nbytes, o_ms, o_wall, i_ms, i_wall = time_link(torch, link, leaves,
+                                                       restore, reps)
+        fresh, cached = time_pinned_alloc(
+            torch, [(t.shape, t.dtype) for t in leaves().values()], reps)
+        priced = 1e3 * cm.swap_time(n)
+        out[kind] = {"bytes": nbytes, "out_ms": o_ms, "out_host_ms": o_wall,
+                     "in_ms": i_ms, "in_host_ms": i_wall,
+                     "out_gb_s": nbytes / o_ms / 1e6,
+                     "in_gb_s": nbytes / i_ms / 1e6,
+                     "priced_gb_s": hw.host_bw / 1e9,
+                     "swap_time_tokens": n, "swap_time_ms": priced,
+                     "pinned_alloc_fresh_ms": fresh,
+                     "pinned_alloc_cached_ms": cached}
+        print(f"host link, {kind}: {nbytes} B; device to host {o_ms:.4f} ms"
+              f" = {nbytes / o_ms / 1e6:.2f} GB/s (copy-stream events), "
+              f"{o_wall:.4f} ms on the host clock across the drain; host "
+              f"to device {i_ms:.4f} ms = {nbytes / i_ms / 1e6:.2f} GB/s "
+              f"(events), {i_wall:.4f} ms host; priced "
+              f"{hw.host_bw / 1e9:.0f} GB/s, cost_model.swap_time({n}) = "
+              f"{priced:.4f} ms; its pinned buffers take {fresh:.4f} ms "
+              f"to allocate fresh, {cached:.4f} ms from the cache")
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -1330,11 +1708,16 @@ def main(argv=None) -> int:
         errs["wkv6"] = phase_wkv_kernel(torch, wkv, wref, pick_chunk,
                                         SMOKE_RWKV_ENGINE.nslots)
         lap("kernel checks")
+        race = phase_transfer_race(torch, M, get_config)
+        torch.cuda.empty_cache()
+        lap("transfer race")
 
         cfg = dataclasses.replace(get_config(SMOKE_ARCH), dtype="float32")
         params = M.init_params(cfg, seed=0, device=DEVICE)
         fp32 = phase_serve_fp32(torch, pa, cfg, params)
         lap("fp32 serve")
+        swap32 = phase_serve_fp32(torch, pa, cfg, params, swap=True)
+        lap("fp32 swap serve")
         prefill = phase_full_prefill(torch, fa, M, cfg, params)
         lap("full prefill")
 
@@ -1345,8 +1728,10 @@ def main(argv=None) -> int:
         lap("bf16 full prefill")
         bf16 = phase_serve_bf16(torch, pa, cfg16, params16)
         check(bf16["pool_pages"] == P_main, "pool size changed")
-        del params16
         lap("bf16 serve")
+        swap16 = phase_serve_bf16(torch, pa, cfg16, params16, swap=True)
+        del params16
+        lap("bf16 swap serve")
 
     train = phase_train(torch)
     torch.cuda.empty_cache()
@@ -1388,16 +1773,22 @@ def main(argv=None) -> int:
                                    num_layers=RWKV_FP32_LAYERS)
         rparams = M.init_params(rcfg, seed=0, device=DEVICE)
         rwkv32 = phase_rwkv_serve_fp32(torch, wkv, M, rcfg, rparams)
+        lap("RWKV6-7B fp32 serve")
+        rwkv32_swap = phase_rwkv_serve_fp32(torch, wkv, M, rcfg, rparams,
+                                            preempt_mode="swap")
         del rparams
         torch.cuda.empty_cache()
-        lap("RWKV6-7B fp32 serve")
+        lap("RWKV6-7B fp32 swap serve")
         rcfg16 = dataclasses.replace(get_config(SMOKE_RWKV_ARCH),
                                      dtype="bfloat16")
         rparams16 = M.init_params(rcfg16, seed=0, device=DEVICE)
         rwkv16 = phase_rwkv_serve_bf16(torch, wkv, rcfg16, rparams16)
+        lap("RWKV6-7B bf16 serve")
+        rwkv16_swap = phase_rwkv_serve_bf16(torch, wkv, rcfg16, rparams16,
+                                            preempt_mode="swap")
         del rparams16
         torch.cuda.empty_cache()
-        lap("RWKV6-7B bf16 serve")
+        lap("RWKV6-7B bf16 swap serve")
 
         wkv_more = {what: time_wkv(torch, wkv, wref, wkv_case(
             torch, inp, B, S, H, D, s0=s0))
@@ -1406,6 +1797,8 @@ def main(argv=None) -> int:
               "the timed round is not the smoke engine's")
         times["wkv6"] = wkv_more["round_B4"]
         lap("wkv6 timing")
+        link = phase_host_link(torch, M, get_config)
+        lap("host link")
     # each entry: its launches on its main path (counts zeroed just before
     # that run), its comparison with the plain version at the main shapes,
     # and its times at those shapes
@@ -1476,6 +1869,9 @@ def main(argv=None) -> int:
                   full_prefill=prefill, full_prefill_bf16=prefill16,
                   train=train, timings=times,
                   rwkv_serve_fp32=rwkv32, rwkv_serve_bf16=rwkv16,
+                  transfer_race=race, swap_serve_fp32=swap32,
+                  swap_serve_bf16=swap16, rwkv_swap_serve_fp32=rwkv32_swap,
+                  rwkv_swap_serve_bf16=rwkv16_swap, host_link=link,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

@@ -14,7 +14,10 @@ paged kernels take); weights are random, from ``--seed``.
 TinyLlama-1.1B, a shared-prefix workload with registry hits and recompute
 preemptions) that ``chip_smoke.py`` and ``scripts/profile_port_serve.py``
 both serve; ``rwkv_smoke_server`` the RWKV6-7B one (8 requests of 60-300
-prompt tokens on 4 slots, with recompute preemptions).
+prompt tokens on 4 slots, with recompute or, given ``preempt_mode``, swap
+preemptions); ``smoke_swap_server`` the swap one (TinyLlama-1.1B on
+Zipf-hot prompt templates, with swap preemptions, tail sheds and the
+host demotion tier).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from repro_torch.configs import get_config
 from repro_torch.core import (Request, TheoreticalCostModel, get_hardware,
                               make_scheduler)
 from repro_torch.data import (azureconv_like, fixed_grid, hetero_mix,
-                              longform_like, shared_prefix)
+                              longform_like, shared_prefix,
+                              zipf_shared_prefix)
 from repro_torch.models import model as M
 from repro_torch.serving import Engine, EngineConfig
 
@@ -84,16 +88,49 @@ def rwkv_smoke_requests(vocab: int, seed: int = 0):
             for i, n in enumerate(SMOKE_RWKV_PROMPTS)]
 
 
-def rwkv_smoke_server(cfg, params, device: str = "cuda"):
+def rwkv_smoke_server(cfg, params, device: str = "cuda",
+                      preempt_mode: str = "recompute"):
     """A warmed slot-plane ``Engine`` (vLLM scheduler, SRF replacement)
     and fresh requests of the RWKV6 smoke workload, for ``cfg``/``params``
-    of ``SMOKE_RWKV_ARCH`` in any dtype (or depth)."""
+    of ``SMOKE_RWKV_ARCH`` in any dtype (or depth); ``preempt_mode="swap"``
+    suspends its victims' slots to the host instead of recomputing them."""
     sched = make_scheduler("vllm", SMOKE_RWKV_M,
-                           S=SMOKE_RWKV_ENGINE.cache_len, replacement="srf")
+                           S=SMOKE_RWKV_ENGINE.cache_len, replacement="srf",
+                           preempt_mode=preempt_mode)
     eng = Engine(cfg, params, sched, SMOKE_RWKV_ENGINE,
                  cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
                  device=device).warmup()
     return eng, rwkv_smoke_requests(cfg.vocab_size)
+
+
+# the swap smoke workload: 32 requests on 8 Zipf-hot prompt templates
+# (prefixes of 4-12 pages, hot ones short; arXiv 2403.05821's analytics
+# traffic) of 256 prompt and 48 output tokens, on the smoke engine's 8
+# slots and 2048-token budget: Sarathi chunked scheduling with page-level
+# partial preemption, swap mode, and break-even replacement with the host
+# demotion tier
+SMOKE_SWAP_ENGINE = replace(SMOKE_ENGINE, cache_policy="break_even",
+                            cache_demotion=True)
+SMOKE_SWAP_WORKLOAD = dict(n=32, num_groups=8, page_size=16,
+                           prefix_pages=(4, 12), input_len=256,
+                           output_len=48, seed=3, vocab=32000)
+
+
+def smoke_swap_server(cfg, params, device: str = "cuda",
+                      preempt_mode: str = "swap", demotion: bool = True):
+    """A warmed ``Engine`` (Sarathi-CS scheduler, SRF replacement, tail
+    sheds) and fresh requests of the swap smoke workload, for
+    ``cfg``/``params`` of ``SMOKE_ARCH`` in any dtype;
+    ``preempt_mode="recompute", demotion=False`` is its no-host-traffic
+    counterpart."""
+    sched = make_scheduler("sarathi_cs", SMOKE_M, S=SMOKE_ENGINE.cache_len,
+                           replacement="srf", preempt_mode=preempt_mode,
+                           partial_preempt=True)
+    eng = Engine(cfg, params, sched,
+                 replace(SMOKE_SWAP_ENGINE, cache_demotion=demotion),
+                 cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
+                 device=device).warmup()
+    return eng, zipf_shared_prefix(**SMOKE_SWAP_WORKLOAD)
 
 
 def main(argv=None) -> int:

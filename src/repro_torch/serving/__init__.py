@@ -1,9 +1,16 @@
-"""Serving layer: continuous-batching engine on the paged data plane."""
+"""Serving layer: continuous-batching engine on the paged data plane, with
+the host swap store of its preemption and demotion paths."""
 from repro_torch.serving.engine import (  # noqa: F401
     Engine,
     EngineConfig,
     EngineResult,
     generate_reference,
+)
+from repro_torch.serving.swap_store import (  # noqa: F401
+    KVSwapStore,
+    PageRunEntry,
+    SwapEntry,
+    SwapStoreFullError,
 )
 from repro_torch.serving.paged_plane import (  # noqa: F401
     build_paged_fns,

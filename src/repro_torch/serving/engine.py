@@ -43,24 +43,37 @@ active rows only, and a claimed slot's state is zeroed first.  The
 allocator still keeps the page-rounded control plane (the scheduler's
 M); prefix sharing, which maps KV pages, runs on the pooled plane only.
 
-Preemption is ``preempt_mode="recompute"``: a victim's pages (or slot)
-are freed and its re-admission pays a full refill prefill (§3).
+Preemption follows ``SchedulerConfig.preempt_mode``, as in the JAX
+engine: ``recompute`` frees a victim's pages (or slot) and its
+re-admission pays a full refill prefill (§3); ``swap`` snapshots them to
+the host ``KVSwapStore`` (every cache leaf of a slot; a run of pool
+pages on the pooled plane) and restores them on re-admission with no
+refill; ``auto`` picks per victim from the cost model's Fig. 8
+crossover.  On the pooled plane ``partial_preempt`` sheds only a
+victim's tail pages (§8), and ``cache_demotion`` snapshots evicted
+prefix pages to the store's host tier, from which a later registry hit
+promotes them back (§6).  Every host transfer is asynchronous on a card
+(``serving.host_copy``: fresh device gathers, pinned host buffers, one
+copy stream, CUDA events) and finalized at the JAX engine's drain
+boundaries; ``async_swap=False`` is the synchronous path.  Virtual time
+charges ``cost_model.swap_time`` exactly as the JAX engine does.
 Sampling is fused on the device; only ``(nslots,)`` int32 ids reach the
 host each step.
 
 Differences from the JAX engine (``repro.serving.engine``):
 
-* No step transactions.  No fault can occur on this path (fault
-  injection, swap and the host tier are not ported), so nothing rolls
-  back, and the pools are updated in place.  In JAX, rollback of device
-  state is free only because arrays are immutable; the port will need
-  to journal the pages a step writes when faults come (ROADMAP A5).
+* No step transactions.  Faults are not ported (ROADMAP A5b), so nothing
+  rolls back, and the pools are updated in place.  In JAX, rollback of
+  device state is free only because arrays are immutable; the port will
+  need to journal the pages a step writes when faults come.  A host
+  snapshot whose CRC seal fails at swap-in raises ``RuntimeError``:
+  with no step transaction there is nothing to roll back to.
 * ``num_compiles`` is 0: PyTorch runs eagerly and the CUDA kernels are
   built once per source.  ``warmup()`` loads the kernels and runs every
   ladder bucket and the decode step once with inert inputs.
-* Settings this port does not run yet (the dense family on the slot
-  plane, the ``legacy`` plane, swap, faults, the host tier) raise
-  ``ValueError`` naming the ROADMAP item that will port them.
+* Settings this port does not run yet (faults and the straggler monitor:
+  A5b; the dense family on the slot plane and the ``legacy`` plane: A5d)
+  raise ``ValueError`` naming the ROADMAP item that will port them.
 
 Correctness contract (tested against the JAX engine on the CPU, and
 against ``generate_reference`` on the card): scheduling, chunking,
@@ -71,6 +84,7 @@ The allocator's invariants are checked after every step.
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -88,10 +102,16 @@ from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.simulator import BatchLog, SimResult
 from repro_torch.core import stat_keys as SK
 from repro_torch.models import model as M
+from repro_torch.serving.host_copy import (HostLink, Transfer, gather_pages,
+                                           gather_slot, nbytes_of,
+                                           restore_pages, restore_slot)
 from repro_torch.serving.paged_plane import (build_paged_fns, init_pools,
                                              paged_supported)
 from repro_torch.serving.serve_step import (build_decode_fn,
                                             build_prefill_chunk_fn)
+from repro_torch.serving.swap_store import (KVSwapStore, SwapEntry,
+                                            SwapStoreFullError, seal_entry,
+                                            verify_entry)
 
 
 @dataclass
@@ -100,19 +120,26 @@ class EngineConfig:
     cache_len: int = 256          # per-request context capacity (tokens)
     chunk: int = 64               # chunked-prefill chunk size
     page_size: int = 16           # allocator granularity = KV page size
+    swap_bytes: Optional[int] = None   # host swap-store capacity (None =
+    #                                    unbounded); a full store makes the
+    #                                    victim fall back to recompute
     plane: str = "paged"          # "paged": pooled KV pages (dense) or
     #                               slot-resident state (RWKV6);
     #                               "batched": slot-resident (RWKV6 only;
-    #                               dense is ROADMAP A5); "legacy": A5
+    #                               dense is ROADMAP A5d); "legacy": A5d
     prefix_lookup: Optional[str] = None  # "trie" | "exact"; None keeps
     #                               the SchedulerConfig's choice, set it is
     #                               written through (like page_size)
     cache_policy: Optional[str] = None   # "lru" | "break_even"; None
     #                               keeps the SchedulerConfig's choice
-    cache_demotion: Optional[bool] = None  # host demotion tier: not
-    #                               ported (ROADMAP A5); only None/False
-    faults: Optional[Any] = None    # fault injection: ROADMAP A5
-    straggler_factor: Optional[float] = None  # ROADMAP A5
+    cache_demotion: Optional[bool] = None  # evicted prefix pages demote
+    #                               to the host KVSwapStore instead of
+    #                               being discarded (pooled plane only);
+    #                               None keeps the SchedulerConfig's choice
+    async_swap: bool = True       # host copies on the copy stream, drained
+    #                               at step boundaries; False: synchronous
+    faults: Optional[Any] = None    # fault injection: ROADMAP A5b
+    straggler_factor: Optional[float] = None  # ROADMAP A5b
 
 
 MIN_BUCKET = 8                    # smallest tail bucket of the ladder
@@ -141,23 +168,19 @@ def _validate(cfg: ModelConfig, ecfg: EngineConfig,
     if ecfg.plane not in ("batched", "legacy", "paged"):
         raise ValueError(f"unknown plane {ecfg.plane!r}")
     if ecfg.plane == "legacy":
-        raise ValueError("plane 'legacy' is not ported (ROADMAP A5)")
+        raise ValueError("plane 'legacy' is not ported (ROADMAP A5d)")
     M.check_supported(cfg)         # dense and RWKV6 only (A7, A8, A10)
     if ecfg.plane == "batched" and paged_supported(cfg):
         raise ValueError("plane 'batched' (slot-resident KV) for the dense "
-                         "family is not ported (ROADMAP A5); use "
+                         "family is not ported (ROADMAP A5d); use "
                          "plane='paged'")
-    if scfg.preempt_mode != "recompute":
-        raise ValueError(f"preempt_mode {scfg.preempt_mode!r} is not ported "
-                         "(ROADMAP A5); use 'recompute'")
-    if scfg.partial_preempt:
-        raise ValueError("partial_preempt is not ported (ROADMAP A5)")
-    if scfg.cache_demotion:
-        raise ValueError("cache_demotion is not ported (ROADMAP A5)")
+    if scfg.partial_preempt and not (ecfg.plane == "paged"
+                                     and paged_supported(cfg)):
+        raise ValueError("partial_preempt needs the pooled paged data plane")
     if scfg.faults is not None:
-        raise ValueError("fault injection is not ported (ROADMAP A5)")
+        raise ValueError("fault injection is not ported (ROADMAP A5b)")
     if ecfg.straggler_factor is not None:
-        raise ValueError("straggler_factor is not ported (ROADMAP A5)")
+        raise ValueError("straggler_factor is not ported (ROADMAP A5b)")
     if scfg.cache_policy not in ("lru", "break_even"):
         raise ValueError(f"cache_policy {scfg.cache_policy!r}: this port "
                          "serves 'lru' and 'break_even'")
@@ -196,15 +219,17 @@ class Engine:
         if ecfg.faults is not None:
             scheduler.cfg.faults = ecfg.faults
         _validate(cfg, ecfg, scheduler)
+        # pooled paged plane for unbounded dense attention; the bounded
+        # state of RWKV6 stays slot-resident (and keeps no host tier)
+        self._pooled = ecfg.plane == "paged" and paged_supported(cfg)
+        self._demotion = bool(scheduler.cfg.cache_demotion) and self._pooled
         self.allocator = PagedAllocator(
             num_pages=max(1, -(-scheduler.cfg.M // ecfg.page_size)),
             page_size=ecfg.page_size,
             policy=make_replacement_policy(scheduler.cfg.cache_policy,
                                            cost_model=cost_model,
-                                           M=scheduler.cfg.M))
-        # pooled paged plane for unbounded dense attention; the bounded
-        # state of RWKV6 stays slot-resident
-        self._pooled = ecfg.plane == "paged" and paged_supported(cfg)
+                                           M=scheduler.cfg.M),
+            on_evict=self._demote_prefix if self._demotion else None)
         pg = ecfg.page_size
         self.max_pages = -(-ecfg.cache_len // pg)
         if self._pooled:
@@ -239,11 +264,47 @@ class Engine:
         # compute / host->device uploads)
         self.phase_stats: Dict[str, float] = {
             SK.ATTACH_S: 0.0, SK.PREFILL_S: 0.0, SK.UPLOAD_S: 0.0}
-        # radix-trie attach outcomes: attaches that reused at least one
-        # page, and the tokens reused by attaches that matched only PART
-        # of the queried chain
+        self.swap_store = KVSwapStore(capacity_bytes=ecfg.swap_bytes)
+        # the host link: a copy stream on a card (serving.host_copy)
+        self._link = HostLink(self.device)
+        # in-flight snapshots, finalized at the drain boundaries: the
+        # slot plane's (rid -> (entry, enqueue step, transfer)), the
+        # prefix tier's (chain key -> (enqueue step, transfer)) and the
+        # pooled plane's page runs ((rid, run start) -> (entry, enqueue
+        # step, transfer)); an entry's payload stays the gathered device
+        # buffers until its drain
+        self._pending_swaps: \
+            "OrderedDict[int, Tuple[SwapEntry, int, Transfer]]" = \
+            OrderedDict()
+        self._pending_demotes: "OrderedDict[int, Tuple[int, Transfer]]" = \
+            OrderedDict()
+        self._pending_runs: \
+            "OrderedDict[Tuple[int, int], Tuple[Any, int, Transfer]]" = \
+            OrderedDict()
+        self._step_no = 0
+        # the JAX engine's whole key set (the four fault counters stay 0:
+        # faults are ROADMAP A5b); wall_* keys are measured host time
         self.swap_stats: Dict[str, float] = {
+            SK.SWAP_OUTS: 0, SK.SWAP_INS: 0, SK.KV_OUT: 0, SK.KV_IN: 0,
+            SK.SWAP_FALLBACKS: 0, SK.DRAINS_ON_SWAPIN: 0,
+            SK.WALL_OUT_S: 0.0, SK.WALL_IN_S: 0.0,
+            SK.PROMOTIONS: 0, SK.DEMOTIONS: 0, SK.DEMOTE_DROPS: 0,
+            SK.KV_PROMOTED: 0, SK.KV_DEMOTED: 0,
+            SK.WALL_PROMOTE_S: 0.0, SK.WALL_DEMOTE_S: 0.0,
+            SK.PERMANENT_STORE_FAILURES: 0, SK.TRANSIENT_RETRIES: 0,
+            SK.BACKOFF_S: 0.0, SK.PREFIX_INTEGRITY: 0,
+            # radix-trie attach outcomes: attaches that reused at least
+            # one page, and the tokens reused by attaches that matched
+            # only PART of the queried chain
             SK.TRIE_HITS: 0, SK.PARTIAL_HIT_TOKENS: 0}
+        # virtual time owed by prefix-tier traffic (demotions fire inside
+        # allocator reclaims, promotions inside the prefix attach), folded
+        # into the current batch before its dt is priced
+        self._tier_swap_s = 0.0
+        # swap-out charges of rounds that admitted no items, owed to the
+        # next executed batch (mirrors the simulator)
+        self._carry_swap_s = 0.0
+        self._carry_out = 0
         # kernel-path step counts: prefill rounds and decode steps run
         # (a round runs every layer's prefill kernel -- paged prefill, or
         # WKV6 on the slot plane -- once; a paged decode step every
@@ -329,6 +390,326 @@ class Engine:
                 self._bt_host[slot, :] = 0
         self.allocator.free(rid)  # repro: allow-unpriced-mutation(releasing pages moves no bytes; the preemption decision that led here was already charged - refill compute - by the scheduler)
 
+    # --- §5.4 swap data plane (slot plane) ------------------------------ #
+    def _swap_out(self, victim: Request) -> bool:
+        """Snapshot the victim's slot (every cache leaf) to the host store,
+        then free it.  Returns False when the store is full: the snapshot
+        is dropped and the victim falls back to discard-and-recompute.
+
+        With ``async_swap`` the snapshot is a fresh device gather whose
+        host copy starts here and is finalized later (``_drain_swaps``);
+        capacity is charged at once from tensor metadata, so the
+        full-store fallback stays synchronous and deterministic."""
+        t0 = time.perf_counter()
+        slot = self.slot_of[victim.rid]
+        snap = gather_slot(self.cache, self._link.ids([slot]))
+        try:
+            if self.ecfg.async_swap:
+                entry = self.swap_store.put(
+                    victim.rid, snap, self.token_ids[victim.rid],
+                    victim.suspended_m,
+                    nbytes=sum(nbytes_of(t) for t in snap.values()))
+                self._pending_swaps[victim.rid] = (
+                    entry, self._step_no, self._link.start(snap))
+            else:
+                host = self._link.fetch(snap)
+                entry = self.swap_store.put(
+                    victim.rid, host, self.token_ids[victim.rid],
+                    victim.suspended_m)
+                invariant(int(host["index"][0]) == victim.suspended_m,
+                          (victim.rid, host["index"], victim.suspended_m))
+                seal_entry(entry)
+        except SwapStoreFullError:
+            victim.drop_suspended()
+            self.sched.num_swaps -= 1   # the suspend did not stick
+            self.swap_stats[SK.SWAP_FALLBACKS] += 1
+            self._release(victim.rid)
+            return False
+        self.swap_stats[SK.SWAP_OUTS] += 1
+        self.swap_stats[SK.KV_OUT] += victim.suspended_m
+        self.swap_stats[SK.WALL_OUT_S] += time.perf_counter() - t0
+        self._release(victim.rid)
+        # double buffering: finalize the oldest transfer(s) outside the
+        # timed enqueue window above (the drain bills its own wait)
+        while len(self._pending_swaps) > 2:
+            self._drain_swaps(rid=next(iter(self._pending_swaps)))
+        return True
+
+    def _drain_swaps(self, rid: Optional[int] = None,
+                     before_step: Optional[int] = None) -> None:
+        """Finalize in-flight swap-out transfers: wait for the copy and
+        replace the entry's device leaves with host arrays, then seal
+        them.  ``rid`` drains one slot entry (same-window re-admission,
+        double-buffer pressure); ``before_step`` drains what was enqueued
+        before that step (the end-of-step boundary); neither drains
+        everything (end of run).  In-flight demotions and page runs share
+        the ``before_step`` and drain-all boundaries."""
+        if rid is not None:
+            rids = [rid] if rid in self._pending_swaps else []
+        elif before_step is not None:
+            rids = [r for r, (_, s, _) in self._pending_swaps.items()
+                    if s < before_step]
+        else:
+            rids = list(self._pending_swaps)
+        for r in rids:
+            entry, _, xfer = self._pending_swaps.pop(r)
+            t0 = time.perf_counter()
+            entry.cache = self._link.finish(xfer)
+            invariant(int(entry.cache["index"][0]) == entry.num_kv,
+                      (r, entry.cache["index"], entry.num_kv))
+            seal_entry(entry)
+            self.swap_stats[SK.WALL_OUT_S] += time.perf_counter() - t0
+        if rid is None:
+            if before_step is not None:
+                keys = [k for k, (s, _) in self._pending_demotes.items()
+                        if s < before_step]
+            else:
+                keys = list(self._pending_demotes)
+            for k in keys:
+                self._drain_demotes(key=k)
+            self._drain_runs(before_step=before_step)
+            # restore sources whose host-to-device copies have passed
+            self._link.release(wait=before_step is None)
+
+    def _drain_demotes(self, key: int) -> None:
+        """Finalize one in-flight prefix-page demotion.  A key whose entry
+        was promoted (or discarded) before the drain is forgotten: its
+        bytes never round-tripped."""
+        _, xfer = self._pending_demotes.pop(key)
+        entry = self.swap_store.peek_prefix(key)
+        if entry is None:
+            return
+        t0 = time.perf_counter()
+        entry.kv = self._link.finish(xfer)
+        seal_entry(entry)
+        self.swap_stats[SK.WALL_DEMOTE_S] += time.perf_counter() - t0
+
+    @staticmethod
+    def _corrupt(what: str) -> RuntimeError:
+        return RuntimeError(
+            f"{what}: the host snapshot fails its CRC seal; with no step "
+            "transaction there is nothing to roll back to (ROADMAP A5b)")
+
+    def _swap_in(self, r: Request) -> None:
+        """Restore r's slot snapshot into a free slot; no refill."""
+        if r.rid in self._pending_swaps:
+            # re-admitted within the drain window: finalize on demand
+            self.swap_stats[SK.DRAINS_ON_SWAPIN] += 1
+            self._drain_swaps(rid=r.rid)
+        if not verify_entry(self.swap_store.peek(r.rid)):
+            raise self._corrupt(f"rid {r.rid} slot snapshot")
+        t0 = time.perf_counter()
+        entry = self.swap_store.pop(r.rid)
+        slot = self._claim_slot(r.rid, reset=False)  # fully overwritten
+        restore_slot(self.cache, self._link.ids([slot]),
+                     {k: self._link.to_device(v, self.cache[k])
+                      for k, v in entry.cache.items()})
+        self.allocator.allocate(r.rid, entry.num_kv)
+        restored = r.resume()
+        invariant(restored == entry.num_kv, (r.rid, restored, entry.num_kv))
+        invariant(self.token_ids[r.rid] == entry.tokens, r.rid)
+        self.swap_stats[SK.SWAP_INS] += 1
+        self.swap_stats[SK.KV_IN] += entry.num_kv
+        self.swap_stats[SK.WALL_IN_S] += time.perf_counter() - t0
+
+    # --- pooled (paged) swap data plane --------------------------------- #
+    def _check_run_capacity(self, npages: int) -> None:
+        """Raise ``SwapStoreFullError`` from shape metadata BEFORE the
+        page gather: a doomed snapshot must not pay the transfer."""
+        cap = self.swap_store.capacity_bytes
+        if cap is None:
+            return
+        nbytes = 2 * self.cfg.num_layers * npages * self.ecfg.page_size \
+            * self.cfg.num_kv_heads * self.cfg.head_dim_ \
+            * self.k_pools.element_size()
+        if self.swap_store.nbytes + nbytes > cap:
+            raise SwapStoreFullError(
+                f"page run of {npages} pages ({nbytes}B) over capacity "
+                f"({self.swap_store.nbytes}/{cap}B held)")
+
+    def _snapshot_pages(self, page_ids) -> Dict[str, np.ndarray]:
+        """The synchronous page snapshot ``async_swap=False`` selects."""
+        return self._link.fetch(gather_pages(
+            self.k_pools, self.v_pools, self._link.ids(page_ids)))
+
+    def _gather_pages_device(self, page_ids
+                             ) -> Tuple[Dict[str, torch.Tensor], Transfer]:
+        """Async page snapshot: gather the pages into fresh device buffers
+        (later pool writes, and freeing the source pages, cannot reach
+        them) and start the host copy at once; the host bytes land at a
+        drain boundary (``_drain_runs``).  This is what lets
+        ``_shed_tail`` free the gathered pages in the same step."""
+        kv = gather_pages(self.k_pools, self.v_pools,
+                          self._link.ids(page_ids))
+        return kv, self._link.start(kv)
+
+    def _drain_runs(self, rid: Optional[int] = None,
+                    before_step: Optional[int] = None) -> None:
+        """Finalize in-flight page-run snapshots (the pooled plane's
+        ``_drain_swaps``)."""
+        if rid is not None:
+            keys = [k for k in self._pending_runs if k[0] == rid]
+        elif before_step is not None:
+            keys = [k for k, (_, s, _) in self._pending_runs.items()
+                    if s < before_step]
+        else:
+            keys = list(self._pending_runs)
+        for k in keys:
+            entry, _, xfer = self._pending_runs.pop(k)
+            t0 = time.perf_counter()
+            entry.kv = self._link.finish(xfer)
+            seal_entry(entry)
+            self.swap_stats[SK.WALL_OUT_S] += time.perf_counter() - t0
+
+    def _purge_pending_runs(self, rid: int) -> None:
+        """Forget in-flight snapshots of runs the store no longer holds
+        (full-store unwind, recompute discard): their entries were already
+        popped.  Dropping a transfer is safe: its source is marked as used
+        by the copy stream, and the host allocator keeps its pinned
+        buffer until the copy has passed."""
+        for k in [k for k in self._pending_runs if k[0] == rid]:
+            del self._pending_runs[k]
+
+    def _restore_pages(self, page_ids, kv) -> None:
+        restore_pages(self.k_pools, self.v_pools, self._link.ids(page_ids),
+                      {"k": self._link.to_device(kv["k"], self.k_pools),
+                       "v": self._link.to_device(kv["v"], self.v_pools)})
+
+    def _swap_out_paged(self, victim: Request) -> bool:
+        """Full suspend in the pooled plane: one ``PageRunEntry`` covering
+        every device page (tail runs shed earlier are already in the
+        store; together they tile [0, suspended_m)).  Returns False when
+        the store is full: the victim (and any stored tail runs) falls
+        back to discard-and-recompute."""
+        t0 = time.perf_counter()
+        tbl = self.allocator.table(victim.rid)
+        device_tokens = tbl.num_tokens
+        try:
+            self._check_run_capacity(len(tbl.pages))  # before the copy
+            if self.ecfg.async_swap:
+                kv, xfer = self._gather_pages_device(tbl.pages)
+                entry = self.swap_store.put_run(
+                    victim.rid, start=0, num_tokens=device_tokens, kv=kv,
+                    nbytes=nbytes_of(kv["k"]) + nbytes_of(kv["v"]))
+                self._pending_runs[(victim.rid, 0)] = (entry, self._step_no,
+                                                       xfer)
+            else:
+                seal_entry(self.swap_store.put_run(
+                    victim.rid, start=0, num_tokens=device_tokens,
+                    kv=self._snapshot_pages(tbl.pages)))
+        except SwapStoreFullError:
+            # stored tail runs are unrestorable without the device
+            # portion: unwind their swap counts along with this one
+            if self.swap_store.has_runs(victim.rid):
+                for _ in self.swap_store.pop_runs(victim.rid):
+                    victim.swaps -= 1
+                    self.sched.num_swaps -= 1
+                    self.swap_stats[SK.SWAP_FALLBACKS] += 1
+            self._purge_pending_runs(victim.rid)
+            victim.drop_suspended()
+            self.sched.num_swaps -= 1   # the suspend did not stick
+            self.swap_stats[SK.SWAP_FALLBACKS] += 1
+            self._release(victim.rid)
+            return False
+        self.swap_stats[SK.SWAP_OUTS] += 1
+        self.swap_stats[SK.KV_OUT] += device_tokens
+        self.swap_stats[SK.WALL_OUT_S] += time.perf_counter() - t0
+        self._release(victim.rid)
+        while len(self._pending_runs) > 2:
+            self._drain_runs(rid=next(iter(self._pending_runs))[0])
+        return True
+
+    def _shed_tail(self, r: Request, npages: int, n_tokens: int,
+                   mode: str) -> bool:
+        """Page-level partial preemption: snapshot (swap mode) and free
+        only the victim's last ``npages`` pages.  Returns True iff the run
+        was swapped (the caller charges its host-link time); a full store
+        falls back to recompute for this run."""
+        tbl = self.allocator.table(r.rid)
+        start = tbl.num_tokens - n_tokens
+        swapped = False
+        if mode == "swap":
+            t0 = time.perf_counter()
+            try:
+                self._check_run_capacity(npages)   # before the copy
+                if self.ecfg.async_swap:
+                    # the gather's fresh buffers are what make the
+                    # free_tail below safe in the same step
+                    kv, xfer = self._gather_pages_device(tbl.pages[-npages:])
+                    entry = self.swap_store.put_run(
+                        r.rid, start=start, num_tokens=n_tokens, kv=kv,
+                        nbytes=nbytes_of(kv["k"]) + nbytes_of(kv["v"]))
+                    self._pending_runs[(r.rid, start)] = (
+                        entry, self._step_no, xfer)
+                else:
+                    seal_entry(self.swap_store.put_run(
+                        r.rid, start=start, num_tokens=n_tokens,
+                        kv=self._snapshot_pages(tbl.pages[-npages:])))
+                swapped = True
+                self.swap_stats[SK.SWAP_OUTS] += 1
+                self.swap_stats[SK.KV_OUT] += n_tokens
+                self.swap_stats[SK.WALL_OUT_S] += time.perf_counter() - t0
+            except SwapStoreFullError:
+                r.drop_tail_run(n_tokens)
+                self.sched.num_swaps -= 1
+                self.swap_stats[SK.SWAP_FALLBACKS] += 1
+                # the failed run sits BELOW every run already stored for
+                # this rid (the tail is shed top-down): the stored tiling
+                # now has a gap, so those runs fold back to recompute too
+                if self.swap_store.has_runs(r.rid):
+                    for run in self.swap_store.pop_runs(r.rid):
+                        r.drop_tail_run(run.num_tokens)
+                        self.sched.num_swaps -= 1
+                        self.swap_stats[SK.SWAP_FALLBACKS] += 1
+                self._purge_pending_runs(r.rid)
+        removed = self.allocator.free_tail(r.rid, npages)
+        invariant(removed == n_tokens, (r.rid, removed, n_tokens))
+        if swapped:
+            while len(self._pending_runs) > 2:
+                self._drain_runs(rid=next(iter(self._pending_runs))[0])
+        return swapped
+
+    def _swap_in_paged(self, r: Request) -> None:
+        """Restore a fully suspended pooled request: fresh pages, and
+        every stored run written back in ascending start order."""
+        self._restore_runs(r, claim=True, resume=r.resume)
+
+    def _swap_in_tail(self, r: Request) -> None:
+        """Restore a partially shed request's tail runs before its next
+        compute step (the kept prefix never left the device)."""
+        self._restore_runs(r, claim=False, resume=r.resume_tail)
+
+    def _restore_runs(self, r: Request, *, claim: bool, resume) -> None:
+        if any(k[0] == r.rid for k in self._pending_runs):
+            # re-admitted within the drain window: finalize on demand,
+            # before the verify below (an undrained entry has no seal)
+            self.swap_stats[SK.DRAINS_ON_SWAPIN] += 1
+            self._drain_runs(rid=r.rid)
+        if not all(verify_entry(run)
+                   for run in self.swap_store.peek_runs(r.rid)):
+            raise self._corrupt(f"rid {r.rid} page run")
+        t0 = time.perf_counter()
+        runs = self.swap_store.pop_runs(r.rid)
+        total = sum(run.num_tokens for run in runs)
+        if claim:
+            self._claim_slot(r.rid, reset=False)
+        self.allocator.allocate(r.rid, total)
+        self._write_runs(r.rid, runs)
+        restored = resume()
+        invariant(restored == total, (r.rid, restored, total))
+        self.swap_stats[SK.SWAP_INS] += len(runs)   # run-for-run with outs
+        self.swap_stats[SK.KV_IN] += total
+        self.swap_stats[SK.WALL_IN_S] += time.perf_counter() - t0
+
+    def _write_runs(self, rid: int, runs) -> None:
+        pg = self.ecfg.page_size
+        tbl = self.allocator.table(rid)
+        for run in runs:
+            invariant(run.start % pg == 0, (rid, run.start))
+            p0 = run.start // pg
+            npg = -(-run.num_tokens // pg)
+            self._restore_pages(tbl.pages[p0:p0 + npg], run.kv)
+
     # --- shared-prefix reuse -------------------------------------------- #
     def _page_keys(self, r: Request) -> List[int]:
         keys = self._page_keys_of.get(r.rid)
@@ -347,20 +728,80 @@ class Engine:
             self._page_tokens_of[r.rid] = toks
         return toks[:n]
 
+    def _demote_prefix(self, key: int, page: int, tokens, n_kvs: int
+                       ) -> None:
+        """Allocator eviction hook: snapshot the evicted registry page to
+        the host demotion tier (a refcount-free ``PrefixPageEntry``)
+        instead of discarding its KV.  A full store drops the demotion
+        (the page recomputes on its next miss).  Charged
+        ``swap_time(page_size)`` in virtual time, folded into the current
+        batch, and measured on the wall.  With ``async_swap`` the page is
+        gathered on the device (the pool page can be reused at once) and
+        its host copy finalized at the next drain boundary."""
+        if self.swap_store.has_prefix(key):
+            return          # an identical snapshot is already host-resident
+        t0 = time.perf_counter()
+        try:
+            self._check_run_capacity(1)     # metadata check BEFORE the copy
+            if self.ecfg.async_swap:
+                kv, xfer = self._gather_pages_device([page])
+                self.swap_store.put_prefix(
+                    key, tokens, n_kvs, kv,
+                    nbytes=nbytes_of(kv["k"]) + nbytes_of(kv["v"]))
+                self._pending_demotes[key] = (self._step_no, xfer)
+            else:
+                seal_entry(self.swap_store.put_prefix(
+                    key, tokens, n_kvs, self._snapshot_pages([page])))
+        except SwapStoreFullError:
+            self.swap_stats[SK.DEMOTE_DROPS] += 1
+            return
+        pg = self.ecfg.page_size
+        self._tier_swap_s += self._swap_time(pg)
+        self.swap_stats[SK.DEMOTIONS] += 1
+        self.swap_stats[SK.KV_DEMOTED] += pg
+        self.swap_stats[SK.WALL_DEMOTE_S] += time.perf_counter() - t0
+        # double buffering, as in _swap_out
+        while len(self._pending_demotes) > 2:
+            self._drain_demotes(key=next(iter(self._pending_demotes)))
+
+    def _verify_prefix(self, entry) -> bool:
+        """Promotion gate of ``attach_prefix_run``: CRC-check the
+        host-resident page (a failed entry is dropped by the attach, and
+        the page recomputes)."""
+        ok = verify_entry(entry)
+        if not ok:
+            self.swap_stats[SK.PREFIX_INTEGRITY] += 1
+        return ok
+
+    def _promote_restore(self, page: int, kv) -> None:
+        t0 = time.perf_counter()
+        self._restore_pages([page], kv)
+        self.swap_stats[SK.WALL_PROMOTE_S] += time.perf_counter() - t0
+
     def _attach_prefix(self, r: Request, c: int) -> int:
         """At a fresh claim, map the LONGEST cached run matching the
         prompt's leading full pages into r's block table and return the
-        number of tokens whose prefill compute is SKIPPED.  At least one
-        granted token is always computed (the emitting batch needs real
-        logits), and only pages wholly inside this grant qualify."""
+        number of tokens whose prefill compute is SKIPPED.  With demotion
+        on, the run extends against the host tier: a host hit promotes
+        the page back, charged ``swap_time`` into this batch like a §5.4
+        swap-in.  At least one granted token is always computed (the
+        emitting batch needs real logits), and only pages wholly inside
+        this grant qualify."""
         pg = self.ecfg.page_size
         cap = min(r.input_len - 1, c - 1) // pg
         if pg <= 1 or cap <= 0:
             return 0
-        attached, _ = attach_prefix_run(
+        attached, promoted = attach_prefix_run(
             self.allocator, r.rid, self._page_keys(r)[:cap],
             self._page_tokens(r, cap),
+            host_tier=self.swap_store if self._demotion else None,
+            restore=self._promote_restore,
+            verify=self._verify_prefix if self._demotion else None,
             exact=self.sched.cfg.prefix_lookup == "exact")
+        if promoted:
+            self._tier_swap_s += self._swap_time(promoted)
+            self.swap_stats[SK.PROMOTIONS] += promoted // pg
+            self.swap_stats[SK.KV_PROMOTED] += promoted
         if attached:
             self.swap_stats[SK.TRIE_HITS] += 1
             if attached < cap * pg:
@@ -420,6 +861,9 @@ class Engine:
             self.device))
         self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
         return self._bt_cache[1]
+
+    def _swap_time(self, n_kvs: int) -> float:
+        return self.cost_model.swap_time(n_kvs) if self.cost_model else 0.0
 
     # ------------------------------------------------------------------ #
     def _run_prefill_rounds(self, plans, emits, step_fn) -> Dict[int, int]:
@@ -593,30 +1037,90 @@ class Engine:
         executed."""
         if not self.sched.has_work():
             return 0
+        self._step_no += 1
         return self._step_attempt()
 
+    def _handle_preempted(self, victim: Request) -> Tuple[float, int]:
+        """Free (or swap out) one full-preemption victim; returns the
+        (virtual swap time, swap-out count) owed to the batch."""
+        if victim.suspended:
+            m = victim.swap_out_m   # device-resident portion only
+            swapper = (self._swap_out_paged if self._pooled
+                       else self._swap_out)
+            if swapper(victim):      # False: store full, fell back
+                return self._swap_time(m), 1
+        else:
+            if self._pooled:
+                self.swap_store.discard_runs(victim.rid)
+                self._purge_pending_runs(victim.rid)
+            self._release(victim.rid)
+        return 0.0, 0
+
     def _step_attempt(self) -> int:
-        """Preempt, claim/attach/allocate, price, then run the batch's
-        prefill rounds and its decode step."""
+        """Preempt (tail sheds first, then full preemptions), restore
+        swapped re-admissions, claim/attach/allocate, price, then run the
+        batch's prefill rounds and its decode step."""
         t0 = time.perf_counter()
         self.allocator.now = self.now   # replacement-policy clock
         batch = self.sched.get_next_batch()
-        invariant(not batch.partial_preempted,
-                  "partial preemption is not ported")
+        swap_s = 0.0
+        num_swap_out = num_swap_in = 0
+        # page-level partial preemptions first: chronologically they
+        # precede any later FULL preemption of the same victim, and the
+        # tail pages must be snapshotted before the remainder is
+        for r, npages, n_tokens, mode in batch.partial_preempted:
+            if not r.running:
+                # the victim was ALSO fully preempted later this round.  A
+                # swap-mode shed folds into the full suspend (whose
+                # snapshot covers the whole table, tail included) but
+                # keeps its per-run charge, as the simulator does; a
+                # recompute-mode shed must still come off the table so
+                # the full snapshot matches suspended_m
+                if mode == "swap":
+                    swap_s += self._swap_time(n_tokens)
+                    num_swap_out += 1
+                else:
+                    removed = self.allocator.free_tail(r.rid, npages)
+                    invariant(removed == n_tokens, (r.rid, removed,
+                                                    n_tokens))
+                continue
+            if self._shed_tail(r, npages, n_tokens, mode):
+                swap_s += self._swap_time(n_tokens)
+                num_swap_out += 1
         for victim in batch.preempted:
-            invariant(not victim.suspended, (victim.rid, "swap victim"))
-            self._release(victim.rid)
+            s, o = self._handle_preempted(victim)
+            swap_s += s
+            num_swap_out += o
         if not batch.items:
+            # swap-outs still happened: owe their virtual-time charge to
+            # the next executed batch (mirrors the simulator's carry)
+            self._carry_swap_s += swap_s
+            self._carry_out += num_swap_out
+            self._drain_swaps(before_step=self._step_no)
             self.wall += time.perf_counter() - t0
             return 0
+        swap_s += self._carry_swap_s
+        num_swap_out += self._carry_out
+        self._carry_swap_s, self._carry_out = 0.0, 0
+
+        # swap-ins: restore suspended re-admissions before classification
+        # so they re-enter as decodes/short prefills, not full refills;
+        # partially shed requests restore their tail runs the same way
+        for r, _ in batch.items:
+            if r.suspended:
+                swap_s += self._swap_time(r.suspended_m)
+                num_swap_in += 1
+                (self._swap_in_paged if self._pooled else self._swap_in)(r)
+            elif r.tail_suspended_m > 0:
+                swap_s += self._swap_time(r.tail_suspended_m)
+                num_swap_in += 1
+                self._swap_in_tail(r)
 
         # classify + virtual-time the batch up front
         spec = BatchSpec()
         prefill_items: List[Tuple[Request, int]] = []
         decode_items: List[Tuple[Request, int]] = []
         for r, c in batch.items:
-            invariant(not r.suspended and r.tail_suspended_m == 0,
-                      (r.rid, "suspended request in a recompute engine"))
             if r.generated > 0 and c == 1 and r.remaining_prefill == 1:
                 decode_items.append((r, c))
                 spec.decodes.append((c, r.m))
@@ -624,7 +1128,10 @@ class Engine:
                 prefill_items.append((r, c))
                 spec.prefills.append((c, r.m))
 
-        # claim slots + control-plane allocation BEFORE pricing the batch
+        # claim slots + control-plane allocation BEFORE pricing the batch:
+        # the prefix attach may PROMOTE host-demoted pages and any
+        # allocation may reclaim-and-DEMOTE registry pages, and those
+        # host-link charges belong to THIS batch's virtual time
         t_attach = time.perf_counter()
         for r, c in prefill_items:
             if r.rid not in self.slot_of:
@@ -642,8 +1149,11 @@ class Engine:
             self.allocator.allocate(r.rid, 1)
             if self._pooled:
                 self._cow_guard(r.rid, r.m)
+        swap_s += self._tier_swap_s
+        self._tier_swap_s = 0.0
 
-        dt = self.cost_model.batch_time(spec) if self.cost_model else 0.0
+        dt = (self.cost_model.batch_time(spec) if self.cost_model else 0.0) \
+            + swap_s
         self.now += dt
 
         # ---- prefills (one packed bucketed call per round) -------------- #
@@ -681,17 +1191,23 @@ class Engine:
                 else:
                     self.token_ids[r.rid].append(tok)
 
+        # end-of-step boundary: snapshots enqueued in EARLIER steps have
+        # had a full step of compute to overlap their copy; finalize them
+        # now (this step's own snapshots stay in flight)
+        self._drain_swaps(before_step=self._step_no)
         wall_s = time.perf_counter() - t0
         self.wall += wall_s
         self.allocator.check_invariants()
+        self.swap_store.check_invariants()
         self._check_index_sync(batch)
         kv_used = sum(r.m for r in self.sched.running)
         self.batch_logs.append(BatchLog(
             t_start=self.now - dt, t_end=self.now,
             num_prefill=len(spec.prefills), num_decode=len(spec.decodes),
             tokens=spec.total_tokens, kv_used=kv_used,
-            preempted=len(batch.preempted), swapped_out=0, swapped_in=0,
-            swap_s=0.0, wall_s=wall_s,
+            preempted=len(batch.preempted) + len(batch.partial_preempted),
+            swapped_out=num_swap_out, swapped_in=num_swap_in,
+            swap_s=swap_s, wall_s=wall_s,
             pages_used=self.allocator.table_pages))
         return len(batch.items)
 
@@ -735,11 +1251,15 @@ class Engine:
                     "engine deadlock: work remains but nothing schedulable")
         else:
             raise RuntimeError("engine did not converge")
+        self._drain_swaps()
+        invariant(not (self._pending_swaps or self._pending_demotes
+                       or self._pending_runs), "transfers left in flight")
+        invariant(len(self.swap_store) == 0,
+                  ("swap store leaked rids", self.swap_store.suspended_rids))
         sim = SimResult(requests=list(requests), batches=self.batch_logs,
                         num_preemptions=self.sched.num_preemptions,
                         num_partial_preempts=self.sched.num_partial_preempts,
                         num_swaps=self.sched.num_swaps)
-        # repro: allow-async-drain(no transfer is ever in flight here - swap, suspend and the host demotion tier are not ported, so there is nothing to drain)
         return EngineResult(outputs=dict(self.outputs), metrics=sim,
                             wall_time=self.wall,
                             swap_stats=dict(self.swap_stats),

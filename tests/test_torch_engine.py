@@ -1,8 +1,9 @@
 """The port's ``Engine(..., device="cpu")`` against the JAX ``Engine``
 (``plane="paged"``) on the same workloads: token-identical outputs, the
 same ``BatchLog`` schedule (every field but the measured ``wall_s``),
-the same preemption and prefix-hit counts, and tokens equal to both
-packages' ``generate_reference``.  Requests are built from one numpy
+the same preemption, prefix-hit and swap counts (recompute, swap and
+``auto`` preemption, page-level partial preemption, the host demotion
+tier), and tokens equal to both packages' ``generate_reference``.  Requests are built from one numpy
 spec into each package's own ``Request``."""
 import dataclasses
 import os
@@ -18,6 +19,7 @@ from repro.core import TheoreticalCostModel as JCost
 from repro.core import get_hardware as j_hw
 from repro.core import make_scheduler as j_sched
 from repro.data.workloads import shared_prefix as j_shared_prefix
+from repro.data.workloads import zipf_shared_prefix as j_zipf_shared_prefix
 from repro.serving import Engine as JEngine
 from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import generate_reference as j_reference
@@ -55,7 +57,27 @@ def shared_prefix_spec(vocab, n=8):
                                      stagger=1e-6, seed=3)]
 
 
-#: workload -> (spec builder, scheduler/engine settings, expectations)
+def zipf_spec(vocab):
+    return [(r.rid, r.input_len, r.output_len, r.arrival, list(r.prompt))
+            for r in j_zipf_shared_prefix(n=24, num_groups=6, page_size=8,
+                                          seed=3, vocab=vocab)]
+
+
+def churn_spec(vocab):
+    return requests_spec(vocab, n=8, seed=3, max_i=30, max_o=10)
+
+
+def partial_spec(vocab):
+    return requests_spec(vocab, n=8, seed=2, max_i=28, max_o=16)
+
+
+CHURN = dict(M_kv=40, nslots=4, page_size=8)
+PARTIAL = dict(M_kv=72, nslots=4, page_size=8, sched="sarathi_cs",
+               partial_preempt=True)
+
+#: workload -> (spec builder, scheduler/engine settings, expectations:
+#: counts that must be at least this; swap-stat keys and the metrics'
+#: ``num_partial_preempts``/``num_swaps``)
 WORKLOADS = {
     "mixed_page8": (lambda v: requests_spec(v),
                     dict(M_kv=60, nslots=4, page_size=8), {}),
@@ -75,6 +97,31 @@ WORKLOADS = {
     "mixed_page16": (lambda v: requests_spec(v, n=6, seed=5, max_i=30),
                      dict(M_kv=96, nslots=4, page_size=16,
                           prefix_lookup="exact"), {}),
+    # §5.4 swap preemption of whole victims, its Fig. 8 auto choice, and
+    # the store-full fallback to recompute
+    "churn_swap": (churn_spec, dict(CHURN, preempt_mode="swap"),
+                   {"swap_outs": 1, "swap_ins": 1, "kv_out": 1, "kv_in": 1,
+                    "num_swaps": 1}),
+    "churn_auto": (churn_spec, dict(CHURN, preempt_mode="auto"),
+                   {"preemptions": 1}),
+    "churn_swap_full": (churn_spec, dict(CHURN, preempt_mode="swap",
+                                         swap_bytes=1),
+                        {"swap_fallbacks": 1}),
+    # §8 page-level partial preemption (tail sheds) under each mode
+    "partial_swap": (partial_spec, dict(PARTIAL, preempt_mode="swap"),
+                     {"num_partial_preempts": 1, "swap_outs": 1,
+                      "swap_ins": 1, "kv_out": 1, "kv_in": 1,
+                      "num_swaps": 1}),
+    "partial_auto": (partial_spec, dict(PARTIAL, preempt_mode="auto"),
+                     {"swap_outs": 1, "num_swaps": 1}),
+    "partial_recompute": (partial_spec, dict(PARTIAL),
+                          {"num_partial_preempts": 1}),
+    # §6 host demotion tier under the break-even policy
+    "demotion": (zipf_spec, dict(M_kv=256, nslots=4, page_size=8, S=512,
+                                 cache_policy="break_even",
+                                 cache_demotion=True),
+                 {"demotions": 1, "promotions": 1, "kv_demoted": 1,
+                  "kv_promoted": 1, "trie_hits": 1}),
 }
 
 
@@ -85,16 +132,19 @@ def models():
     return jcfg, tcfg, jp, tp
 
 
-def _engine(pkg, models, M_kv, nslots, page_size, S=128, **ekw):
+def _engine(pkg, models, M_kv, nslots, page_size, S=128, sched="vllm",
+            preempt_mode="recompute", partial_preempt=False, **ekw):
     jcfg, tcfg, jp, tp = models
+    skw = dict(S=S, replacement="srf", preempt_mode=preempt_mode,
+               partial_preempt=partial_preempt)
     if pkg == "jax":
-        sched = j_sched("vllm", M_kv, S=S, replacement="srf")
+        sched = j_sched(sched, M_kv, **skw)
         return JEngine(jcfg, jp, sched,
                        JEngineConfig(nslots=nslots, cache_len=CACHE_LEN,
                                      chunk=16, plane="paged",
                                      page_size=page_size, **ekw),
                        cost_model=JCost(jcfg, j_hw("tpu_v5e")))
-    sched = t_sched("vllm", M_kv, S=S, replacement="srf")
+    sched = t_sched(sched, M_kv, **skw)
     return TEngine(tcfg, tp, sched,
                    TEngineConfig(nslots=nslots, cache_len=CACHE_LEN,
                                  chunk=16, plane="paged",
@@ -106,7 +156,7 @@ def _engine(pkg, models, M_kv, nslots, page_size, S=128, **ekw):
 def runs(models):
     """Each workload run once per package (a JAX engine compiles for
     seconds; every test below reads these results), with each engine's
-    allocator stats after the run."""
+    allocator stats and swap-store state after the run."""
     out = {}
     vocab = models[0].vocab_size
     for name, (spec_fn, kw, _) in WORKLOADS.items():
@@ -117,7 +167,11 @@ def runs(models):
                       prompt=list(p)) for i, I, O, a, p in spec]
             eng = _engine(pkg, models, **kw)
             res[pkg] = eng.run(reqs)
-            stats[pkg] = dict(eng.allocator.stats)
+            stats[pkg] = dict(eng.allocator.stats,
+                              store_len=len(eng.swap_store),
+                              pending=len(eng._pending_swaps)
+                              + len(eng._pending_runs)
+                              + len(eng._pending_demotes))
         out[name] = (spec, res, stats)
     return out
 
@@ -158,6 +212,35 @@ def test_preemption_and_prefix_counts_identical(runs, name):
     assert jst["reclaimed"] >= want.get("reclaimed", 0)
 
 
+def _swap_counts(res):
+    """Every ``swap_stats`` key but the measured ``wall_*`` ones, and the
+    metrics' preemption, partial-preemption and swap counts."""
+    d = {k: v for k, v in res.swap_stats.items()
+         if not k.startswith("wall_")}
+    m = res.metrics
+    d.update(preemptions=m.num_preemptions,
+             num_partial_preempts=m.num_partial_preempts,
+             num_swaps=m.num_swaps)
+    return d
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_swap_stats_identical_to_jax_engine(runs, name):
+    """``swap_stats`` key by key (the measured wall keys aside): the port
+    keeps the JAX engine's whole key set.  The counts the workload is
+    there to exercise are positive, and nothing is left in the store or
+    in flight at the end."""
+    _, res, stats = runs[name]
+    j, t = _swap_counts(res["jax"]), _swap_counts(res["torch"])
+    assert set(res["torch"].swap_stats) == set(res["jax"].swap_stats)
+    assert t == j
+    for key, least in WORKLOADS[name][2].items():
+        if key in j:
+            assert j[key] >= least, (key, j[key])
+    for pkg in ("jax", "torch"):
+        assert stats[pkg]["store_len"] == 0 and stats[pkg]["pending"] == 0
+
+
 @pytest.mark.parametrize("name", list(WORKLOADS))
 def test_tokens_equal_both_references(runs, models, name):
     jcfg, tcfg, jp, tp = models
@@ -170,14 +253,10 @@ def test_tokens_equal_both_references(runs, models, name):
 
 
 @pytest.mark.parametrize("ekw,skw,item", [
-    (dict(plane="batched"), {}, "A5"),
-    (dict(cache_demotion=True), {}, "A5"),
-    (dict(faults=object()), {}, "A5"),
-    (dict(straggler_factor=3.0), {}, "A5"),
-    (dict(plane="legacy"), {}, "A5"),
-    ({}, dict(preempt_mode="swap"), "A5"),
-    ({}, dict(preempt_mode="auto"), "A5"),
-    ({}, dict(partial_preempt=True), "A5"),
+    (dict(plane="batched"), {}, "A5d"),
+    (dict(faults=object()), {}, "A5b"),
+    (dict(straggler_factor=3.0), {}, "A5b"),
+    (dict(plane="legacy"), {}, "A5d"),
 ])
 def test_unported_settings_raise(models, ekw, skw, item):
     _, tcfg, _, tp = models
@@ -277,9 +356,12 @@ def rwkv_requests_spec(vocab, n=5, seed=0):
     return out
 
 
-#: (plane, page_size): ``paged`` keeps RWKV6's O(1) state slot-resident,
-#: as in the JAX engine; page_size 1 is tests/test_engine.py's default
-RWKV_RUNS = [("batched", 1), ("paged", 1), ("batched", 8)]
+#: (plane, page_size[, preempt_mode]): ``paged`` keeps RWKV6's O(1) state
+#: slot-resident, as in the JAX engine; page_size 1 is
+#: tests/test_engine.py's default; the mode is ``recompute`` unless given
+RWKV_RUNS = [("batched", 1), ("paged", 1), ("batched", 8),
+             ("batched", 1, "swap"), ("paged", 1, "swap"),
+             ("batched", 1, "auto"), ("paged", 1, "auto")]
 
 
 @pytest.fixture(scope="module")
@@ -289,18 +371,18 @@ def rwkv_models():
     return jcfg, tcfg, jp, tp
 
 
-def _rwkv_engine(pkg, models, plane, page_size, M_kv=60):
+def _rwkv_engine(pkg, models, plane, page_size, mode="recompute", M_kv=60):
     """tests/test_engine.py's setting: vLLM + SRF, M=60, 4 slots,
     cache_len 64, chunk 16."""
     jcfg, tcfg, jp, tp = models
     ekw = dict(nslots=4, cache_len=CACHE_LEN, chunk=16, plane=plane,
                page_size=page_size)
+    skw = dict(S=128, replacement="srf", preempt_mode=mode)
     if pkg == "jax":
-        return JEngine(jcfg, jp, j_sched("vllm", M_kv, S=128,
-                                         replacement="srf"),
+        return JEngine(jcfg, jp, j_sched("vllm", M_kv, **skw),
                        JEngineConfig(**ekw),
                        cost_model=JCost(jcfg, j_hw("tpu_v5e")))
-    return TEngine(tcfg, tp, t_sched("vllm", M_kv, S=128, replacement="srf"),
+    return TEngine(tcfg, tp, t_sched("vllm", M_kv, **skw),
                    TEngineConfig(**ekw),
                    cost_model=TCost(tcfg, t_hw("tpu_v5e")), device="cpu")
 
@@ -309,15 +391,15 @@ def _rwkv_engine(pkg, models, plane, page_size, M_kv=60):
 def rwkv_runs(rwkv_models):
     spec = rwkv_requests_spec(rwkv_models[0].vocab_size)
     out = {}
-    for plane, page in RWKV_RUNS:
+    for run in RWKV_RUNS:
         res = {}
         for pkg, R in (("jax", JRequest), ("torch", TRequest)):
             reqs = [R(rid=i, input_len=I, output_len=O, arrival=a,
                       prompt=list(p)) for i, I, O, a, p in spec]
-            eng = _rwkv_engine(pkg, rwkv_models, plane, page)
+            eng = _rwkv_engine(pkg, rwkv_models, *run)
             res[pkg] = eng.run(reqs)
             res[pkg + "_engine"] = eng
-        out[(plane, page)] = res
+        out[run] = res
     return spec, out
 
 
@@ -346,7 +428,22 @@ def test_rwkv_recompute_preemptions_identical(rwkv_runs, run):
     assert eng.prefill_rounds > 0 and eng.decode_steps > 0
 
 
-@pytest.mark.parametrize("run", RWKV_RUNS[:2], ids=str)
+@pytest.mark.parametrize("run", RWKV_RUNS[3:], ids=str)
+def test_rwkv_swap_stats_identical_to_jax_engine(rwkv_runs, run):
+    """Swap and ``auto`` on the slot plane (and its ``paged`` fallback):
+    the swap counts key by key, every slot snapshot (``index``, ``S``,
+    ``x_tm``, ``x_cm``) restored, the store empty at the end."""
+    res = rwkv_runs[1][run]
+    j, t = _swap_counts(res["jax"]), _swap_counts(res["torch"])
+    assert t == j
+    if run[2] == "swap":
+        assert j["swap_outs"] == j["swap_ins"] > 0 and j["kv_out"] > 0
+    for pkg in ("jax", "torch"):
+        eng = res[pkg + "_engine"]
+        assert len(eng.swap_store) == 0 and not eng._pending_swaps
+
+
+@pytest.mark.parametrize("run", RWKV_RUNS[:2] + RWKV_RUNS[3:5], ids=str)
 def test_rwkv_tokens_equal_both_references(rwkv_models, rwkv_runs, run):
     jcfg, tcfg, jp, tp = rwkv_models
     spec, out = rwkv_runs
@@ -403,9 +500,8 @@ def test_rwkv_step_counters_count_chunk_and_decode_calls(rwkv_models):
 
 
 @pytest.mark.parametrize("ekw,skw,item", [
-    (dict(plane="legacy"), {}, "A5"),
-    ({}, dict(preempt_mode="swap"), "A5"),
-    ({}, dict(partial_preempt=True), "A5"),
+    (dict(plane="legacy"), {}, "A5d"),
+    ({}, dict(partial_preempt=True), "pooled paged data plane"),
 ])
 def test_rwkv_unported_settings_raise(rwkv_models, ekw, skw, item):
     _, tcfg, _, tp = rwkv_models
