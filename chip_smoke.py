@@ -136,7 +136,10 @@ Phases — each raises on failure, so any failure exits non-zero:
    ``wall_in_s``, ``wall_demote_s``, ``wall_promote_s``) and
    ``drains_on_swapin``, B1/B2 through the bf16 variants; and beside it,
    in the same process, the same workload under recompute with no
-   demotion (a reading, not a target).
+   demotion (a reading, not a target); the host clock's time in the step
+   transaction's ``_begin_txn`` and ``_commit`` per step, and each
+   batch's measured wall over its priced dt (how many batches a
+   ``straggler_factor`` of 3.0 would flag: printed, not a gate).
 15. RWKV6-7B under swap (``rwkv_smoke_server(preempt_mode="swap")``, run
    after phases 10 and 11 on their weights): the workload's preemptions
    become swaps of a whole slot.  fp32 at 4 layers: tokens against
@@ -150,6 +153,30 @@ Phases — each raises on failure, so any failure exits non-zero:
    to device; and the host clock across the drain), beside the 64 GB/s
    that ``get_hardware("h100").host_bw`` prices and
    ``cost_model.swap_time(n)`` for the tokens n of that transfer.
+17. Rollback bytes (after phase 13), fp32 and bf16, no weights: on the
+   full-width TinyLlama pools a suspended request's page run (drained on
+   swap-in), a shed tail, a promoted host-tier page and a copy-on-write
+   copy, and on the full-width RWKV6-7B slots a slot swap-in and a fresh
+   claim's reset, each staged into a page or slot that a victim swapped
+   out earlier in the same attempt held at batch start, with snapshots
+   in flight on the copy stream.  The attempt's last allocation faults:
+   ``Engine.step`` rolls it back, and every page and slot live at batch
+   start must hold its batch-start bytes bit for bit; the retry commits
+   and must end bit-equal to a twin engine's fault-free step (and hold
+   the restored and promoted bytes); the in-flight copies must drain
+   their pre-step bytes.
+18. Phase 14's workload under ``tests/test_chaos.py``'s MIXED fault
+   schedule (seed 1: allocation faults, transient and permanent store
+   failures, corrupt snapshots, failed demotions and promotions).  fp32:
+   32/32 requests token-identical to phase 14's outputs and to the
+   references they were held against; rollbacks, integrity failures and
+   degraded recomputes all > 0; the store and the pending set empty; B1
+   and B2 launches = layers x decode steps and layers x prefill rounds
+   through the fp32 variants.  bf16: tokens/s and the recovery counts
+   (``wall_aborted_s``, ``backoff_s``) beside phase 14's bf16 reading.
+19. RWKV6-7B fp32 at 4 layers under swap with the same fault schedule:
+   tokens against ``generate_reference`` under phase 10's tie rule, B4
+   launches = layers x prefill rounds, the recovery counts printed.
 
 Each phase prints the seconds since the start when it is done.
 
@@ -181,6 +208,11 @@ PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core bf16
             "float32": 67e12}      # fp32 outside the tensor cores
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+#: phases 18-19's fault schedule: ``tests/test_chaos.py``'s MIXED spec
+MIXED = dict(seed=1, p_alloc=0.05, p_store_transient=0.3,
+             p_store_permanent=0.15, p_corrupt=0.2, p_demote_fail=0.3,
+             p_promote_fail=0.3)
 
 #: name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -527,15 +559,49 @@ def check_swapped(eng, res, what, partial=True, demotion=True):
           f"{what}: the store or the pending set is not empty at the end")
 
 
-def phase_serve_fp32(torch, pa, cfg, params, swap=False):
-    """Phase 3 (``smoke_server``), or phase 14's fp32 run under swap
-    (``smoke_swap_server``)."""
+def check_drained(eng, what):
+    check(len(eng.swap_store) == 0 and not eng._pending_swaps
+          and not eng._pending_runs and not eng._pending_demotes,
+          f"{what}: the store or the pending set is not empty at the end")
+
+
+def check_recovered(res, what):
+    """Phases 18-19: the fault schedule made the step transactions roll
+    back, fail a seal and degrade a request."""
+    rec = res.recovery_stats
+    check(rec["rollbacks"] > 0 and rec["integrity_failures"] > 0
+          and rec["degraded_recomputes"] > 0,
+          f"{what}: recovery counts {rec}: a rollback, an integrity failure "
+          "and a degraded recompute were expected")
+
+
+def recovery_summary(res):
+    return dict({k: v for k, v in res.recovery_stats.items() if v},
+                backoff_s=res.swap_stats["backoff_s"],
+                transient_retries=res.swap_stats["transient_retries"],
+                permanent_store_failures=res.swap_stats[
+                    "permanent_store_failures"],
+                demote_drops=res.swap_stats["demote_drops"],
+                prefix_integrity=res.swap_stats["prefix_integrity"])
+
+
+def phase_serve_fp32(torch, pa, cfg, params, swap=False, faults=None,
+                     clean=None):
+    """Phase 3 (``smoke_server``), phase 14's fp32 run under swap
+    (``smoke_swap_server``), or phase 18's under ``faults``: its tokens
+    are held against phase 14's (``clean``: outputs and the references
+    they were held against) instead of new references."""
     from repro_torch.launch.serve import (SMOKE_ENGINE, smoke_server,
                                           smoke_swap_server)
     from repro_torch.serving import generate_reference
-    eng, reqs = (smoke_swap_server if swap else smoke_server)(
-        cfg, params, device=DEVICE)
-    label = "fp32 swap serve" if swap else "fp32 serve"
+    if faults is not None:
+        eng, reqs = smoke_swap_server(cfg, params, device=DEVICE,
+                                      faults=faults)
+    else:
+        eng, reqs = (smoke_swap_server if swap else smoke_server)(
+            cfg, params, device=DEVICE)
+    label = ("fp32 faulted swap serve" if faults is not None
+             else "fp32 swap serve" if swap else "fp32 serve")
     torch.cuda.synchronize()
     zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
     t0 = time.perf_counter()
@@ -570,14 +636,25 @@ def phase_serve_fp32(torch, pa, cfg, params, swap=False):
     check(res.metrics.num_preemptions >= 1, "no preemption")
     check(res.swap_stats["trie_hits"] > 0, "no prefix-registry hit")
     check(all(r.finished for r in reqs), "unfinished requests")
-    if swap:
+    if faults is not None:
+        print(f"  {label}: recovery {recovery_summary(res)}")
+        check_recovered(res, label)
+        check_drained(eng, label)
+        same = sum(res.outputs[r.rid] == clean["outputs"][r.rid]
+                   for r in reqs)
+        print(f"  {label}: {same}/{len(reqs)} requests token-identical to "
+              "phase 14's fault-free run")
+        check(same == len(reqs), "tokens differ from the fault-free run")
+    elif swap:
         check_swapped(eng, res, label)
     t0 = time.perf_counter()
-    mismatched = []
+    mismatched, refs = [], {}
     for r in reqs:
-        want = generate_reference(cfg, params, r.prompt, r.output_len,
-                                  cache_len=SMOKE_ENGINE.cache_len,
-                                  device=DEVICE)
+        want = refs[r.rid] = (
+            clean["references"][r.rid] if faults is not None else
+            generate_reference(cfg, params, r.prompt, r.output_len,
+                               cache_len=SMOKE_ENGINE.cache_len,
+                               device=DEVICE))
         got = res.outputs[r.rid]
         if got != want:
             first = next(i for i, (a, b) in enumerate(zip(got, want))
@@ -595,17 +672,60 @@ def phase_serve_fp32(torch, pa, cfg, params, swap=False):
             "trie_hits": res.swap_stats["trie_hits"],
             "tokens": sum(len(o) for o in res.outputs.values()),
             "swap_stats": res.swap_stats,
+            "recovery_stats": res.recovery_stats,
             "partial_preempts": res.metrics.num_partial_preempts,
-            "swaps": res.metrics.num_swaps}
+            "swaps": res.metrics.num_swaps,
+            "outputs": res.outputs, "references": refs}
 
 
-def phase_serve_bf16(torch, pa, cfg, params, swap=False):
-    """Phase 4 (``smoke_server``), or phase 14's bf16 run under swap, with
-    the same workload under recompute and no demotion beside it."""
+def timed_txn(eng):
+    """Wrap the engine's ``_begin_txn`` and ``_commit`` with the host
+    clock: seconds per call, for the transaction's host cost per step."""
+    spent = {"_begin_txn": [], "_commit": []}
+    for name in spent:
+        def wrapped(*a, fn=getattr(eng, name), out=spent[name]):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                out.append(time.perf_counter() - t0)
+        setattr(eng, name, wrapped)
+    return spent
+
+
+def quantiles(xs, qs=(0.0, 0.5, 0.9, 1.0)):
+    xs = sorted(xs)
+    return [xs[min(len(xs) - 1, int(q * (len(xs) - 1) + 0.5))] for q in qs]
+
+
+def straggler_ratios(res, factor=3.0):
+    """Each batch's measured wall over its priced dt (``t_end - t_start``,
+    the h100 cost model), and how many a ``StragglerMonitor`` of
+    ``factor`` would flag (it also floors the deadline at 1e-4 s)."""
+    ratios = [b.wall_s / (b.t_end - b.t_start) for b in res.metrics.batches
+              if b.t_end > b.t_start]
+    flagged = sum(b.wall_s > max(factor * (b.t_end - b.t_start), 1e-4)
+                  for b in res.metrics.batches)
+    return {"batches": len(res.metrics.batches), "min_p50_p90_max":
+            quantiles(ratios), "flagged_at_3": flagged}
+
+
+def phase_serve_bf16(torch, pa, cfg, params, swap=False, faults=None,
+                     clean=None):
+    """Phase 4 (``smoke_server``), phase 14's bf16 run under swap (with
+    the same workload under recompute and no demotion beside it, the step
+    transaction's host cost and the straggler ratio), or phase 18's under
+    ``faults`` beside phase 14's reading (``clean``)."""
     from repro_torch.launch.serve import smoke_server, smoke_swap_server
-    eng, reqs = (smoke_swap_server if swap else smoke_server)(
-        cfg, params, device=DEVICE)
-    label = "bf16 swap serve" if swap else "bf16 serve"
+    if faults is not None:
+        eng, reqs = smoke_swap_server(cfg, params, device=DEVICE,
+                                      faults=faults)
+    else:
+        eng, reqs = (smoke_swap_server if swap else smoke_server)(
+            cfg, params, device=DEVICE)
+    label = ("bf16 faulted swap serve" if faults is not None
+             else "bf16 swap serve" if swap else "bf16 serve")
+    spent = timed_txn(eng) if swap and faults is None else None
     torch.cuda.synchronize()
     zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
     t0 = time.perf_counter()
@@ -641,8 +761,34 @@ def phase_serve_bf16(torch, pa, cfg, params, swap=False):
            "prefill_variants": variants, "decode_variants": dvariants,
            "prefill_rounds": eng.prefill_rounds,
            "decode_steps": eng.decode_steps}
+    if faults is not None:
+        check_drained(eng, label)
+        rec = recovery_summary(res)
+        print(f"  {label}: {tokens / wall:.1f} tok/s beside phase 14's "
+              f"fault-free {clean['tok_per_s']:.1f}; recovery {rec}; "
+              f"swap counts {swap_summary(res)}")
+        out.update(recovery=rec, counts=swap_summary(res),
+                   clean_tok_per_s=clean["tok_per_s"])
+        return out
     if swap:
         check_swapped(eng, res, label)
+        steps = len(spent["_begin_txn"])
+        txn = {k: {"calls": len(v), "total_s": sum(v),
+                   "us_per_step": 1e6 * sum(v) / max(1, steps),
+                   "us_p50": 1e6 * quantiles(v, (0.5,))[0]}
+               for k, v in spent.items()}
+        strag = straggler_ratios(res)
+        print(f"  {label}: {tokens / wall:.1f} tok/s; step transaction "
+              f"on the host clock: "
+              + "; ".join(f"{k} {v['us_per_step']:.1f} us per step "
+                          f"(median {v['us_p50']:.1f} us, {v['calls']} "
+                          f"calls, {v['total_s']:.4f} s)"
+                          for k, v in txn.items())
+              + f" of {wall:.3f} s; wall / priced dt per batch "
+              f"(min, p50, p90, max) {strag['min_p50_p90_max']}: "
+              f"straggler_factor 3.0 would flag {strag['flagged_at_3']} of "
+              f"{strag['batches']} batches")
+        out.update(txn_host=txn, straggler=strag)
         walls = {k: v for k, v in res.swap_stats.items()
                  if k.startswith("wall_")}
         print(f"  {label}: swap counts {swap_summary(res)}; host walls "
@@ -1242,12 +1388,14 @@ def reference_top2_gap(torch, M, cfg, params, prompt, tokens, pos) -> float:
     return (top[0] - top[1]).item()
 
 
-def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params, preempt_mode="recompute"):
-    """Phase 10, or phase 15's fp32 run with ``preempt_mode="swap"``."""
+def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params, preempt_mode="recompute",
+                          faults=None):
+    """Phase 10, phase 15's fp32 run with ``preempt_mode="swap"``, or
+    phase 19's with ``faults`` too."""
     from repro_torch.launch.serve import rwkv_smoke_server
     from repro_torch.serving import generate_reference
     eng, reqs = rwkv_smoke_server(cfg, params, device=DEVICE,
-                                  preempt_mode=preempt_mode)
+                                  preempt_mode=preempt_mode, faults=faults)
     check(eng.cache is not None and eng.k_pools is None,
           "the RWKV engine is not on the slot plane")
     L = cfg.num_layers
@@ -1270,7 +1418,11 @@ def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params, preempt_mode="recompute"):
           f"wkv6 launched {launches} times, expected {L} x "
           f"{eng.prefill_rounds} prefill rounds")
     check(res.metrics.num_preemptions >= 1, "no preemption")
-    if preempt_mode == "swap":
+    if faults is not None:
+        print(f"  RWKV6-7B fp32 faulted swap serve: recovery "
+              f"{recovery_summary(res)}")
+        check_drained(eng, "RWKV6-7B fp32 faulted swap serve")
+    elif preempt_mode == "swap":
         check_swapped(eng, res, "RWKV6-7B fp32 swap serve", partial=False,
                       demotion=False)
     check(all(r.finished for r in reqs), "unfinished requests")
@@ -1305,7 +1457,8 @@ def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params, preempt_mode="recompute"):
             "prefill_rounds": eng.prefill_rounds,
             "decode_steps": eng.decode_steps,
             "preemptions": res.metrics.num_preemptions,
-            "diverged": diverged, "counts": swap_summary(res)}
+            "diverged": diverged, "counts": swap_summary(res),
+            "recovery": recovery_summary(res)}
 
 
 def phase_rwkv_serve_bf16(torch, wkv, cfg, params, preempt_mode="recompute"):
@@ -1619,6 +1772,282 @@ def phase_host_link(torch, M, get_config):
 
 
 # --------------------------------------------------------------------- #
+# phase 17: a rolled-back step leaves every live page and slot as it was
+# --------------------------------------------------------------------- #
+#
+# Each case builds an engine (no weights: nothing is computed) in a
+# batch-start state, then drives ONE ``Engine.step`` whose attempt is the
+# case's script: it stages every kind of device write the plane has, each
+# into a page or slot that was live at batch start (a victim's, freed
+# earlier in the same attempt), with snapshots on the copy stream, and
+# its last allocation faults.  ``step`` rolls the attempt back and runs
+# it again; the retry first checks that every live page (or slot) holds
+# its batch-start bytes, then commits.  A twin engine runs the same step
+# with no fault, and the two must end bit-equal.  The functions take the
+# config and device, so ``tests/test_torch_txn.py`` runs them on the CPU
+# at reduced size.
+
+def _fill(torch, tensors, seed, device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for t in tensors:
+        t.copy_(torch.randn(t.shape, generator=gen, device=device).to(
+            t.dtype))
+
+
+def _case_request(eng, rid, n, Request):
+    toks = [(7 * rid + i) % eng.cfg.vocab_size for i in range(n)]
+    r = Request(rid=rid, input_len=n, output_len=4, arrival=0.0,
+                prompt=toks)
+    r.m, r.running = n, True
+    eng.token_ids[rid] = list(toks)
+    eng.allocator.allocate(rid, n)
+    eng.sched.running.append(r)
+    return r
+
+
+def _faulted_step(torch, eng, script, fault: bool, check_rollback):
+    """Drive one ``eng.step()`` whose attempt is ``script(eng)``; with
+    ``fault``, the attempt's last allocation raises ``FaultError`` the
+    first time, and ``check_rollback()`` runs at the start of the retry."""
+    from repro_torch.serving.faults import FaultError
+    armed, calls = [False], []
+
+    def hook(need):
+        if armed[0]:
+            armed[0] = False
+            raise FaultError("injected at the attempt's last allocation")
+
+    def attempt():
+        calls.append(len(calls))
+        if len(calls) == 2:
+            check_rollback()
+        last = script(eng)
+        armed[0] = fault and len(calls) == 1
+        last()
+        eng._commit()
+        return 1
+
+    eng.allocator.fault_hook = hook
+    eng._step_attempt = attempt
+    eng.step()
+    del eng._step_attempt
+    check(len(calls) == 1 + fault
+          and eng.recovery_stats["alloc_faults"] == int(fault),
+          f"attempts {calls}, recovery {eng.recovery_stats}")
+
+
+def rollback_pooled(torch, cfg, ecfg, M_kv, device, seed=17):
+    """Pooled plane: a full page-run restore (a suspended request whose
+    snapshot is drained on swap-in), a tail restore, a promotion and a
+    copy-on-write copy, all into pages a victim freed in the attempt."""
+    from repro_torch.core import Request, make_scheduler
+    from repro_torch.core.kvcache import chain_keys
+    from repro_torch.serving import Engine
+    pg = ecfg.page_size
+
+    def build():
+        eng = Engine(cfg, None, make_scheduler(
+            "sarathi_cs", M_kv, S=ecfg.cache_len, preempt_mode="swap",
+            partial_preempt=True), ecfg, device=device)
+        r = {rid: _case_request(eng, rid, n * pg, Request)
+             for rid, n in ((0, 6), (1, 10), (2, 3), (3, 4))}
+        _fill(torch, (eng.k_pools, eng.v_pools), seed, device)
+        toks = r[0].prompt
+        eng.allocator.register_prefix(       # rid 0's first two pages
+            0, chain_keys(toks, pg)[:2],
+            [tuple(toks[i * pg:(i + 1) * pg]) for i in range(2)])
+        want2 = {k: v.clone() for k, v in eng._gather_pages_device(
+            eng.allocator.table(2).pages)[0].items()}
+        eng.sched.running.remove(r[2])       # suspended whole, in flight
+        r[2].preempt(mode="swap")
+        eng.sched.waiting.append(r[2])
+        check(eng._swap_out_paged(r[2]), "swap-out of rid 2")
+        r[3].partial_preempt(2 * pg, mode="swap")    # its tail, in flight
+        check(eng._shed_tail(r[3], 2, 2 * pg, "swap"), "tail shed")
+        shape = (cfg.num_layers, 1, pg, cfg.num_kv_heads, cfg.head_dim_)
+        page = {k: torch.empty(shape, dtype=eng.k_pools.dtype,
+                               device=device) for k in ("k", "v")}
+        _fill(torch, page.values(), seed + 1, device)
+        host = eng._link.finish(eng._link.start(page))   # a host-tier page
+        return eng, r, want2, page, host
+
+    def script(r, host):
+        def run(eng):
+            eng.sched._preempt(r[1])         # the victim: 10 pages freed
+            eng._handle_preempted(r[1])
+            eng._swap_in_paged(r[2])         # run_restore
+            eng._swap_in_tail(r[3])          # tail_restore
+            page = eng.allocator.allocate(4, pg)
+            eng._promote_restore(page[0], host)          # promotion
+            eng._cow_guard(0, pg + pg // 2)  # cow_copy of a pinned page
+            kinds = sorted({i[0] for i in eng._intents})
+            check(kinds == ["cow_copy", "promotion", "run_restore",
+                            "tail_restore"], f"staged {kinds}")
+            return lambda: eng.allocator.allocate(0, pg)   # the last one
+        return run
+
+    eng, r, want2, page, host = build()
+    twin, tr, _, _, thost = build()
+    a = eng.allocator
+    live = sorted({p for t in a._tables.values() for p in t.pages}
+                  | set(a._pinned))
+    ids = eng._link.ids(live)
+    before = {"k": eng.k_pools.index_select(1, ids),
+              "v": eng.v_pools.index_select(1, ids)}
+    held = set(a.table(1).pages)
+    inflight = eng._gather_pages_device(live)[1]   # on the copy stream
+    staged = []
+
+    def check_rollback():
+        for k, pool in (("k", eng.k_pools), ("v", eng.v_pools)):
+            check(same_bits(torch, pool.index_select(1, ids), before[k]),
+                  f"pooled {cfg.dtype}: live {k} pages changed by the "
+                  "rolled-back attempt")
+        check(r[2].suspended and eng.swap_store.has_runs(2)
+              and set(a.table(1).pages) == held,
+              "pooled: the books did not roll back")
+        staged.append(len(held))
+
+    t0 = time.perf_counter()
+    _faulted_step(torch, eng, script(r, host), True, check_rollback)
+    _faulted_step(torch, twin, script(tr, thost), False, None)
+    got = eng._link.finish(inflight)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    for k in ("k", "v"):
+        check(same_bits(torch, host_tensor(torch, got[k], before[k].dtype),
+                        before[k].cpu()),
+              f"pooled {cfg.dtype}: the in-flight snapshot's {k} bytes")
+        check(same_bits(torch, getattr(eng, f"{k}_pools"),
+                        getattr(twin, f"{k}_pools")),
+              f"pooled {cfg.dtype}: {k} pools differ from the fault-free "
+              "step's")
+        p2 = eng._link.ids(eng.allocator.table(2).pages)
+        check(same_bits(torch, getattr(eng, f"{k}_pools").index_select(
+            1, p2), want2[k]), f"pooled {cfg.dtype}: rid 2's restored {k}")
+        p4 = eng.allocator.table(4).pages[0]
+        check(same_bits(torch, getattr(eng, f"{k}_pools")[:, p4],
+                        page[k][:, 0]), f"pooled {cfg.dtype}: promoted {k}")
+    check(set(eng.allocator.table(2).pages) <= held and staged,
+          "pooled: the restore did not land in the victim's pages")
+    return {"live_pages": len(live), "victim_pages": len(held),
+            "bytes_checked": 2 * before["k"].numel()
+            * before["k"].element_size(),
+            "seconds": time.perf_counter() - t0}
+
+
+def rollback_slot(torch, cfg, ecfg, M_kv, device, seed=19):
+    """Slot plane: a slot swap-in (a suspended request) and a fresh
+    claim's reset, into the slots of two victims swapped out earlier in
+    the same attempt."""
+    from repro_torch.core import Request, make_scheduler
+    from repro_torch.serving import Engine
+    n = 3 * ecfg.page_size
+
+    def build():
+        eng = Engine(cfg, None, make_scheduler(
+            "vllm", M_kv, S=ecfg.cache_len, preempt_mode="swap"), ecfg,
+            device=device)
+        r = {}
+        for rid in range(4):
+            r[rid] = _case_request(eng, rid, n + rid, Request)
+            eng._claim_slot(rid)
+        _fill(torch, [v for k, v in eng.cache.items() if k != "index"],
+              seed, device)
+        for rid, q in r.items():
+            eng.cache["index"][eng.slot_of[rid]] = q.m
+        want2 = {k: v.select(0 if v.dim() == 1 else 1,
+                             eng.slot_of[2]).clone()
+                 for k, v in eng.cache.items()}
+        eng.sched.running.remove(r[2])       # suspended, in flight
+        r[2].preempt(mode="swap")
+        eng.sched.waiting.append(r[2])
+        check(eng._swap_out(r[2]), "swap-out of rid 2")
+        return eng, r, want2
+
+    def script(r):
+        def run(eng):
+            for v in (r[3], r[1]):           # two victims, swapped out
+                eng.sched._preempt(v)
+                eng._handle_preempted(v)
+            eng._swap_in(r[2])               # slot_swap_in
+            eng._claim_slot(5)               # slot_reset
+            kinds = sorted(i[0] for i in eng._intents)
+            check(kinds == ["slot_reset", "slot_swap_in"], f"staged {kinds}")
+            return lambda: eng.allocator.allocate(5, n)
+        return run
+
+    eng, r, want2 = build()
+    twin, tr, _ = build()
+    live = sorted(eng.slot_of.values())
+    victims = {eng.slot_of[1], eng.slot_of[3]}
+    before = {k: v.clone() for k, v in eng.cache.items()}
+    inflight = eng._link.start(
+        {k: v.clone() for k, v in eng.cache.items()})
+
+    def check_rollback():
+        for k, v in eng.cache.items():
+            ax = 0 if v.dim() == 1 else 1
+            for s in live:
+                check(same_bits(torch, v.select(ax, s),
+                                before[k].select(ax, s)),
+                      f"slot {cfg.dtype}: live slot {s} leaf {k} changed "
+                      "by the rolled-back attempt")
+        check(r[2].suspended and eng.swap_store.peek(2) is not None
+              and sorted(eng.slot_of.values()) == live,
+              "slot: the books did not roll back")
+
+    t0 = time.perf_counter()
+    _faulted_step(torch, eng, script(r), True, check_rollback)
+    _faulted_step(torch, twin, script(tr), False, None)
+    host = eng._link.finish(inflight)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    for k, v in eng.cache.items():
+        ax = 0 if v.dim() == 1 else 1
+        check(same_bits(torch, host_tensor(torch, host[k], v.dtype),
+                        before[k].cpu()),
+              f"slot {cfg.dtype}: the in-flight copy's {k} bytes")
+        check(same_bits(torch, v, twin.cache[k]),
+              f"slot {cfg.dtype}: leaf {k} differs from the fault-free "
+              "step's")
+        check(same_bits(torch, v.select(ax, eng.slot_of[2]), want2[k]),
+              f"slot {cfg.dtype}: rid 2's restored {k}")
+        check(not v.select(ax, eng.slot_of[5]).any(),
+              f"slot {cfg.dtype}: the claimed slot's {k} is not zero")
+    check({eng.slot_of[2], eng.slot_of[5]} == victims,
+          "slot: the writes did not land in the victims' slots")
+    return {"live_slots": len(live), "bytes_checked": sum(
+        v.numel() * v.element_size() for v in before.values()),
+        "seconds": time.perf_counter() - t0}
+
+
+def phase_rollback(torch, get_config):
+    from repro_torch.launch.serve import (SMOKE_ARCH, SMOKE_ENGINE, SMOKE_M,
+                                          SMOKE_RWKV_ARCH, SMOKE_RWKV_ENGINE,
+                                          SMOKE_RWKV_M)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        out[f"pooled_{dtype}"] = rollback_pooled(
+            torch, dataclasses.replace(get_config(SMOKE_ARCH), dtype=dtype),
+            SMOKE_ENGINE, SMOKE_M, DEVICE)
+        out[f"slot_{dtype}"] = rollback_slot(
+            torch, dataclasses.replace(get_config(SMOKE_RWKV_ARCH),
+                                       dtype=dtype),
+            SMOKE_RWKV_ENGINE, SMOKE_RWKV_M, DEVICE)
+        torch.cuda.empty_cache()
+    print("rollback bytes: run restore, tail restore, promotion and CoW "
+          "copy (TinyLlama pools), slot swap-in and slot reset (RWKV6-7B "
+          "slots), each into a victim's page or slot, snapshots in flight, "
+          "the last allocation faulted: every live page and slot bit-equal "
+          "after the rollback, the retry bit-equal to a fault-free step; "
+          + ", ".join(f"{k} {v['bytes_checked']} B in {v['seconds']:.2f} s"
+                      for k, v in out.items()))
+    return out
+
+
+# --------------------------------------------------------------------- #
 
 def ptxas_report(log: str):
     """(kernel, "N registers, S bytes spill stores, ...") per entry
@@ -1671,6 +2100,7 @@ def main(argv=None) -> int:
                                           SMOKE_RWKV_ARCH, SMOKE_RWKV_ENGINE)
     from repro_torch.models import model as M
     from repro_torch.models.ssm import pick_chunk
+    from repro_torch.serving.faults import FaultSpec
 
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1711,6 +2141,8 @@ def main(argv=None) -> int:
         race = phase_transfer_race(torch, M, get_config)
         torch.cuda.empty_cache()
         lap("transfer race")
+        rollback = phase_rollback(torch, get_config)
+        lap("rollback bytes")
 
         cfg = dataclasses.replace(get_config(SMOKE_ARCH), dtype="float32")
         params = M.init_params(cfg, seed=0, device=DEVICE)
@@ -1718,6 +2150,9 @@ def main(argv=None) -> int:
         lap("fp32 serve")
         swap32 = phase_serve_fp32(torch, pa, cfg, params, swap=True)
         lap("fp32 swap serve")
+        faulted32 = phase_serve_fp32(torch, pa, cfg, params,
+                                     faults=FaultSpec(**MIXED), clean=swap32)
+        lap("fp32 faulted swap serve")
         prefill = phase_full_prefill(torch, fa, M, cfg, params)
         lap("full prefill")
 
@@ -1730,8 +2165,11 @@ def main(argv=None) -> int:
         check(bf16["pool_pages"] == P_main, "pool size changed")
         lap("bf16 serve")
         swap16 = phase_serve_bf16(torch, pa, cfg16, params16, swap=True)
-        del params16
         lap("bf16 swap serve")
+        faulted16 = phase_serve_bf16(torch, pa, cfg16, params16,
+                                     faults=FaultSpec(**MIXED), clean=swap16)
+        del params16
+        lap("bf16 faulted swap serve")
 
     train = phase_train(torch)
     torch.cuda.empty_cache()
@@ -1776,9 +2214,13 @@ def main(argv=None) -> int:
         lap("RWKV6-7B fp32 serve")
         rwkv32_swap = phase_rwkv_serve_fp32(torch, wkv, M, rcfg, rparams,
                                             preempt_mode="swap")
+        lap("RWKV6-7B fp32 swap serve")
+        rwkv32_faulted = phase_rwkv_serve_fp32(
+            torch, wkv, M, rcfg, rparams, preempt_mode="swap",
+            faults=FaultSpec(**MIXED))
         del rparams
         torch.cuda.empty_cache()
-        lap("RWKV6-7B fp32 swap serve")
+        lap("RWKV6-7B fp32 faulted swap serve")
         rcfg16 = dataclasses.replace(get_config(SMOKE_RWKV_ARCH),
                                      dtype="bfloat16")
         rparams16 = M.init_params(rcfg16, seed=0, device=DEVICE)
@@ -1872,6 +2314,9 @@ def main(argv=None) -> int:
                   transfer_race=race, swap_serve_fp32=swap32,
                   swap_serve_bf16=swap16, rwkv_swap_serve_fp32=rwkv32_swap,
                   rwkv_swap_serve_bf16=rwkv16_swap, host_link=link,
+                  rollback=rollback, faulted_serve_fp32=faulted32,
+                  faulted_serve_bf16=faulted16,
+                  rwkv_faulted_serve_fp32=rwkv32_faulted,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

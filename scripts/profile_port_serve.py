@@ -2,12 +2,15 @@
 """Where the time of the port's served run goes, on one NVIDIA card.
 
     python3 scripts/profile_port_serve.py [--arch tinyllama-1.1b|rwkv6-7b]
+                                          [--workload smoke|swap]
                                           [--dtype bfloat16] [--report PATH]
                                           [--src DIR]
 
 Serves the smoke workload of ``repro_torch.launch.serve.smoke_server``
-(full-width TinyLlama-1.1B, the paged engine, its two CUDA kernels), or
-with ``--arch rwkv6-7b`` that of ``rwkv_smoke_server`` (full-width
+(full-width TinyLlama-1.1B, the paged engine, its two CUDA kernels), with
+``--workload swap`` that of ``smoke_swap_server`` (the same model under
+swap, tail sheds and the host demotion tier; the swap walls are printed
+too), or with ``--arch rwkv6-7b`` that of ``rwkv_smoke_server`` (full-width
 RWKV6-7B, the slot-resident plane, the WKV6 kernel), twice: once plainly, for the wall time per step, and once with engine
 steps 40-59 (decode steps, mostly) under
 ``torch.profiler`` (CPU + CUDA activities, a device sync after each
@@ -96,6 +99,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     choices=["tinyllama-1.1b", "rwkv6-7b"])
+    ap.add_argument("--workload", default="smoke", choices=["smoke", "swap"],
+                    help="TinyLlama only: smoke_server or smoke_swap_server")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--report")
@@ -116,7 +121,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
     from repro_torch.launch.serve import (SMOKE_ARCH, SMOKE_RWKV_ARCH,
-                                          rwkv_smoke_server, smoke_server)
+                                          rwkv_smoke_server, smoke_server,
+                                          smoke_swap_server)
     from repro_torch.models import model as M
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -126,12 +132,13 @@ def main(argv=None) -> int:
     else:
         assert args.arch == SMOKE_ARCH
         pa.build_all()
-        server = smoke_server
+        server = smoke_swap_server if args.workload == "swap" \
+            else smoke_server
     cfg = dataclasses.replace(get_config(args.arch), dtype=args.dtype)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
-    out = {"arch": args.arch, "dtype": args.dtype,
+    out = {"arch": args.arch, "dtype": args.dtype, "workload": args.workload,
            "card": smi.stdout.strip().splitlines()[0]}
     with torch.no_grad():
         params = M.init_params(cfg, seed=0, device="cuda")
@@ -141,8 +148,11 @@ def main(argv=None) -> int:
         eng, reqs = server(cfg, params)
         plain = instrument(torch, eng, lambda: None)
         t0 = time.perf_counter()
-        eng.run(reqs)
+        res = eng.run(reqs)
         wall = time.perf_counter() - t0
+        out["tok_per_s"] = sum(len(o) for o in res.outputs.values()) / wall
+        out["swap_walls"] = {k: v for k, v in res.swap_stats.items()
+                             if k.startswith("wall_")}
         steps = eng.prefill_rounds + eng.decode_steps
         # wall of the steps that ran a decode and no prefill round
         dec = [t1 - t0_ for (t0_, p0, d0), (t1, p1, d1)
@@ -179,8 +189,10 @@ def main(argv=None) -> int:
     wkv = [(c, t) for name, (c, t) in by_kernel.items() if "wkv6" in name]
     out["wkv6"] = {"count": sum(c for c, _ in wkv),
                    "ms": sum(t for _, t in wkv) / 1e3}
-    print(f"{out['card']}, {args.arch} {args.dtype}: {steps} steps "
-          f"({eng.decode_steps} decode) in {wall:.3f} s unprofiled = "
+    print(f"{out['card']}, {args.arch} {args.dtype} {args.workload}: "
+          f"{out['tok_per_s']:.1f} tok/s, swap walls {out['swap_walls']}; "
+          f"{steps} steps ({eng.decode_steps} decode) in {wall:.3f} s "
+          f"unprofiled = "
           f"{out['wall_ms_per_step']:.2f} ms/step, "
           f"{out['wall_ms_per_decode_step']:.2f} ms per decode step; "
           f"host enqueue of a tiny "

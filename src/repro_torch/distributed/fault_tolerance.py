@@ -2,10 +2,14 @@
 ``repro.distributed.fault_tolerance``.
 
 * ``run_with_retries`` — transient-error shield around a step function
-  (a failed CUDA launch or step surfaces as ``RuntimeError``).
+  (a failed CUDA launch or step surfaces as ``RuntimeError``); the
+  serving engine retries transient swap-store writes through it on a
+  virtual backoff clock.
 * ``StragglerMonitor`` — per-batch deadline relative to the cost model's
-  prediction; the training loop logs slow steps and continues (the
-  deterministic data pipeline lets any host recompute any shard).
+  prediction; the serving engine requeues a flagged batch's requests
+  (``EngineConfig.straggler_factor``), the training loop logs slow steps
+  and continues (the deterministic data pipeline lets any host recompute
+  any shard).
 
 ``elastic_remesh`` and ``reshard`` are mesh tools and wait for the
 distributed layer (ROADMAP A13).

@@ -89,15 +89,17 @@ def rwkv_smoke_requests(vocab: int, seed: int = 0):
 
 
 def rwkv_smoke_server(cfg, params, device: str = "cuda",
-                      preempt_mode: str = "recompute"):
+                      preempt_mode: str = "recompute", faults=None):
     """A warmed slot-plane ``Engine`` (vLLM scheduler, SRF replacement)
     and fresh requests of the RWKV6 smoke workload, for ``cfg``/``params``
     of ``SMOKE_RWKV_ARCH`` in any dtype (or depth); ``preempt_mode="swap"``
-    suspends its victims' slots to the host instead of recomputing them."""
+    suspends its victims' slots to the host instead of recomputing them,
+    and ``faults`` (a ``serving.faults.FaultSpec``) injects faults."""
     sched = make_scheduler("vllm", SMOKE_RWKV_M,
                            S=SMOKE_RWKV_ENGINE.cache_len, replacement="srf",
                            preempt_mode=preempt_mode)
-    eng = Engine(cfg, params, sched, SMOKE_RWKV_ENGINE,
+    eng = Engine(cfg, params, sched,
+                 replace(SMOKE_RWKV_ENGINE, faults=faults),
                  cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
                  device=device).warmup()
     return eng, rwkv_smoke_requests(cfg.vocab_size)
@@ -117,17 +119,20 @@ SMOKE_SWAP_WORKLOAD = dict(n=32, num_groups=8, page_size=16,
 
 
 def smoke_swap_server(cfg, params, device: str = "cuda",
-                      preempt_mode: str = "swap", demotion: bool = True):
+                      preempt_mode: str = "swap", demotion: bool = True,
+                      faults=None):
     """A warmed ``Engine`` (Sarathi-CS scheduler, SRF replacement, tail
     sheds) and fresh requests of the swap smoke workload, for
     ``cfg``/``params`` of ``SMOKE_ARCH`` in any dtype;
     ``preempt_mode="recompute", demotion=False`` is its no-host-traffic
-    counterpart."""
+    counterpart, and ``faults`` (a ``serving.faults.FaultSpec``) injects
+    faults."""
     sched = make_scheduler("sarathi_cs", SMOKE_M, S=SMOKE_ENGINE.cache_len,
                            replacement="srf", preempt_mode=preempt_mode,
                            partial_preempt=True)
     eng = Engine(cfg, params, sched,
-                 replace(SMOKE_SWAP_ENGINE, cache_demotion=demotion),
+                 replace(SMOKE_SWAP_ENGINE, cache_demotion=demotion,
+                         faults=faults),
                  cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
                  device=device).warmup()
     return eng, zipf_shared_prefix(**SMOKE_SWAP_WORKLOAD)

@@ -1,5 +1,6 @@
 """Serving layer: continuous-batching engine on the paged data plane, with
-the host swap store of its preemption and demotion paths."""
+the host swap store of its preemption and demotion paths and the step
+transactions of its failure model (``serving.txn``, ``serving.faults``)."""
 from repro_torch.serving.engine import (  # noqa: F401
     Engine,
     EngineConfig,

@@ -60,20 +60,41 @@ charges ``cost_model.swap_time`` exactly as the JAX engine does.
 Sampling is fused on the device; only ``(nslots,)`` int32 ids reach the
 host each step.
 
+Failure model, as in the JAX engine: every scheduler batch is a step
+transaction (``serving.txn``, a word-for-word copy).  Faults are drawn
+from a seeded ``serving.faults.FaultPlan`` (``EngineConfig.faults``,
+written through to the SchedulerConfig) and handled on the same
+three-rung ladder: transient store puts retry with a virtual backoff;
+an injected allocation fault (``FaultError``) rolls the attempt back and
+the step retries; a host snapshot whose CRC seal fails at swap-in
+(``IntegrityError``) rolls back, its entry is dropped and its request
+degrades to recompute.  ``recovery_stats`` records the aborts outside the
+transaction, and ``straggler_factor`` arms the ``StragglerMonitor``.
+
 Differences from the JAX engine (``repro.serving.engine``):
 
-* No step transactions.  Faults are not ported (ROADMAP A5b), so nothing
-  rolls back, and the pools are updated in place.  In JAX, rollback of
-  device state is free only because arrays are immutable; the port will
-  need to journal the pages a step writes when faults come.  A host
-  snapshot whose CRC seal fails at swap-in raises ``RuntimeError``:
-  with no step transaction there is nothing to roll back to.
+* Device state and the commit point.  JAX rolls its cache and pools back
+  by restoring references to immutable arrays; the port writes them in
+  place.  Every fault point of an attempt (the allocator's fault hook,
+  the swap-in seal checks, ``OutOfPagesError``) comes before compute, and
+  so do five kinds of device write: a claimed slot's reset, a slot
+  swap-in, a page-run restore (full or tail), a prefix promotion and a
+  copy-on-write page copy.  Inside an attempt each of them is an intent
+  (``_write``): host bytes are copied at once into fresh device staging
+  buffers, but the pools and the slots are written only at one commit
+  point (``_commit``), after the claim-and-allocate loop and before the
+  prefill rounds, where the intents are applied in order.  No fault
+  point follows the commit (a fault hook or a seal failure after it is
+  an invariant violation), and a rolled-back attempt drops its intents,
+  so every page and slot keeps its batch-start bytes.  The gathers that
+  read the pools before the commit (swap-outs, tail sheds, demotions)
+  read pages no intent of the same attempt targets, which is checked.
 * ``num_compiles`` is 0: PyTorch runs eagerly and the CUDA kernels are
   built once per source.  ``warmup()`` loads the kernels and runs every
   ladder bucket and the decode step once with inert inputs.
-* Settings this port does not run yet (faults and the straggler monitor:
-  A5b; the dense family on the slot plane and the ``legacy`` plane: A5d)
-  raise ``ValueError`` naming the ROADMAP item that will port them.
+* Settings this port does not run yet (the dense family on the slot
+  plane and the ``legacy`` plane: A5d) raise ``ValueError`` naming the
+  ROADMAP item that will port them.
 
 Correctness contract (tested against the JAX engine on the CPU, and
 against ``generate_reference`` on the card): scheduling, chunking,
@@ -86,7 +107,7 @@ from __future__ import annotations
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,14 +115,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cost_model import BatchSpec, CostModel
 from repro_torch.core.invariants import invariant
-from repro_torch.core.kvcache import (PagedAllocator, attach_prefix_run,
-                                      chain_keys)
+from repro_torch.core.kvcache import (OutOfPagesError, PagedAllocator,
+                                      attach_prefix_run, chain_keys)
 from repro_torch.core.policies import make_replacement_policy
 from repro_torch.core.request import Request
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.simulator import BatchLog, SimResult
 from repro_torch.core import stat_keys as SK
+from repro_torch.distributed.fault_tolerance import (StragglerMonitor,
+                                                     run_with_retries)
 from repro_torch.models import model as M
+from repro_torch.serving.faults import (FaultError, FaultPlan,
+                                        IntegrityError, PermanentStoreError,
+                                        TransientStoreError)
 from repro_torch.serving.host_copy import (HostLink, Transfer, gather_pages,
                                            gather_slot, nbytes_of,
                                            restore_pages, restore_slot)
@@ -110,8 +136,14 @@ from repro_torch.serving.paged_plane import (build_paged_fns, init_pools,
 from repro_torch.serving.serve_step import (build_decode_fn,
                                             build_prefill_chunk_fn)
 from repro_torch.serving.swap_store import (KVSwapStore, SwapEntry,
-                                            SwapStoreFullError, seal_entry,
-                                            verify_entry)
+                                            SwapStoreFullError, flip_bit,
+                                            seal_entry, verify_entry)
+from repro_torch.serving.txn import StepTxn, begin_step_txn
+
+# hard ceiling on fault-recovery retries of one step (the JAX engine's):
+# content-keyed draws are idempotent, so only attempt-keyed allocation
+# faults can chain, and 50 in a row means the fault plan is broken
+_MAX_STEP_ATTEMPTS = 50
 
 
 @dataclass
@@ -138,8 +170,14 @@ class EngineConfig:
     #                               None keeps the SchedulerConfig's choice
     async_swap: bool = True       # host copies on the copy stream, drained
     #                               at step boundaries; False: synchronous
-    faults: Optional[Any] = None    # fault injection: ROADMAP A5b
-    straggler_factor: Optional[float] = None  # ROADMAP A5b
+    faults: Optional[Any] = None  # a serving.faults.FaultSpec, written
+    #                               through to SchedulerConfig.faults so
+    #                               the engine and any simulator shadow
+    #                               draw one fault schedule
+    straggler_factor: Optional[float] = None  # arm StragglerMonitor: a
+    #                               step whose measured wall exceeds factor
+    #                               x the cost model's dt requeues every
+    #                               running request (wall-clock dependent)
 
 
 MIN_BUCKET = 8                    # smallest tail bucket of the ladder
@@ -177,10 +215,6 @@ def _validate(cfg: ModelConfig, ecfg: EngineConfig,
     if scfg.partial_preempt and not (ecfg.plane == "paged"
                                      and paged_supported(cfg)):
         raise ValueError("partial_preempt needs the pooled paged data plane")
-    if scfg.faults is not None:
-        raise ValueError("fault injection is not ported (ROADMAP A5b)")
-    if ecfg.straggler_factor is not None:
-        raise ValueError("straggler_factor is not ported (ROADMAP A5b)")
     if scfg.cache_policy not in ("lru", "break_even"):
         raise ValueError(f"cache_policy {scfg.cache_policy!r}: this port "
                          "serves 'lru' and 'break_even'")
@@ -265,6 +299,32 @@ class Engine:
         self.phase_stats: Dict[str, float] = {
             SK.ATTACH_S: 0.0, SK.PREFILL_S: 0.0, SK.UPLOAD_S: 0.0}
         self.swap_store = KVSwapStore(capacity_bytes=ecfg.swap_bytes)
+        # --- failure model: fault plan + step-transaction machinery ----- #
+        self.fault_plan: Optional[FaultPlan] = (
+            FaultPlan(scheduler.cfg.faults)
+            if scheduler.cfg.faults is not None else None)
+        if self.fault_plan is not None:
+            self.allocator.fault_hook = self._alloc_fault_hook
+        self._attempt = 0           # retry index of the current step
+        self._alloc_ordinal = 0     # allocation counter within an attempt
+        self._last_dt = 0.0         # predicted dt of the last batch
+        self._last_wall = 0.0       # measured wall of the last batch
+        # abort history, outside the step txn: rolling a step back must
+        # not erase the record of the rollback itself
+        self.recovery_stats: Dict[str, float] = {
+            SK.ROLLBACKS: 0, SK.ALLOC_FAULTS: 0, SK.INTEGRITY_FAILURES: 0,
+            SK.DEGRADED_RECOMPUTES: 0, SK.STRAGGLER_REQUEUES: 0,
+            SK.WALL_ABORTED_S: 0.0}
+        self._straggler: Optional[StragglerMonitor] = (
+            StragglerMonitor(deadline_factor=ecfg.straggler_factor)
+            if ecfg.straggler_factor else None)
+        # the open attempt's deferred device writes, applied in order at
+        # the commit point ((kind, pages, slots, apply); None: no attempt
+        # is open, and a write applies at once)
+        self._intents: Optional[List[Tuple[str, Tuple[int, ...],
+                                           Tuple[int, ...],
+                                           Callable[[], None]]]] = None
+        self._committed = False     # the open attempt passed its commit
         # the host link: a copy stream on a card (serving.host_copy)
         self._link = HostLink(self.device)
         # in-flight snapshots, finalized at the drain boundaries: the
@@ -282,8 +342,8 @@ class Engine:
             "OrderedDict[Tuple[int, int], Tuple[Any, int, Transfer]]" = \
             OrderedDict()
         self._step_no = 0
-        # the JAX engine's whole key set (the four fault counters stay 0:
-        # faults are ROADMAP A5b); wall_* keys are measured host time
+        # the JAX engine's whole key set; wall_* keys are measured host
+        # time
         self.swap_stats: Dict[str, float] = {
             SK.SWAP_OUTS: 0, SK.SWAP_INS: 0, SK.KV_OUT: 0, SK.KV_IN: 0,
             SK.SWAP_FALLBACKS: 0, SK.DRAINS_ON_SWAPIN: 0,
@@ -291,6 +351,8 @@ class Engine:
             SK.PROMOTIONS: 0, SK.DEMOTIONS: 0, SK.DEMOTE_DROPS: 0,
             SK.KV_PROMOTED: 0, SK.KV_DEMOTED: 0,
             SK.WALL_PROMOTE_S: 0.0, SK.WALL_DEMOTE_S: 0.0,
+            # fault-injection counters: inside the step txn, so an
+            # aborted attempt's draws are not counted twice by its retry
             SK.PERMANENT_STORE_FAILURES: 0, SK.TRANSIENT_RETRIES: 0,
             SK.BACKOFF_S: 0.0, SK.PREFIX_INTEGRITY: 0,
             # radix-trie attach outcomes: attaches that reused at least
@@ -376,9 +438,13 @@ class Engine:
         if reset:
             # a fresh (or refilling) request starts from a zero state: the
             # slot plane owns its cache, so the slot is zeroed in place
-            for leaf in self.cache.values():
-                leaf[slot if leaf.dim() == 1 else (slice(None), slot)] = 0
+            self._write("slot_reset", lambda: self._zero_slot(slot),
+                        slots=(slot,))
         return slot
+
+    def _zero_slot(self, slot: int) -> None:
+        for leaf in self.cache.values():
+            leaf[slot if leaf.dim() == 1 else (slice(None), slot)] = 0
 
     def _release(self, rid: int) -> None:
         slot = self.slot_of.pop(rid, None)
@@ -389,6 +455,170 @@ class Engine:
                 # rebuild, so its row must be cleared here
                 self._bt_host[slot, :] = 0
         self.allocator.free(rid)  # repro: allow-unpriced-mutation(releasing pages moves no bytes; the preemption decision that led here was already charged - refill compute - by the scheduler)
+
+    # --- the commit point: deferred device writes ----------------------- #
+    def _write(self, kind: str, apply: Callable[[], None],
+               pages: Sequence[int] = (), slots: Sequence[int] = ()) -> None:
+        """One device write of an attempt's pre-commit phase (``kind``:
+        ``slot_reset``, ``slot_swap_in``, ``run_restore``,
+        ``tail_restore``, ``promotion`` or ``cow_copy``) into ``pages`` of
+        the pools or ``slots`` of the cache.  Inside an open attempt it
+        becomes an intent, applied at
+        the commit point (``_commit``) and dropped by a rollback; outside
+        one (``warmup``, a direct call) it runs at once.  Its inputs must
+        already be fresh device buffers (or stay unwritten until the
+        commit): a staged host copy, never a view of the pools."""
+        if self._intents is None:
+            invariant(not self._committed,
+                      f"{kind}: device write after the commit point")
+            apply()
+            return
+        # repro: allow-txn-coverage(the attempt's deferred-write log is opened empty at every attempt start and dropped unapplied by a rollback - that drop is what rolls the pools and slots back)
+        self._intents.append((kind, tuple(pages), tuple(slots), apply))
+
+    def _check_unwritten(self, pages: Sequence[int] = (),
+                         slots: Sequence[int] = ()) -> None:
+        """A gather before the commit reads the pools or the cache as they
+        stand: no pending intent of the same attempt may target what it
+        reads (the victims' pages and slots, a reclaimed registry page)."""
+        if not self._intents:
+            return
+        pages, slots = set(pages), set(slots)
+        hit = [(kind, p, s) for kind, p, s, _ in self._intents
+               if pages.intersection(p) or slots.intersection(s)]
+        invariant(not hit, ("gather of a page or slot with a pending "
+                            "write", sorted(pages), sorted(slots), hit))
+
+    def _commit(self) -> None:
+        """The commit point of an attempt: apply its intents in order.
+        No fault point follows (``_alloc_fault_hook`` and ``step`` check
+        it), so nothing written from here on is ever rolled back."""
+        intents, self._intents = self._intents, None
+        for *_, apply in intents:
+            apply()
+        self._committed = True  # repro: allow-txn-coverage(commit flag of the open attempt: set only after the last fault point, cleared when the attempt ends)
+
+    def _drop_intents(self) -> None:
+        """The device half of a rollback: the aborted attempt's intents
+        go unapplied, so the pools and slots keep their batch-start bytes.
+        Their staging buffers are freed in stream order (they were
+        allocated and filled on the compute stream), and the pinned
+        sources of their copies stay held by the link until the copies
+        have passed."""
+        invariant(not self._committed, "rollback after the commit point")
+        self._intents = None
+
+    # --- failure model: fault hooks, guarded puts, integrity ----------- #
+    def _alloc_fault_hook(self, need: int) -> None:
+        """``PagedAllocator.fault_hook``: a transient device fault on
+        this (step, attempt, ordinal) aborts the attempt.  Keyed by
+        attempt so the rolled-back retry draws fresh (no livelock)."""
+        invariant(not self._committed,
+                  "allocation (a fault point) after the commit point")
+        self._alloc_ordinal += 1
+        if self.fault_plan.alloc_fault(self._step_no, self._attempt,
+                                       self._alloc_ordinal):
+            raise FaultError(
+                f"injected allocation fault: step {self._step_no} "
+                f"attempt {self._attempt} ordinal {self._alloc_ordinal}")
+
+    def _retry_sleep(self, seconds: float) -> None:
+        """Injectable backoff clock for ``run_with_retries``: records
+        the schedule in virtual time instead of stalling the step."""
+        self.swap_stats[SK.BACKOFF_S] += seconds
+
+    _PERM_KIND = {"store_put": "perm_put", "store_run": "perm_run"}
+
+    def _guarded_put(self, kind: str, key: Tuple, do_put):
+        """Run a swap-store write under the fault plan.  A permanent
+        draw raises ``PermanentStoreError`` (a ``SwapStoreFullError``, so
+        the caller's full-store fallback handles it); a transient draw
+        fails the write 1-3 times, each retried under
+        ``run_with_retries``'s exponential backoff."""
+        plan = self.fault_plan
+        if plan is None:
+            return do_put()
+        if plan.decide(self._PERM_KIND[kind], *key):
+            self.swap_stats[SK.PERMANENT_STORE_FAILURES] += 1
+            raise PermanentStoreError(
+                f"injected permanent store failure {kind}{key}")
+        remaining = [plan.transient_failures(kind, *key)]
+
+        def attempt():
+            if remaining[0] > 0:
+                remaining[0] -= 1
+                self.swap_stats[SK.TRANSIENT_RETRIES] += 1
+                raise TransientStoreError(
+                    f"injected transient store failure {kind}{key}")
+            return do_put()
+
+        return run_with_retries(attempt, retries=3,
+                                retry_on=(TransientStoreError,),
+                                sleep=self._retry_sleep)
+
+    def _corrupt_draw(self, kind: str, key: Tuple) -> bool:
+        return (self.fault_plan is not None
+                and self.fault_plan.decide(kind, *key))
+
+    def _finalize_entry(self, entry) -> None:
+        """Seal an entry's host bytes once; apply a pending corruption
+        marker exactly once.  The seal-once guard doubles as the
+        flip-once guard: after a rollback the engine may re-drain an
+        entry that was already finalized (entries are shared by
+        reference across snapshots), and re-sealing would bless the
+        corruption while re-flipping would undo it."""
+        if entry.crc is not None:
+            return
+        seal_entry(entry)
+        if entry.corrupt and entry.crc is not None:
+            flip_bit(entry.cache if isinstance(entry, SwapEntry)
+                     else entry.kv)
+
+    def _land(self, entry, xfer: Transfer) -> None:
+        """Finalize one drained transfer: the host bytes replace the
+        entry's gathered device leaves, then ``_finalize_entry``.  A
+        rollback restores the ``_pending_*`` maps but not the entries, so
+        an entry an aborted attempt already landed can be drained again:
+        it is left as it is, since finishing its transfer again would hand
+        back the pinned bytes from before a corruption flip."""
+        if entry.crc is None:
+            host = self._link.finish(xfer)
+            if isinstance(entry, SwapEntry):
+                entry.cache = host
+            else:
+                entry.kv = host
+        self._finalize_entry(entry)
+
+    def _drop_snapshot_repair(self, r: Request):
+        """Post-rollback repair for a corrupt slot snapshot: drop the
+        entry and degrade ``r`` to recompute (the suspend never stuck,
+        exactly like the store-full fallback)."""
+        def repair() -> None:
+            self.swap_store.discard(r.rid)
+            self._pending_swaps.pop(r.rid, None)
+            r.drop_suspended()
+            self.sched.num_swaps -= 1
+        return repair
+
+    def _drop_runs_repair(self, r: Request, claim: bool):
+        """Post-rollback repair for a corrupt page run: drop every stored
+        run of ``r`` (a tiling with a rotten stripe is unrestorable as a
+        whole) and unwind the matching swap counters, degrading ``r`` to
+        recompute."""
+        def repair() -> None:
+            self._purge_pending_runs(r.rid)
+            if claim:                      # fully suspended victim
+                n = self.swap_store.discard_runs(r.rid)
+                for _ in range(n - 1):     # tail runs beyond the base
+                    r.swaps -= 1
+                    self.sched.num_swaps -= 1
+                r.drop_suspended()
+                self.sched.num_swaps -= 1
+            else:                          # partially shed victim
+                for run in self.swap_store.pop_runs(r.rid):
+                    r.drop_tail_run(run.num_tokens)
+                    self.sched.num_swaps -= 1
+        return repair
 
     # --- §5.4 swap data plane (slot plane) ------------------------------ #
     def _swap_out(self, victim: Request) -> bool:
@@ -402,23 +632,33 @@ class Engine:
         full-store fallback stays synchronous and deterministic."""
         t0 = time.perf_counter()
         slot = self.slot_of[victim.rid]
+        self._check_unwritten(slots=(slot,))
         snap = gather_slot(self.cache, self._link.ids([slot]))
+        # content key: identical across aborted-attempt retries, so the
+        # fault draws are idempotent (the JAX engine's key)
+        fkey = (victim.rid, victim.suspended_m, victim.swaps)
         try:
             if self.ecfg.async_swap:
-                entry = self.swap_store.put(
-                    victim.rid, snap, self.token_ids[victim.rid],
-                    victim.suspended_m,
-                    nbytes=sum(nbytes_of(t) for t in snap.values()))
+                nbytes = sum(nbytes_of(t) for t in snap.values())
+                entry = self._guarded_put(
+                    "store_put", fkey,
+                    lambda: self.swap_store.put(
+                        victim.rid, snap, self.token_ids[victim.rid],
+                        victim.suspended_m, nbytes=nbytes))
+                entry.corrupt = self._corrupt_draw("corrupt_put", fkey)
                 self._pending_swaps[victim.rid] = (
                     entry, self._step_no, self._link.start(snap))
             else:
                 host = self._link.fetch(snap)
-                entry = self.swap_store.put(
-                    victim.rid, host, self.token_ids[victim.rid],
-                    victim.suspended_m)
+                entry = self._guarded_put(
+                    "store_put", fkey,
+                    lambda: self.swap_store.put(
+                        victim.rid, host, self.token_ids[victim.rid],
+                        victim.suspended_m))
                 invariant(int(host["index"][0]) == victim.suspended_m,
                           (victim.rid, host["index"], victim.suspended_m))
-                seal_entry(entry)
+                entry.corrupt = self._corrupt_draw("corrupt_put", fkey)
+                self._finalize_entry(entry)
         except SwapStoreFullError:
             victim.drop_suspended()
             self.sched.num_swaps -= 1   # the suspend did not stick
@@ -454,10 +694,9 @@ class Engine:
         for r in rids:
             entry, _, xfer = self._pending_swaps.pop(r)
             t0 = time.perf_counter()
-            entry.cache = self._link.finish(xfer)
+            self._land(entry, xfer)       # CRC seal (+ fault-plan flip)
             invariant(int(entry.cache["index"][0]) == entry.num_kv,
                       (r, entry.cache["index"], entry.num_kv))
-            seal_entry(entry)
             self.swap_stats[SK.WALL_OUT_S] += time.perf_counter() - t0
         if rid is None:
             if before_step is not None:
@@ -480,30 +719,32 @@ class Engine:
         if entry is None:
             return
         t0 = time.perf_counter()
-        entry.kv = self._link.finish(xfer)
-        seal_entry(entry)
+        self._land(entry, xfer)   # prefix rot is a flag, never flipped
         self.swap_stats[SK.WALL_DEMOTE_S] += time.perf_counter() - t0
 
-    @staticmethod
-    def _corrupt(what: str) -> RuntimeError:
-        return RuntimeError(
-            f"{what}: the host snapshot fails its CRC seal; with no step "
-            "transaction there is nothing to roll back to (ROADMAP A5b)")
-
     def _swap_in(self, r: Request) -> None:
-        """Restore r's slot snapshot into a free slot; no refill."""
+        """Restore r's slot snapshot into a free slot; no refill.  The
+        snapshot's host bytes are staged on the card at once; the slot is
+        written at the commit point."""
         if r.rid in self._pending_swaps:
             # re-admitted within the drain window: finalize on demand
             self.swap_stats[SK.DRAINS_ON_SWAPIN] += 1
             self._drain_swaps(rid=r.rid)
         if not verify_entry(self.swap_store.peek(r.rid)):
-            raise self._corrupt(f"rid {r.rid} slot snapshot")
+            # rung 3: abort the step; after the rollback the repair drops
+            # the entry and degrades r to recompute
+            raise IntegrityError(
+                f"rid {r.rid}: corrupt swap snapshot",
+                repairs=[self._drop_snapshot_repair(r)])
         t0 = time.perf_counter()
         entry = self.swap_store.pop(r.rid)
         slot = self._claim_slot(r.rid, reset=False)  # fully overwritten
-        restore_slot(self.cache, self._link.ids([slot]),
-                     {k: self._link.to_device(v, self.cache[k])
-                      for k, v in entry.cache.items()})
+        ids = self._link.ids([slot])
+        staged = {k: self._link.to_device(v, self.cache[k])
+                  for k, v in entry.cache.items()}
+        self._write("slot_swap_in",
+                    lambda: restore_slot(self.cache, ids, staged),
+                    slots=(slot,))
         self.allocator.allocate(r.rid, entry.num_kv)
         restored = r.resume()
         invariant(restored == entry.num_kv, (r.rid, restored, entry.num_kv))
@@ -529,6 +770,7 @@ class Engine:
 
     def _snapshot_pages(self, page_ids) -> Dict[str, np.ndarray]:
         """The synchronous page snapshot ``async_swap=False`` selects."""
+        self._check_unwritten(pages=page_ids)
         return self._link.fetch(gather_pages(
             self.k_pools, self.v_pools, self._link.ids(page_ids)))
 
@@ -539,6 +781,7 @@ class Engine:
         them) and start the host copy at once; the host bytes land at a
         drain boundary (``_drain_runs``).  This is what lets
         ``_shed_tail`` free the gathered pages in the same step."""
+        self._check_unwritten(pages=page_ids)
         kv = gather_pages(self.k_pools, self.v_pools,
                           self._link.ids(page_ids))
         return kv, self._link.start(kv)
@@ -557,8 +800,7 @@ class Engine:
         for k in keys:
             entry, _, xfer = self._pending_runs.pop(k)
             t0 = time.perf_counter()
-            entry.kv = self._link.finish(xfer)
-            seal_entry(entry)
+            self._land(entry, xfer)       # CRC seal (+ fault-plan flip)
             self.swap_stats[SK.WALL_OUT_S] += time.perf_counter() - t0
 
     def _purge_pending_runs(self, rid: int) -> None:
@@ -570,10 +812,17 @@ class Engine:
         for k in [k for k in self._pending_runs if k[0] == rid]:
             del self._pending_runs[k]
 
-    def _restore_pages(self, page_ids, kv) -> None:
-        restore_pages(self.k_pools, self.v_pools, self._link.ids(page_ids),
-                      {"k": self._link.to_device(kv["k"], self.k_pools),
-                       "v": self._link.to_device(kv["v"], self.v_pools)})
+    def _restore_pages(self, page_ids, kv, kind: str = "run_restore"
+                       ) -> None:
+        """Write a snapshot's pages into ``page_ids`` of the pools: the
+        host bytes are staged on the card now, the pools written at the
+        commit point."""
+        ids = self._link.ids(page_ids)
+        staged = {"k": self._link.to_device(kv["k"], self.k_pools),
+                  "v": self._link.to_device(kv["v"], self.v_pools)}
+        self._write(kind, lambda: restore_pages(self.k_pools, self.v_pools,
+                                                ids, staged),
+                    pages=page_ids)
 
     def _swap_out_paged(self, victim: Request) -> bool:
         """Full suspend in the pooled plane: one ``PageRunEntry`` covering
@@ -584,19 +833,30 @@ class Engine:
         t0 = time.perf_counter()
         tbl = self.allocator.table(victim.rid)
         device_tokens = tbl.num_tokens
+        # the slot plane's key shape, so a fault mirror is plane-agnostic
+        fkey = (victim.rid, victim.suspended_m, victim.swaps)
         try:
             self._check_run_capacity(len(tbl.pages))  # before the copy
             if self.ecfg.async_swap:
                 kv, xfer = self._gather_pages_device(tbl.pages)
-                entry = self.swap_store.put_run(
-                    victim.rid, start=0, num_tokens=device_tokens, kv=kv,
-                    nbytes=nbytes_of(kv["k"]) + nbytes_of(kv["v"]))
+                entry = self._guarded_put(
+                    "store_put", fkey,
+                    lambda: self.swap_store.put_run(
+                        victim.rid, start=0, num_tokens=device_tokens,
+                        kv=kv,
+                        nbytes=nbytes_of(kv["k"]) + nbytes_of(kv["v"])))
+                entry.corrupt = self._corrupt_draw("corrupt_put", fkey)
                 self._pending_runs[(victim.rid, 0)] = (entry, self._step_no,
                                                        xfer)
             else:
-                seal_entry(self.swap_store.put_run(
-                    victim.rid, start=0, num_tokens=device_tokens,
-                    kv=self._snapshot_pages(tbl.pages)))
+                host = self._snapshot_pages(tbl.pages)
+                entry = self._guarded_put(
+                    "store_put", fkey,
+                    lambda: self.swap_store.put_run(
+                        victim.rid, start=0, num_tokens=device_tokens,
+                        kv=host))
+                entry.corrupt = self._corrupt_draw("corrupt_put", fkey)
+                self._finalize_entry(entry)
         except SwapStoreFullError:
             # stored tail runs are unrestorable without the device
             # portion: unwind their swap counts along with this one
@@ -630,21 +890,32 @@ class Engine:
         swapped = False
         if mode == "swap":
             t0 = time.perf_counter()
+            # r.m is already the run's start (the scheduler's
+            # partial_preempt), so the key is stable across retries
+            fkey = (r.rid, r.m, n_tokens, r.partial_preemptions)
             try:
                 self._check_run_capacity(npages)   # before the copy
                 if self.ecfg.async_swap:
                     # the gather's fresh buffers are what make the
                     # free_tail below safe in the same step
                     kv, xfer = self._gather_pages_device(tbl.pages[-npages:])
-                    entry = self.swap_store.put_run(
-                        r.rid, start=start, num_tokens=n_tokens, kv=kv,
-                        nbytes=nbytes_of(kv["k"]) + nbytes_of(kv["v"]))
+                    entry = self._guarded_put(
+                        "store_run", fkey,
+                        lambda: self.swap_store.put_run(
+                            r.rid, start=start, num_tokens=n_tokens, kv=kv,
+                            nbytes=nbytes_of(kv["k"]) + nbytes_of(kv["v"])))
+                    entry.corrupt = self._corrupt_draw("corrupt_run", fkey)
                     self._pending_runs[(r.rid, start)] = (
                         entry, self._step_no, xfer)
                 else:
-                    seal_entry(self.swap_store.put_run(
-                        r.rid, start=start, num_tokens=n_tokens,
-                        kv=self._snapshot_pages(tbl.pages[-npages:])))
+                    host = self._snapshot_pages(tbl.pages[-npages:])
+                    entry = self._guarded_put(
+                        "store_run", fkey,
+                        lambda: self.swap_store.put_run(
+                            r.rid, start=start, num_tokens=n_tokens,
+                            kv=host))
+                    entry.corrupt = self._corrupt_draw("corrupt_run", fkey)
+                    self._finalize_entry(entry)
                 swapped = True
                 self.swap_stats[SK.SWAP_OUTS] += 1
                 self.swap_stats[SK.KV_OUT] += n_tokens
@@ -687,28 +958,33 @@ class Engine:
             self._drain_runs(rid=r.rid)
         if not all(verify_entry(run)
                    for run in self.swap_store.peek_runs(r.rid)):
-            raise self._corrupt(f"rid {r.rid} page run")
+            # rung 3: one rotten stripe poisons the whole tiling; after
+            # the rollback the repair drops every stored run of r
+            raise IntegrityError(
+                f"rid {r.rid}: corrupt page run",
+                repairs=[self._drop_runs_repair(r, claim)])
         t0 = time.perf_counter()
         runs = self.swap_store.pop_runs(r.rid)
         total = sum(run.num_tokens for run in runs)
         if claim:
             self._claim_slot(r.rid, reset=False)
         self.allocator.allocate(r.rid, total)
-        self._write_runs(r.rid, runs)
+        self._write_runs(r.rid, runs,
+                         kind="run_restore" if claim else "tail_restore")
         restored = resume()
         invariant(restored == total, (r.rid, restored, total))
         self.swap_stats[SK.SWAP_INS] += len(runs)   # run-for-run with outs
         self.swap_stats[SK.KV_IN] += total
         self.swap_stats[SK.WALL_IN_S] += time.perf_counter() - t0
 
-    def _write_runs(self, rid: int, runs) -> None:
+    def _write_runs(self, rid: int, runs, kind: str) -> None:
         pg = self.ecfg.page_size
         tbl = self.allocator.table(rid)
         for run in runs:
             invariant(run.start % pg == 0, (rid, run.start))
             p0 = run.start // pg
             npg = -(-run.num_tokens // pg)
-            self._restore_pages(tbl.pages[p0:p0 + npg], run.kv)
+            self._restore_pages(tbl.pages[p0:p0 + npg], run.kv, kind)
 
     # --- shared-prefix reuse -------------------------------------------- #
     def _page_keys(self, r: Request) -> List[int]:
@@ -740,6 +1016,12 @@ class Engine:
         its host copy finalized at the next drain boundary."""
         if self.swap_store.has_prefix(key):
             return          # an identical snapshot is already host-resident
+        if self.fault_plan is not None \
+                and self.fault_plan.decide("demote_fail", key):
+            # the copy "never lands": drop the demotion with no charge
+            # (the page recomputes on its next miss)
+            self.swap_stats[SK.DEMOTE_DROPS] += 1
+            return
         t0 = time.perf_counter()
         try:
             self._check_run_capacity(1)     # metadata check BEFORE the copy
@@ -766,16 +1048,22 @@ class Engine:
 
     def _verify_prefix(self, entry) -> bool:
         """Promotion gate of ``attach_prefix_run``: CRC-check the
-        host-resident page (a failed entry is dropped by the attach, and
-        the page recomputes)."""
-        ok = verify_entry(entry)
+        host-resident page and consult the fault plan (``corrupt_prefix``
+        models rot the CRC would catch, flagged and never flipped;
+        ``promote_fail`` a failed host read).  A failed entry is dropped
+        by the attach, and the page recomputes."""
+        plan = self.fault_plan
+        ok = verify_entry(entry) and not (
+            plan is not None
+            and (plan.decide("corrupt_prefix", entry.key)
+                 or plan.decide("promote_fail", entry.key)))
         if not ok:
             self.swap_stats[SK.PREFIX_INTEGRITY] += 1
         return ok
 
     def _promote_restore(self, page: int, kv) -> None:
         t0 = time.perf_counter()
-        self._restore_pages([page], kv)
+        self._restore_pages([page], kv, kind="promotion")
         self.swap_stats[SK.WALL_PROMOTE_S] += time.perf_counter() - t0
 
     def _attach_prefix(self, r: Request, c: int) -> int:
@@ -827,9 +1115,15 @@ class Engine:
             return                      # boundary: a fresh private page
         moved = self.allocator.ensure_private(rid, pos // pg)  # repro: allow-unpriced-mutation(CoW remap is a device-side page copy with no host traffic; its cost rides the batch_time)
         if moved is not None:
+            # applied at the commit point, in order after every earlier
+            # intent, so ``old`` is read with what those wrote into it
             old, new = moved
-            self.k_pools[:, new] = self.k_pools[:, old]
-            self.v_pools[:, new] = self.v_pools[:, old]
+            self._write("cow_copy", lambda: self._copy_page(old, new),
+                        pages=(new,))
+
+    def _copy_page(self, old: int, new: int) -> None:
+        self.k_pools[:, new] = self.k_pools[:, old]
+        self.v_pools[:, new] = self.v_pools[:, old]
 
     def _block_tables_device(self) -> torch.Tensor:
         """Device-side (nslots, max_pages) int32 block tables, cached
@@ -1033,12 +1327,144 @@ class Engine:
 
     # ------------------------------------------------------------------ #
     def step(self) -> int:
-        """Run one scheduler batch.  Returns the number of items
-        executed."""
+        """Run one scheduler batch atomically, as the JAX engine does.
+        Returns the number of items executed.
+
+        The batch runs inside a step transaction.  An injected transient
+        fault (``FaultError``) or a corrupt host snapshot
+        (``IntegrityError``) aborts the attempt: every participant rolls
+        back to batch start, the attempt's device writes are dropped
+        unapplied (they wait for the commit point, ``_commit``), the
+        error's repairs degrade poisoned requests to recompute, and the
+        step retries.  A real ``OutOfPagesError`` rolls back too but
+        re-raises."""
         if not self.sched.has_work():
             return 0
-        self._step_no += 1
-        return self._step_attempt()
+        self._step_no += 1  # repro: allow-txn-coverage(step identity deliberately survives rollback - a retried attempt is the SAME step, and drain/fault keying depends on that)
+        for attempt in range(_MAX_STEP_ATTEMPTS):
+            # repro: allow-txn-coverage(attempt bookkeeping is reset at every attempt start and keys the per-attempt fault draws - restoring it would replay attempt 0's faults forever)
+            self._attempt, self._alloc_ordinal = attempt, 0
+            txn = self._begin_txn()
+            # repro: allow-txn-coverage(the deferred-write log is opened empty at every attempt start; a rollback drops it unapplied, which is what rolls the pools and slots back)
+            self._intents, self._committed = [], False
+            t0 = time.perf_counter()
+            try:
+                executed = self._step_attempt()
+            except (FaultError, IntegrityError) as e:
+                self._drop_intents()
+                txn.rollback()
+                aborted_s = time.perf_counter() - t0
+                self.wall += aborted_s  # repro: allow-txn-coverage(measured wall of the aborted attempt is real elapsed time - rolling it back would hide the recovery cost)
+                # repro: allow-txn-coverage(recovery accounting counts rollbacks so it must survive them - written only AFTER txn.rollback, never inside a txn)
+                self.recovery_stats[SK.ROLLBACKS] += 1
+                self.recovery_stats[SK.WALL_ABORTED_S] += aborted_s
+                if isinstance(e, IntegrityError):
+                    self.recovery_stats[SK.INTEGRITY_FAILURES] += 1
+                    self.recovery_stats[SK.DEGRADED_RECOMPUTES] += 1
+                    for repair in e.repairs:   # on rolled-back state
+                        repair()
+                else:
+                    self.recovery_stats[SK.ALLOC_FAULTS] += 1
+                continue
+            except OutOfPagesError:
+                self._drop_intents()
+                txn.rollback()
+                self.recovery_stats[SK.ROLLBACKS] += 1
+                raise
+            self._committed = False        # the attempt is over
+            if (self._straggler is not None and executed
+                    and self._straggler.observe(predicted_s=self._last_dt,
+                                                actual_s=self._last_wall)):
+                self._requeue_stragglers()
+            return executed
+        raise RuntimeError(
+            f"step {self._step_no}: {_MAX_STEP_ATTEMPTS} fault-recovery "
+            f"attempts exhausted")
+
+    def _begin_txn(self) -> StepTxn:
+        """Open the step transaction: the common participants through
+        ``begin_step_txn`` plus the engine-local view, every attribute the
+        JAX engine's ``_begin_txn`` captures.
+
+        Device state: JAX restores its immutable cache and pools by
+        reference.  The port writes them in place, so it saves the same
+        references (and the cache's leaf map, whose leaves the slot
+        plane's merge replaces) and relies on the commit point: before
+        ``_commit`` an attempt writes no page of the pools and no slot of
+        the cache, and no fault point follows it, so the references
+        restore every page and slot bit for bit.
+
+        Port-only state: the block-table mirror ``_bt_host`` is deep
+        copied (rows are rewritten in place); ``_bt_cache`` is keyed by
+        ``allocator.version``, which rolls back with the allocator;
+        ``_decode_state`` is replaced wholesale per step; the
+        ``_pending_*`` maps carry ``Transfer``s, shared by reference like
+        their entries (a re-drain lands an entry once, ``_land``).  Not
+        state: ``_link._held`` holds pinned sources until their copies
+        pass, whichever attempt made them; ``phase_stats`` and ``wall``
+        are measured time, spent by an aborted attempt all the same; and
+        ``prefill_rounds``/``decode_steps`` move only after the commit."""
+        txn = begin_step_txn(
+            scheduler=self.sched, allocator=self.allocator,
+            store=self.swap_store,
+            requests=self.sched.waiting + self.sched.running)
+        cache = dict(self.cache) if self.cache is not None else None
+        pools = (self.k_pools, self.v_pools) if self._pooled else None
+        slot_of, free_slots = dict(self.slot_of), list(self.free_slots)
+        token_ids = {k: list(v) for k, v in self.token_ids.items()}
+        outputs = {k: list(v) for k, v in self.outputs.items()}
+        page_keys = dict(self._page_keys_of)
+        page_tokens = dict(self._page_tokens_of)
+        skip = dict(self._prefix_skip)
+        bt_cache = self._bt_cache
+        # deep copy: the delta rebuild mutates the mirror in place
+        bt_host = np.array(self._bt_host) \
+            if self._bt_host is not None else None
+        decode_state = self._decode_state   # replaced wholesale per step
+        pending = OrderedDict(self._pending_swaps)
+        demotes = OrderedDict(self._pending_demotes)
+        runs = OrderedDict(self._pending_runs)
+        scalars = (self._tier_swap_s, self._carry_swap_s,
+                   self._carry_out, self.now)
+        stats = dict(self.swap_stats)
+        nlogs = len(self.batch_logs)
+
+        def restore() -> None:
+            self.cache = dict(cache) if cache is not None else None
+            if pools is not None:
+                self.k_pools, self.v_pools = pools
+            self.slot_of, self.free_slots = dict(slot_of), list(free_slots)
+            self.token_ids = {k: list(v) for k, v in token_ids.items()}
+            self.outputs = {k: list(v) for k, v in outputs.items()}
+            self._page_keys_of = dict(page_keys)
+            self._page_tokens_of = dict(page_tokens)
+            self._prefix_skip = dict(skip)
+            self._bt_cache = bt_cache
+            self._bt_host = bt_host
+            self._decode_state = decode_state
+            self._pending_swaps = OrderedDict(pending)
+            self._pending_demotes = OrderedDict(demotes)
+            self._pending_runs = OrderedDict(runs)
+            (self._tier_swap_s, self._carry_swap_s,
+             self._carry_out, self.now) = scalars
+            self.swap_stats = dict(stats)
+            del self.batch_logs[nlogs:]
+
+        txn.add(restore)
+        return txn
+
+    def _requeue_stragglers(self) -> None:
+        """``StragglerMonitor`` flagged the step (measured wall far past
+        the cost model's dt): requeue every running request through the
+        scheduler's preemption path so the next batch re-plans from a
+        clean slate.  Swap charges are owed to the next executed batch,
+        like an empty-admission round's."""
+        self.recovery_stats[SK.STRAGGLER_REQUEUES] += 1
+        for victim in list(self.sched.running):
+            self.sched._preempt(victim)
+            s, o = self._handle_preempted(victim)
+            self._carry_swap_s += s
+            self._carry_out += o
 
     def _handle_preempted(self, victim: Request) -> Tuple[float, int]:
         """Free (or swap out) one full-preemption victim; returns the
@@ -1057,9 +1483,10 @@ class Engine:
         return 0.0, 0
 
     def _step_attempt(self) -> int:
-        """Preempt (tail sheds first, then full preemptions), restore
-        swapped re-admissions, claim/attach/allocate, price, then run the
-        batch's prefill rounds and its decode step."""
+        """One attempt at the current step (see ``step``): preempt (tail
+        sheds first, then full preemptions), restore swapped re-admissions,
+        claim/attach/allocate, commit, price, then run the batch's prefill
+        rounds and its decode step."""
         t0 = time.perf_counter()
         self.allocator.now = self.now   # replacement-policy clock
         batch = self.sched.get_next_batch()
@@ -1096,6 +1523,7 @@ class Engine:
             # the next executed batch (mirrors the simulator's carry)
             self._carry_swap_s += swap_s
             self._carry_out += num_swap_out
+            self._commit()          # no write was staged: nothing applies
             self._drain_swaps(before_step=self._step_no)
             self.wall += time.perf_counter() - t0
             return 0
@@ -1144,11 +1572,16 @@ class Engine:
             self.allocator.allocate(r.rid, c - skip)
             if self._pooled:
                 self._cow_guard(r.rid, r.m + skip)
+        # repro: allow-txn-coverage(phase_stats is measured wall-clock attribution - time an aborted attempt spent was still spent; parity never compares it)
         self.phase_stats[SK.ATTACH_S] += time.perf_counter() - t_attach
         for r, _ in decode_items:
             self.allocator.allocate(r.rid, 1)
             if self._pooled:
                 self._cow_guard(r.rid, r.m)
+        # the commit point: the last fault point is behind; the staged
+        # slot resets and restores, run restores, promotions and CoW
+        # copies reach the pools and the cache now, before compute
+        self._commit()
         swap_s += self._tier_swap_s
         self._tier_swap_s = 0.0
 
@@ -1197,6 +1630,7 @@ class Engine:
         self._drain_swaps(before_step=self._step_no)
         wall_s = time.perf_counter() - t0
         self.wall += wall_s
+        self._last_dt, self._last_wall = dt, wall_s   # straggler inputs  # repro: allow-txn-coverage(straggler-monitor inputs describe the attempt that COMMITTED - an aborted attempt never reaches this line)
         self.allocator.check_invariants()
         self.swap_store.check_invariants()
         self._check_index_sync(batch)
@@ -1264,6 +1698,7 @@ class Engine:
                             wall_time=self.wall,
                             swap_stats=dict(self.swap_stats),
                             num_compiles=self.num_compiles,
+                            recovery_stats=dict(self.recovery_stats),
                             phase_stats=dict(self.phase_stats))
 
 
@@ -1274,6 +1709,9 @@ class EngineResult:
     wall_time: float
     swap_stats: Dict[str, float] = field(default_factory=dict)
     num_compiles: int = 0
+    # abort history (rollbacks, alloc faults, integrity failures,
+    # degraded recomputes, straggler requeues, aborted wall)
+    recovery_stats: Dict[str, float] = field(default_factory=dict)
     # wall-clock attribution (attach_s / prefill_s / upload_s)
     phase_stats: Dict[str, float] = field(default_factory=dict)
 

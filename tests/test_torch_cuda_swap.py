@@ -3,12 +3,17 @@ cannot show.  A snapshot's device-to-host copy runs on the engine's copy
 stream while the compute stream goes on; the drained bytes must be those
 the pages (or the slot) held when the snapshot was taken, however the
 source is overwritten, freed or reused before the drain, and writing them
-back must give the same bits.  Every test is marked ``cuda`` and skips
-where there is none.  This file imports neither JAX nor the JAX package:
+back must give the same bits.  The step transaction's commit point is
+held there too: a rolled-back attempt leaves every live page and slot as
+it was while copies are in flight, and a faulted serve gives the
+reference's tokens.  Every test is marked ``cuda`` and skips where there
+is none.  This file imports neither JAX nor the JAX package:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda_swap.py
 """
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -19,7 +24,13 @@ from repro_torch.core import (Request, TheoreticalCostModel, get_hardware,
                               make_scheduler)
 from repro_torch.models import model as M
 from repro_torch.serving import Engine, EngineConfig, generate_reference
+from repro_torch.serving.faults import FaultSpec
 from repro_torch.serving.host_copy import HostLink, gather_slot, restore_slot
+
+#: ``tests/test_chaos.py``'s MIXED fault schedule, at seed 1
+MIXED = dict(seed=1, p_alloc=0.05, p_store_transient=0.3,
+             p_store_permanent=0.15, p_corrupt=0.2, p_demote_fail=0.3,
+             p_promote_fail=0.3)
 
 
 @pytest.fixture
@@ -134,11 +145,13 @@ def test_dropped_transfer_and_restore_sources_are_safe(gen):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("faults", [None, MIXED], ids=["clean", "faulted"])
 @pytest.mark.parametrize("async_swap", [True, False])
-def test_swap_serve_matches_the_reference_on_card(gen, async_swap):
+def test_swap_serve_matches_the_reference_on_card(gen, async_swap, faults):
     """A reduced model served under swap with tail sheds on the card: the
     copies really overlap the compute stream here, and the tokens stay
-    the reference's."""
+    the reference's, also under the MIXED fault schedule (rollbacks with
+    the copy stream live, degraded recomputes)."""
     cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
                               dtype="float32", head_dim=64)
     params = M.init_params(cfg, 0, device="cuda")
@@ -146,7 +159,8 @@ def test_swap_serve_matches_the_reference_on_card(gen, async_swap):
                            preempt_mode="swap", partial_preempt=True)
     eng = Engine(cfg, params, sched,
                  EngineConfig(nslots=4, cache_len=64, chunk=16, page_size=8,
-                              async_swap=async_swap),
+                              async_swap=async_swap,
+                              faults=faults and FaultSpec(**faults)),
                  cost_model=TheoreticalCostModel(cfg,
                                                  get_hardware("tpu_v5e")),
                  device="cuda")
@@ -158,9 +172,40 @@ def test_swap_serve_matches_the_reference_on_card(gen, async_swap):
                             prompt=rs.randint(0, cfg.vocab_size,
                                               size=n).tolist()))
     res = eng.run(reqs)
-    assert res.swap_stats["swap_outs"] == res.swap_stats["swap_ins"] > 0
+    if faults is None:
+        assert res.swap_stats["swap_outs"] == res.swap_stats["swap_ins"] > 0
+    else:
+        assert res.recovery_stats["rollbacks"] > 0
+        assert len(eng.swap_store) == 0 and not eng._pending_runs
     assert res.metrics.num_partial_preempts > 0
     for r in reqs:
         assert res.outputs[r.rid] == generate_reference(
             cfg, params, r.prompt, r.output_len, cache_len=64,
             device="cuda"), r.rid
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("plane", ["pooled", "slot"])
+def test_rollback_leaves_live_state_with_copies_in_flight(gen, plane, dtype):
+    """``chip_smoke.py`` phase 17's cases at reduced size: every write kind
+    staged into a victim's page or slot while the victims' snapshots are
+    on the copy stream, the last allocation faulted; every live page and
+    slot bit-equal after the rollback, the retry bit-equal to a
+    fault-free step, the in-flight copies drained with their bytes."""
+    cs = _chip_smoke()
+    arch = "tinyllama-1.1b" if plane == "pooled" else "rwkv6-7b"
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    ecfg = EngineConfig(nslots=4, cache_len=64, chunk=16, page_size=8,
+                        plane="paged" if plane == "pooled" else "batched")
+    fn = cs.rollback_pooled if plane == "pooled" else cs.rollback_slot
+    assert fn(torch, cfg, ecfg, 256, "cuda")["bytes_checked"] > 0

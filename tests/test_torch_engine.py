@@ -254,8 +254,6 @@ def test_tokens_equal_both_references(runs, models, name):
 
 @pytest.mark.parametrize("ekw,skw,item", [
     (dict(plane="batched"), {}, "A5d"),
-    (dict(faults=object()), {}, "A5b"),
-    (dict(straggler_factor=3.0), {}, "A5b"),
     (dict(plane="legacy"), {}, "A5d"),
 ])
 def test_unported_settings_raise(models, ekw, skw, item):

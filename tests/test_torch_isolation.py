@@ -15,7 +15,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 JAXPKG = REPO / "src" / "repro"
 
-#: modules the port keeps word for word (ROADMAP A1-A4, A5a)
+#: modules the port keeps word for word (ROADMAP A1-A4, A5a, A5b)
 COPIES = [
     "configs/base.py", "configs/tinyllama_1_1b.py", "configs/llama2_7b.py",
     "configs/llama3_8b.py", "configs/qwen3_4b.py", "configs/smollm_360m.py",
@@ -23,7 +23,8 @@ COPIES = [
     "core/invariants.py", "core/stat_keys.py", "core/histogram.py",
     "core/request.py", "core/policies.py", "core/kvcache.py",
     "core/cost_model.py", "core/scheduler.py", "core/five_minute_rule.py",
-    "data/workloads.py", "serving/swap_store.py",
+    "data/workloads.py", "serving/swap_store.py", "serving/faults.py",
+    "serving/txn.py",
 ]
 
 _IMPORT = re.compile(r"^(\s*)(from|import) repro(\.|\s)", re.M)

@@ -271,24 +271,82 @@ def test_slot_round_trip_covers_every_leaf():
         assert torch.equal(v.select(ax, 1), before[k].select(ax, 1)), k
 
 
-def test_corrupt_snapshot_raises_at_swap_in(model):
-    """With no step transaction (ROADMAP A5b) a snapshot that fails its
-    seal cannot be rolled back: the swap-in raises and restores
-    nothing."""
-    eng = build(model, preempt_mode="swap")
-    r = prompt_request(model, 0, 32, seed=3)
+def rwkv_model():
+    cfg = dataclasses.replace(get_config("rwkv6-7b").reduced(),
+                              dtype="float32")
+    return cfg, M.init_params(cfg, 0, device="cpu")
+
+
+@pytest.mark.parametrize("plane", ["pooled", "slot"])
+def test_corrupt_snapshot_rolls_back_and_degrades(model, plane):
+    """A snapshot whose CRC seal fails at swap-in (one flipped bit) makes
+    the step raise ``IntegrityError`` inside its transaction: the attempt
+    rolls back, the repair drops the entry and degrades the request to
+    recompute, and the retried step refills it, so its tokens stay the
+    reference's and nothing is left in the store."""
+    if plane == "pooled":
+        eng = build(model, preempt_mode="swap")
+        mdl = model
+    else:
+        mdl = rwkv_model()
+        cfg, params = mdl
+        eng = Engine(cfg, params,
+                     make_scheduler("vllm", 400, S=512, replacement="srf",
+                                    preempt_mode="swap"),
+                     EngineConfig(nslots=4, cache_len=CACHE_LEN, chunk=16,
+                                  page_size=8, plane="batched"),
+                     cost_model=TheoreticalCostModel(
+                         cfg, get_hardware("tpu_v5e")), device="cpu")
+    r = prompt_request(mdl, 0, 32, seed=3, output_len=6)
     eng.submit(r)
     eng.step()
-    r.preempt(mode="swap")
-    eng.sched.num_swaps += 1
-    eng.sched.running.remove(r)
-    assert eng._swap_out_paged(r) is True
+    eng.sched._preempt(r)                  # a swap-mode full preemption
+    assert r.suspended
+    eng._handle_preempted(r)
     eng._drain_swaps()
-    (run,) = eng.swap_store.peek_runs(0)
-    assert run.crc is not None and flip_bit(run.kv)
-    with pytest.raises(RuntimeError, match="A5b"):
-        eng._swap_in_paged(r)
-    assert r.suspended and eng.swap_store.has_runs(0)
+    if plane == "pooled":
+        (entry,) = eng.swap_store.peek_runs(0)
+        payload = entry.kv
+    else:
+        entry = eng.swap_store.peek(0)
+        payload = entry.cache
+    assert entry.crc is not None and flip_bit(payload)
+    swaps = eng.sched.num_swaps
+    eng.step()                             # swap-in fails its seal
+    rec = eng.recovery_stats
+    assert (rec["rollbacks"], rec["integrity_failures"],
+            rec["degraded_recomputes"], rec["alloc_faults"]) == (1, 1, 1, 0)
+    assert not r.suspended and eng.sched.num_swaps == swaps - 1
+    assert len(eng.swap_store) == 0 and not eng._pending_swaps \
+        and not eng._pending_runs
+    assert eng.swap_stats["swap_ins"] == 0
+    finish(eng, r)
+    assert eng.outputs[0] == reference(mdl, r)
+
+
+def test_redrain_after_rollback_keeps_seal_and_flip(model):
+    """A rollback restores the pending map, not the entries: an entry
+    that the aborted attempt already drained (sealed, and flipped by the
+    fault plan) is named again, and draining it again must keep its
+    CRC and its flipped bytes (not re-seal them, and not hand back the
+    transfer's bytes from before the flip)."""
+    eng = build(model, preempt_mode="swap")
+    r = prompt_request(model, 0, 32, seed=5)
+    eng.submit(r)
+    eng.step()
+    eng.sched._preempt(r)
+    eng._handle_preempted(r)
+    saved = type(eng._pending_runs)(eng._pending_runs)   # a txn's capture
+    (entry,) = eng.swap_store.peek_runs(0)
+    entry.corrupt = True                   # the fault plan's marker
+    eng._drain_runs(rid=0)
+    crc, k = entry.crc, entry.kv["k"].copy()
+    assert crc is not None and not verify_entry(entry)
+    eng._pending_runs = saved              # the rollback restores the map
+    eng._drain_runs(rid=0)
+    assert entry.crc == crc and not verify_entry(entry)
+    np.testing.assert_array_equal(entry.kv["k"], k)
+    assert not eng._pending_runs
 
 
 def test_shed_and_restore_keeps_the_cohort_and_refreshes_the_table(model):
