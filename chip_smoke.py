@@ -177,8 +177,28 @@ Phases — each raises on failure, so any failure exits non-zero:
 19. RWKV6-7B fp32 at 4 layers under swap with the same fault schedule:
    tokens against ``generate_reference`` under phase 10's tie rule, B4
    launches = layers x prefill rounds, the recovery counts printed.
+20. The step graphs (``repro_torch.serving.step_graphs``).  Every serving
+   phase above (3, 4, 10, 11, 14, 15, 18, 19) serves through them: its
+   engine's ``warmup()`` captures one CUDA graph per prefill bucket and
+   one decode graph, and each run must replay them for every prefill
+   round and decode step, build no graph and run no step eagerly
+   (``num_graphs == len(buckets) + 1`` before and after, ``num_compiles``
+   0); the kernels' launch counters add each graph's launches at every
+   replay, so the launch checks hold unchanged.  Then, for TinyLlama-1.1B
+   in fp32 and bf16 (8 slots, ``cache_len`` 512, chunk 128, page 16) and
+   RWKV6-7B in bf16 at full depth (4 slots, chunk 64): a fresh server's
+   capture seconds; each bucket's prefill replay and the decode replay
+   against an eager call of the same plane function on cloned pools or
+   cache from random state (ids, the decode graph's advanced cohort and
+   every pool or cache byte: bit-equal, or the largest difference printed
+   and held within ``TOL``, as cuBLAS may pick another algorithm under
+   capture); then the smoke workload served through the graphs (fp32
+   tokens equal to phase 3's, bf16 ones counted against phases 4 and 11)
+   and the wall of a decode-only batch.
 
-Each phase prints the seconds since the start when it is done.
+Each phase prints the seconds since the start when it is done; phase
+20's three engines run after phase 18's fp32 and bf16 serves and phase
+15's bf16 one, on their weights.
 
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
@@ -604,10 +624,12 @@ def phase_serve_fp32(torch, pa, cfg, params, swap=False, faults=None,
              else "fp32 swap serve" if swap else "fp32 serve")
     torch.cuda.synchronize()
     zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
+    before = graph_counts(eng)
     t0 = time.perf_counter()
     res = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    graphs = check_graph_run(eng, before, label)
     launches = {"paged_decode": pa.paged_decode_cuda.launches,
                 "paged_prefill": pa.paged_prefill_cuda.launches}
     variants = dict(pa.paged_prefill_cuda.launches_by_variant)
@@ -664,7 +686,7 @@ def phase_serve_fp32(torch, pa, cfg, params, swap=False, faults=None,
           f"requests token-identical ({time.perf_counter() - t0:.1f} s)")
     check(not mismatched, f"tokens differ from generate_reference "
           f"(rid, first position): {mismatched}")
-    return {"wall_s": wall, "launches": launches,
+    return {"wall_s": wall, "launches": launches, "graphs": graphs,
             "prefill_variants": variants, "decode_variants": dvariants,
             "prefill_rounds": eng.prefill_rounds,
             "decode_steps": eng.decode_steps,
@@ -728,10 +750,12 @@ def phase_serve_bf16(torch, pa, cfg, params, swap=False, faults=None,
     spent = timed_txn(eng) if swap and faults is None else None
     torch.cuda.synchronize()
     zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
+    before = graph_counts(eng)
     t0 = time.perf_counter()
     res = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    graphs = check_graph_run(eng, before, label)
     launches = {"paged_decode": pa.paged_decode_cuda.launches,
                 "paged_prefill": pa.paged_prefill_cuda.launches}
     variants = dict(pa.paged_prefill_cuda.launches_by_variant)
@@ -756,6 +780,8 @@ def phase_serve_bf16(torch, pa, cfg, params, swap=False, faults=None,
           "should be the tensor-core kernel")
     check(all(r.finished for r in reqs), "unfinished requests")
     out = {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
+           "graphs": graphs, "decode_step_ms": decode_step_ms(res),
+           "outputs": res.outputs,
            "phase_stats": res.phase_stats, "pool_pages":
            int(eng.k_pools.shape[1]), "launches": launches,
            "prefill_variants": variants, "decode_variants": dvariants,
@@ -801,10 +827,12 @@ def phase_serve_bf16(torch, pa, cfg, params, swap=False, faults=None,
                                         preempt_mode="recompute",
                                         demotion=False)
         torch.cuda.synchronize()
+        before = graph_counts(eng2)
         t0 = time.perf_counter()
         res2 = eng2.run(reqs2)
         torch.cuda.synchronize()
         wall2 = time.perf_counter() - t0
+        check_graph_run(eng2, before, "bf16 recompute serve")
         tokens2 = sum(len(o) for o in res2.outputs.values())
         check(all(r.finished for r in reqs2), "unfinished requests")
         print(f"  the same workload under recompute, no demotion: {tokens2} "
@@ -1401,11 +1429,13 @@ def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params, preempt_mode="recompute",
     L = cfg.num_layers
     torch.cuda.synchronize()
     wkv.wkv6_cuda.launches = 0
+    before = graph_counts(eng)
     t0 = time.perf_counter()
     res = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = wkv.wkv6_cuda.launches
+    graphs = check_graph_run(eng, before, f"RWKV6-7B fp32 {preempt_mode}")
     tokens = sum(len(o) for o in res.outputs.values())
     print(f"RWKV6-7B fp32 serve ({L} layers, d={cfg.d_model}, "
           f"{cfg.ssm_heads} heads x {cfg.ssm_state}): {len(reqs)} requests "
@@ -1452,7 +1482,7 @@ def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params, preempt_mode="recompute",
           f" s)")
     check(all(gap < TIE_GAP for _, gap in diverged.values()),
           f"tokens differ from generate_reference beyond a tie: {diverged}")
-    return {"layers": L, "wall_s": wall, "tokens": tokens,
+    return {"layers": L, "wall_s": wall, "tokens": tokens, "graphs": graphs,
             "launches": launches, "reference_launches": ref_launches,
             "prefill_rounds": eng.prefill_rounds,
             "decode_steps": eng.decode_steps,
@@ -1468,18 +1498,20 @@ def phase_rwkv_serve_bf16(torch, wkv, cfg, params, preempt_mode="recompute"):
                                   preempt_mode=preempt_mode)
     torch.cuda.synchronize()
     wkv.wkv6_cuda.launches = 0
+    before = graph_counts(eng)
     t0 = time.perf_counter()
     res = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = wkv.wkv6_cuda.launches
+    graphs = check_graph_run(eng, before, f"RWKV6-7B bf16 {preempt_mode}")
     check(launches == cfg.num_layers * eng.prefill_rounds > 0,
           f"wkv6 launched {launches} times, expected {cfg.num_layers} x "
           f"{eng.prefill_rounds}")
     tokens = sum(len(o) for o in res.outputs.values())
     decode_walls = [b.wall_s for b in res.metrics.batches
                     if b.num_decode and not b.num_prefill]
-    step_ms = 1e3 * sum(decode_walls) / max(1, len(decode_walls))
+    step_ms = decode_step_ms(res)
     print(f"RWKV6-7B bf16 serve ({cfg.num_layers} layers): {tokens} tokens "
           f"in {wall:.3f} s = {tokens / wall:.1f} tok/s; wkv6 launches "
           f"{launches} = {cfg.num_layers} x {eng.prefill_rounds} prefill "
@@ -1494,6 +1526,7 @@ def phase_rwkv_serve_bf16(torch, wkv, cfg, params, preempt_mode="recompute"):
                       demotion=False)
     return {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
             "launches": launches, "prefill_rounds": eng.prefill_rounds,
+            "graphs": graphs, "outputs": res.outputs,
             "decode_steps": eng.decode_steps, "decode_step_ms": step_ms,
             "phase_stats": res.phase_stats, "swap_stats": res.swap_stats,
             "counts": swap_summary(res)}
@@ -1587,8 +1620,9 @@ def race_pages(torch, M, cfg, gen):
 def race_slot(torch, M, cfg, gen):
     """The same for one RWKV6 slot (every leaf): gather slot 1 and start
     its copy; before the drain, merge new state into the slot (the slot
-    plane's ``_merge``, which replaces the leaves) and fill fresh buffers
-    of the snapshot's size; then restore the drained bytes into slot 3."""
+    plane's ``_merge``, which writes the leaves in place) and fill fresh
+    buffers of the snapshot's size; then restore the drained bytes into
+    slot 3."""
     from repro_torch.core import make_scheduler
     from repro_torch.launch.serve import SMOKE_RWKV_ENGINE, SMOKE_RWKV_M
     from repro_torch.serving import Engine
@@ -2048,6 +2082,194 @@ def phase_rollback(torch, get_config):
 
 
 # --------------------------------------------------------------------- #
+# phase 20: the step graphs at full width
+# --------------------------------------------------------------------- #
+#
+# A warmed engine holds one CUDA graph per ladder bucket and one decode
+# graph (``serving.step_graphs``), and every serving phase checks that its
+# run replayed them and nothing else (``check_graph_run``).
+# ``replay_vs_eager`` sets random state and step inputs, runs the same
+# plane function eagerly on clones of the pools (or the cache), then the
+# graph on the engine's own state, and compares the ids, the decode
+# graph's advanced cohort and every pool or cache byte.  It takes the
+# device, so ``tests/test_torch_graphs.py`` runs it on the CPU (where the
+# graph call is the eager function) and ``tests/test_torch_cuda_graphs.
+# py`` on a card, both at reduced size.
+
+def graph_counts(eng):
+    """(graphs built, replays, eager calls) of an engine's step graphs."""
+    g = eng.graphs
+    return len(g), g.replays, g.eager_calls
+
+
+def check_graph_run(eng, before, label):
+    """After ``warmup()``: every prefill round and decode step of the run
+    was one replay, no graph was built and no step ran eagerly."""
+    n0, r0, e0 = before
+    n1, r1, e1 = graph_counts(eng)
+    steps = eng.prefill_rounds + eng.decode_steps
+    check(n0 == n1 == len(eng.buckets) + 1,
+          f"{label}: {n0} step graphs before the run, {n1} after; "
+          f"expected {len(eng.buckets)} buckets + 1 decode")
+    check(r1 - r0 == steps and e1 == e0,
+          f"{label}: {r1 - r0} replays and {e1 - e0} eager calls for "
+          f"{eng.prefill_rounds} prefill rounds + {eng.decode_steps} decode "
+          "steps")
+    check(eng.num_compiles == 0, f"{label}: num_compiles moved")
+    return {"graphs": n1, "replays": r1 - r0,
+            "capture_s": eng.graphs.capture_s}
+
+
+def decode_step_ms(res):
+    """Mean measured wall of the run's decode-only batches, in ms."""
+    walls = [b.wall_s for b in res.metrics.batches
+             if b.num_decode and not b.num_prefill]
+    return 1e3 * sum(walls) / max(1, len(walls))
+
+
+def _compare_state(torch, got, want, dtype):
+    """Ids first, then every tensor of state: the ids equal, every tensor
+    bit-equal, the largest difference of the float ones, and whether
+    those are within ``TOL``."""
+    floats = [(a.float(), b.float()) for a, b in zip(got, want)
+              if a.is_floating_point()]
+    return {"ids_equal": torch.equal(got[0], want[0]),
+            "bit_equal": all(same_bits(torch, a, b)
+                             for a, b in zip(got, want)),
+            "max_abs": max(((a - b).abs().max().item() for a, b in floats),
+                           default=0.0),
+            "close": all(torch.allclose(a, b, **TOL[dtype])
+                         for a, b in floats)}
+
+
+def replay_vs_eager(torch, eng, seed, device=DEVICE):
+    """Each step graph of a warmed engine against an eager call of the same
+    plane function on cloned state ({graph: ``_compare_state``}).  The
+    engine's pools or cache are overwritten with random state; on the
+    pooled plane each slot owns distinct pages for every position a step
+    may write, so the comparison does not depend on write order."""
+    from repro_torch.serving.engine import merge_rows
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    ns, vocab, dtype = eng.ecfg.nslots, eng.cfg.vocab_size, eng.cfg.dtype
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    def greedy(logits):
+        return torch.argmax(logits[:, :vocab], dim=-1).to(torch.int32)
+
+    if eng._pooled:
+        state = (eng.k_pools, eng.v_pools)
+        _fill(torch, state, seed, device)
+        per = min(eng.max_pages, eng.allocator.num_pages // ns)
+        pages = torch.randperm(eng.allocator.num_pages, generator=gen,
+                               device=device)[:ns * per]
+        eng._bt_dev.zero_()
+        eng._bt_dev[:, :per] = pages.view(ns, per).to(torch.int32)
+        cap = per * eng.ecfg.page_size     # positions with private pages
+    else:
+        state = tuple(eng.cache.values())
+        _fill(torch, [t for t in state if t.is_floating_point()], seed,
+              device)
+        eng.cache["index"].copy_(ints(0, 1000, ns))
+    out = {}
+    with torch.no_grad():
+        for b in eng.buckets:
+            g = eng._prefill_graph(b)
+            lens = ints(0, b + 1, ns)
+            lens[0] = b
+            toks = ints(0, vocab, ns, b)
+            if eng._pooled:
+                starts = ints(0, cap - b + 1, ns)
+                g.inputs[0].copy_(torch.cat([toks, lens[:, None],
+                                             starts[:, None]], 1))
+                kc, vc = (t.clone() for t in state)
+                want = (eng._paged_prefill(eng.params, kc, vc, toks, starts,
+                                           lens, eng._bt_dev), kc, vc)
+            else:
+                g.inputs[0].copy_(torch.cat([toks, lens[:, None]], 1))
+                clone = {k: v.clone() for k, v in eng.cache.items()}
+                logits, new = eng._chunk_fn(eng.params, toks, clone, lens)
+                merge_rows(clone, lens > 0, new)
+                want = (greedy(logits), *clone.values())
+            out[f"prefill/{b}"] = _compare_state(torch, (g(), *state), want,
+                                                 dtype)
+        g = eng._decode_graph()
+        toks, active = ints(0, vocab, ns), ints(0, 2, ns)
+        active[0] = 1
+        if eng._pooled:
+            ctx = ints(0, cap, ns)
+            g.inputs[0].copy_(torch.stack([toks, ctx, active]))
+            kc, vc = (t.clone() for t in state)
+            ids = eng._paged_decode(eng.params, kc, vc, toks, ctx,
+                                    eng._bt_dev, active.bool())
+            want = (ids, torch.stack([ids, ctx + active, active]), kc, vc)
+            got = (g(), g.inputs[0], *state)
+        else:
+            g.inputs[0].copy_(torch.stack([toks, active]))
+            clone = {k: v.clone() for k, v in eng.cache.items()}
+            logits, new = eng._decode_fn(eng.params, toks, clone)
+            merge_rows(clone, active.bool(), new)
+            want = (greedy(logits), *clone.values())
+            got = (g(), *state)
+        out["decode"] = _compare_state(torch, got, want, dtype)
+    # the buffers hold test inputs now: the next step uploads afresh
+    eng._bt_cache = eng._decode_state = None
+    return out
+
+
+def phase_graphs(torch, label, server, cfg, params, want, seed=23):
+    """Phase 20 for one engine: the graphs ``warmup()`` captured (count and
+    host seconds), each replay against the eager call on cloned state, then
+    the served run through them: its tokens against ``want`` (an earlier
+    phase's outputs of the same workload: required equal in fp32, counted
+    in bf16) and the wall of a decode step."""
+    t0 = time.perf_counter()
+    eng, reqs = server(cfg, params, device=DEVICE)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    check(eng.num_graphs == len(eng.buckets) + 1,
+          f"{label}: {eng.num_graphs} step graphs after warmup, expected "
+          f"{len(eng.buckets)} buckets + 1 decode")
+    cmp = replay_vs_eager(torch, eng, seed)
+    for what, c in cmp.items():
+        print(f"  {label} {what}: replay "
+              + ("bit-equal to the eager call" if c["bit_equal"] else
+                 f"differs from the eager call by {c['max_abs']:.3g} at "
+                 f"most (ids equal: {c['ids_equal']}); cuBLAS may pick "
+                 "another algorithm under capture, and the serving "
+                 "phases' token checks stand"))
+        check(c["close"], f"{label} {what}: replay and eager call differ "
+              f"beyond {TOL[cfg.dtype]}: {c}")
+    torch.cuda.synchronize()
+    before = graph_counts(eng)
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    graphs = check_graph_run(eng, before, label)
+    tokens = sum(len(o) for o in res.outputs.values())
+    same = sum(res.outputs[r.rid] == want[r.rid] for r in reqs)
+    check(same == len(reqs) or cfg.dtype != "float32",
+          f"{label}: {same}/{len(reqs)} requests token-identical to the "
+          "earlier phase's run")
+    step_ms = decode_step_ms(res)
+    print(f"{label}: {graphs['graphs']} graphs captured in "
+          f"{graphs['capture_s']:.3f} s (engine built and warmed in "
+          f"{built_s:.3f} s); served {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.1f} tok/s through {graphs['replays']} replays "
+          f"({eng.prefill_rounds} prefill rounds + {eng.decode_steps} decode "
+          f"steps); wall of a decode-only batch {step_ms:.3f} ms; "
+          f"{same}/{len(reqs)} requests token-identical to the earlier "
+          "phase's run")
+    return dict(graphs, built_s=built_s, wall_s=wall, tokens=tokens,
+                tok_per_s=tokens / wall, decode_step_ms=step_ms,
+                replay_vs_eager=cmp, same_tokens=same)
+
+
+# --------------------------------------------------------------------- #
 
 def ptxas_report(log: str):
     """(kernel, "N registers, S bytes spill stores, ...") per entry
@@ -2097,7 +2319,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rwkv_scan import ref as wref
     from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
     from repro_torch.launch.serve import (SMOKE_ARCH, SMOKE_ENGINE, SMOKE_M,
-                                          SMOKE_RWKV_ARCH, SMOKE_RWKV_ENGINE)
+                                          SMOKE_RWKV_ARCH, SMOKE_RWKV_ENGINE,
+                                          rwkv_smoke_server, smoke_server)
     from repro_torch.models import model as M
     from repro_torch.models.ssm import pick_chunk
     from repro_torch.serving.faults import FaultSpec
@@ -2153,6 +2376,9 @@ def main(argv=None) -> int:
         faulted32 = phase_serve_fp32(torch, pa, cfg, params,
                                      faults=FaultSpec(**MIXED), clean=swap32)
         lap("fp32 faulted swap serve")
+        graphs = {"float32": phase_graphs(torch, "fp32 graphs", smoke_server,
+                                          cfg, params, fp32["outputs"])}
+        lap("fp32 graphs")
         prefill = phase_full_prefill(torch, fa, M, cfg, params)
         lap("full prefill")
 
@@ -2168,8 +2394,11 @@ def main(argv=None) -> int:
         lap("bf16 swap serve")
         faulted16 = phase_serve_bf16(torch, pa, cfg16, params16,
                                      faults=FaultSpec(**MIXED), clean=swap16)
-        del params16
         lap("bf16 faulted swap serve")
+        graphs["bfloat16"] = phase_graphs(torch, "bf16 graphs", smoke_server,
+                                          cfg16, params16, bf16["outputs"])
+        del params16
+        lap("bf16 graphs")
 
     train = phase_train(torch)
     torch.cuda.empty_cache()
@@ -2228,9 +2457,13 @@ def main(argv=None) -> int:
         lap("RWKV6-7B bf16 serve")
         rwkv16_swap = phase_rwkv_serve_bf16(torch, wkv, rcfg16, rparams16,
                                             preempt_mode="swap")
+        lap("RWKV6-7B bf16 swap serve")
+        graphs["rwkv6_bfloat16"] = phase_graphs(
+            torch, "RWKV6-7B bf16 graphs", rwkv_smoke_server, rcfg16,
+            rparams16, rwkv16["outputs"])
         del rparams16
         torch.cuda.empty_cache()
-        lap("RWKV6-7B bf16 swap serve")
+        lap("RWKV6-7B bf16 graphs")
 
         wkv_more = {what: time_wkv(torch, wkv, wref, wkv_case(
             torch, inp, B, S, H, D, s0=s0))
@@ -2316,7 +2549,7 @@ def main(argv=None) -> int:
                   rwkv_swap_serve_bf16=rwkv16_swap, host_link=link,
                   rollback=rollback, faulted_serve_fp32=faulted32,
                   faulted_serve_bf16=faulted16,
-                  rwkv_faulted_serve_fp32=rwkv32_faulted,
+                  rwkv_faulted_serve_fp32=rwkv32_faulted, graphs=graphs,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

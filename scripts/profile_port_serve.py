@@ -16,8 +16,11 @@ steps 40-59 (decode steps, mostly) under
 ``torch.profiler`` (CPU + CUDA activities, a device sync after each
 step), for the device time and launch counts by kernel name; the
 device's busy share is that device time over the unprofiled wall of the
-same steps (the schedule is deterministic).  It also times the host's
-cost of enqueuing one tiny eager op.  Prints a table of the top kernels,
+same steps (the schedule is deterministic).  Host launch calls count
+kernel launches and CUDA graph launches (an engine with step graphs
+replays one graph per prefill round and decode step; the kernels inside
+a replay are still traced one by one).  It also times the host's cost of
+enqueuing one tiny eager op.  Prints a table of the top kernels,
 the device time of the WKV6 kernel (B4) in the window, and one JSON
 summary line; ``--report`` writes the summary as a file.  ``--src DIR``
 profiles the ``repro_torch`` of another tree (a parent checkout unpacked
@@ -40,8 +43,8 @@ WAIT, ACTIVE = 40, 20      # engine steps skipped, then profiled
 
 
 def kernel_summary(prof):
-    """({kernel name: [count, device us]}, host launch calls) of a
-    finished ``torch.profiler.profile``."""
+    """({kernel name: [count, device us]}, host launch calls: kernel and
+    graph launches) of a finished ``torch.profiler.profile``."""
     from torch.autograd import DeviceType
     by_kernel = collections.defaultdict(lambda: [0, 0.0])
     launches = 0
@@ -52,7 +55,8 @@ def kernel_summary(prof):
             by_kernel[e.name][0] += 1
             by_kernel[e.name][1] += e.device_time
         elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                        "cuLaunchKernel", "cuLaunchKernelEx"):
+                        "cuLaunchKernel", "cuLaunchKernelEx",
+                        "cudaGraphLaunch", "cuGraphLaunch"):
             launches += 1
     return by_kernel, launches
 
@@ -146,6 +150,9 @@ def main(argv=None) -> int:
         out["host_us_per_tiny_op"] = host_us_per_tiny_op(torch)
 
         eng, reqs = server(cfg, params)
+        graphs = getattr(eng, "graphs", None)    # absent before step graphs
+        out.update(num_graphs=len(graphs) if graphs is not None else 0,
+                   capture_s=graphs.capture_s if graphs is not None else 0.0)
         plain = instrument(torch, eng, lambda: None)
         t0 = time.perf_counter()
         res = eng.run(reqs)
@@ -195,6 +202,8 @@ def main(argv=None) -> int:
           f"unprofiled = "
           f"{out['wall_ms_per_step']:.2f} ms/step, "
           f"{out['wall_ms_per_decode_step']:.2f} ms per decode step; "
+          f"{out['num_graphs']} step graphs captured in "
+          f"{out['capture_s']:.3f} s; "
           f"host enqueue of a tiny "
           f"op {out['host_us_per_tiny_op']:.1f} us")
     print(f"profiled window {window}: {n_kernels} kernels "

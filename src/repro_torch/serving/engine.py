@@ -29,8 +29,8 @@ the paged flash-decoding kernel.  On top of the pooled pages:
   tables is rewritten row by row from the allocator's dirty set and
   uploaded once per change.
 * *device-resident decode cohort* — while the set of decoding requests
-  is unchanged, a decode step's inputs are the previous step's device
-  outputs: nothing is uploaded.
+  is unchanged, a decode step's inputs are what the previous step wrote
+  into the decode graph's own input buffer: nothing is uploaded.
 
 The slot-resident plane (``plane="batched"``, and ``plane="paged"`` on a
 family whose state is not worth paging: RWKV6's is O(1) per request, as
@@ -89,9 +89,20 @@ Differences from the JAX engine (``repro.serving.engine``):
   so every page and slot keeps its batch-start bytes.  The gathers that
   read the pools before the commit (swap-outs, tail sheds, demotions)
   read pages no intent of the same attempt targets, which is checked.
-* ``num_compiles`` is 0: PyTorch runs eagerly and the CUDA kernels are
-  built once per source.  ``warmup()`` loads the kernels and runs every
-  ladder bucket and the decode step once with inert inputs.
+* Compiled steps are CUDA graphs (``serving.step_graphs``).  Where the
+  JAX engine jits each plane step, the port captures one graph per step
+  shape: one prefill round per ladder bucket and one decode step, on
+  both planes, sharing one memory pool.  On a card every prefill round
+  and decode step after a graph's first call is one ``replay()``; the
+  step reads static input buffers the engine uploads into (the packed
+  round grid, the decode cohort, the block tables) and writes the pools
+  or the cache leaves in place.  ``warmup()`` captures every graph the
+  run loop can hit, as JAX's compiles every signature; a shape warmup
+  missed is captured at first use.  ``num_graphs`` counts the graphs
+  built (the same count on the CPU, where each call runs the same
+  function eagerly over the same buffers) and stays a small constant
+  during ``run``; ``num_compiles`` is 0, as nothing is traced or compiled
+  per signature (the CUDA kernels are built once per source).
 * Settings this port does not run yet (the dense family on the slot
   plane and the ``legacy`` plane: A5d) raise ``ValueError`` naming the
   ROADMAP item that will port them.
@@ -131,13 +142,15 @@ from repro_torch.serving.faults import (FaultError, FaultPlan,
 from repro_torch.serving.host_copy import (HostLink, Transfer, gather_pages,
                                            gather_slot, nbytes_of,
                                            restore_pages, restore_slot)
-from repro_torch.serving.paged_plane import (build_paged_fns, init_pools,
+from repro_torch.serving.paged_plane import (build_paged_fns,
+                                             decode_and_advance, init_pools,
                                              paged_supported)
 from repro_torch.serving.serve_step import (build_decode_fn,
                                             build_prefill_chunk_fn)
 from repro_torch.serving.swap_store import (KVSwapStore, SwapEntry,
                                             SwapStoreFullError, flip_bit,
                                             seal_entry, verify_entry)
+from repro_torch.serving.step_graphs import StepGraph, StepGraphs
 from repro_torch.serving.txn import StepTxn, begin_step_txn
 
 # hard ceiling on fault-recovery retries of one step (the JAX engine's):
@@ -181,6 +194,21 @@ class EngineConfig:
 
 
 MIN_BUCKET = 8                    # smallest tail bucket of the ladder
+
+
+def merge_rows(cache: Dict[str, torch.Tensor], active: torch.Tensor,
+               new_cache: Dict[str, torch.Tensor]) -> None:
+    """The slot plane's masked merge (JAX's): the rows of ``active``
+    (nslots,) of every leaf of ``new_cache`` are written into ``cache``'s
+    leaf IN PLACE, and the other slots keep their state bit for bit.  In
+    place because the step graphs are captured against the leaves: a new
+    tensor would live in the graphs' pool, overwritten by the next
+    replay."""
+    for k, new in new_cache.items():
+        leaf = cache[k]
+        # leaves are (L, nslots, ...), the index (nslots,)
+        shape = (-1,) if new.dim() == 1 else (1, -1) + (1,) * (new.dim() - 2)
+        torch.where(active.reshape(shape), new, leaf, out=leaf)
 
 
 def _bucket_ladder(chunk: int) -> List[int]:
@@ -282,12 +310,19 @@ class Engine:
         self._page_keys_of: Dict[int, List[int]] = {}
         self._page_tokens_of: Dict[int, List[Tuple[int, ...]]] = {}
         self._prefix_skip: Dict[int, int] = {}
-        # (allocator version, device tensor) — see _block_tables_device
-        self._bt_cache: Optional[Tuple[int, torch.Tensor]] = None
+        # the step graphs (one per step shape) and the static block
+        # tables every pooled graph reads; _bt_cache is the allocator
+        # version _bt_dev holds (see _block_tables_device)
+        self.graphs = StepGraphs()
+        self._bt_dev = (torch.zeros((ecfg.nslots, self.max_pages),
+                                    dtype=torch.int32, device=device)
+                        if self._pooled else None)
+        self._bt_cache: Optional[int] = None
         # persistent host mirror of the device block tables, refreshed
         # row by row from the allocator's dirty-rid delta
         self._bt_host: Optional[np.ndarray] = None
-        # device-resident decode inputs keyed by cohort
+        # the cohort key of what the decode graph's input buffer holds
+        # (pooled plane; None: nothing reusable)
         self._decode_state: Optional[Dict[str, Any]] = None
         self.free_slots: List[int] = list(range(ecfg.nslots - 1, -1, -1))
         self.slot_of: Dict[int, int] = {}
@@ -379,35 +414,88 @@ class Engine:
 
     # ------------------------------------------------------------------ #
     def warmup(self) -> "Engine":
-        """Load the kernels and run every ladder bucket and the decode
-        step once with inert inputs (zero lengths, no active row):
+        """Capture every step graph the run loop can hit -- one prefill
+        round per ladder bucket and the decode step -- as the JAX
+        engine's ``warmup`` compiles every signature.  Each graph's first
+        call runs once with inert inputs (zero lengths, no active row):
         outputs are discarded, the allocator's pages and the slots' state
         stay bit-identical (inactive decode rows write only the sentinel
         page; the slot plane merges no row), and the step counters do not
         move."""
-        ns, dev = self.ecfg.nslots, self.device
-        zi = torch.zeros((ns,), dtype=torch.int32, device=dev)
-        za = torch.zeros((ns,), dtype=torch.bool, device=dev)
-        if not self._pooled:
-            for b in self.buckets:
-                self._prefill_many(torch.zeros((ns, b), dtype=torch.int32,
-                                               device=dev), zi)
-            self._decode_many(zi, za)
-            return self
-        bt = torch.zeros((ns, self.max_pages), dtype=torch.int32, device=dev)
-        for b in self.buckets:
-            self._paged_prefill(self.params, self.k_pools, self.v_pools,
-                                torch.zeros((ns, b), dtype=torch.int32,
-                                            device=dev), zi, zi, bt)
-        self._paged_decode(self.params, self.k_pools, self.v_pools, zi, zi,
-                           bt, za)
+        for g in [self._prefill_graph(b) for b in self.buckets] \
+                + [self._decode_graph()]:
+            g.inputs[0].zero_()
+            g()
+        self._decode_state = None     # its buffer holds no cohort now
         return self
 
     @property
     def num_compiles(self) -> int:
         """Always 0: nothing is traced or compiled per signature (the
-        CUDA kernels are built once per source, outside any step)."""
+        CUDA kernels are built once per source, outside any step; the
+        steps' CUDA graphs are counted by ``num_graphs``)."""
         return 0
+
+    @property
+    def num_graphs(self) -> int:
+        """Step graphs built: ``len(buckets) + 1`` once every shape has
+        run (``warmup``), on the CPU and on a card alike."""
+        return len(self.graphs)
+
+    # --- step graphs (serving.step_graphs) ------------------------------ #
+    def _graph_state(self) -> Tuple[torch.Tensor, ...]:
+        """What every step graph reads or writes outside its own input:
+        the pools and the block tables, or the cache leaves."""
+        if self._pooled:
+            return (self.k_pools, self.v_pools, self._bt_dev)
+        return tuple(self.cache.values())
+
+    def _prefill_graph(self, bucket: int) -> StepGraph:
+        """The prefill round of one ladder bucket.  Its static input is
+        the round's packed grid: (nslots, bucket + 2) int32 [toks | lens
+        | starts] on the pooled plane, (nslots, bucket + 1) [toks | lens]
+        on the slot plane (starts are the cache index there)."""
+        def build():
+            extra = 2 if self._pooled else 1
+            grid = torch.zeros((self.ecfg.nslots, bucket + extra),
+                               dtype=torch.int32, device=self.device)
+            if self._pooled:
+                def fn(g):
+                    return self._paged_prefill(
+                        self.params, self.k_pools, self.v_pools, g[:, :-2],
+                        g[:, -1], g[:, -2], self._bt_dev)
+            else:
+                def fn(g):
+                    return self._prefill_many(g[:, :-1], g[:, -1])
+            return fn, (grid,), self._graph_state
+        return self.graphs.get(f"prefill/{bucket}", build)
+
+    def _decode_graph(self) -> StepGraph:
+        """The decode step over all slots.  Pooled plane: its static input
+        is the cohort buffer (3, nslots) int32 [toks, ctx, active], which
+        the graph itself advances for the next step
+        (``paged_plane.decode_and_advance``); slot plane: (2, nslots)
+        [toks, active], uploaded every step."""
+        def build():
+            rows = 3 if self._pooled else 2
+            buf = torch.zeros((rows, self.ecfg.nslots), dtype=torch.int32,
+                              device=self.device)
+            if self._pooled:
+                def fn(c):
+                    return decode_and_advance(self._paged_decode, self.params,
+                                              self.k_pools, self.v_pools, c,
+                                              self._bt_dev)
+            else:
+                def fn(p):
+                    return self._decode_many(p[0], p[1].bool())
+            return fn, (buf,), self._graph_state
+        return self.graphs.get("decode", build)
+
+    def _upload(self, dst: torch.Tensor, host: np.ndarray) -> None:
+        """ONE host-to-device copy into a step graph's static input."""
+        t0 = time.perf_counter()
+        dst.copy_(torch.from_numpy(host))
+        self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -1126,13 +1214,16 @@ class Engine:
         self.v_pools[:, new] = self.v_pools[:, old]
 
     def _block_tables_device(self) -> torch.Tensor:
-        """Device-side (nslots, max_pages) int32 block tables, cached
-        against the allocator's mutation version; on a bump only the
-        rows of rids whose page list changed (``consume_dirty``) are
-        rewritten in the host mirror, which then ships in ONE upload."""
+        """The static (nslots, max_pages) int32 block tables every pooled
+        step graph reads (``_bt_dev``), brought up to the allocator's
+        mutation version: on a bump only the rows of rids whose page list
+        changed (``consume_dirty``) are rewritten in the host mirror,
+        which then ships in ONE copy into the buffer.  Called only after
+        the commit point, so what the buffer holds (``_bt_cache``) is
+        never a rolled-back attempt's."""
         v = self.allocator.version
-        if self._bt_cache is not None and self._bt_cache[0] == v:
-            return self._bt_cache[1]
+        if self._bt_cache == v:
+            return self._bt_dev
         t0 = time.perf_counter()
         if self._bt_host is None:
             self._bt_host = np.zeros((self.ecfg.nslots, self.max_pages),
@@ -1150,11 +1241,10 @@ class Engine:
             if self.allocator.has(rid):
                 pages = self.allocator.table(rid).pages
                 row[:len(pages)] = pages
-        # copy: the upload must not alias the mirror edited in place
-        self._bt_cache = (v, torch.from_numpy(self._bt_host.copy()).to(
-            self.device))
+        self._bt_dev.copy_(torch.from_numpy(self._bt_host))
+        self._bt_cache = v
         self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
-        return self._bt_cache[1]
+        return self._bt_dev
 
     def _swap_time(self, n_kvs: int) -> float:
         return self.cost_model.swap_time(n_kvs) if self.cost_model else 0.0
@@ -1200,14 +1290,9 @@ class Engine:
 
     def _merge(self, active: torch.Tensor,
                new_cache: Dict[str, torch.Tensor]) -> None:
-        """Take the rows of ``active`` (nslots,) from ``new_cache``; the
-        other slots keep their state bit for bit (JAX's masked merge)."""
-        for k, new in new_cache.items():
-            # leaves are (L, nslots, ...), the index (nslots,)
-            shape = (-1,) if new.dim() == 1 else \
-                (1, -1) + (1,) * (new.dim() - 2)
-            self.cache[k] = torch.where(active.reshape(shape), new,
-                                        self.cache[k])
+        """Take the rows of ``active`` (nslots,) from ``new_cache`` into
+        the engine's cache leaves, in place (``merge_rows``)."""
+        merge_rows(self.cache, active, new_cache)
 
     def _prefill_many(self, tokens: torch.Tensor,
                       lengths: torch.Tensor) -> torch.Tensor:
@@ -1229,32 +1314,30 @@ class Engine:
                             dim=-1).to(torch.int32)
 
     def _run_prefills_batched(self, prefill_items) -> Dict[int, int]:
-        """Slot plane: the shared round loop over ``_prefill_many``
-        (starts are implicit in the cache index)."""
+        """Slot plane: the shared round loop over the bucket graphs of
+        ``_prefill_many`` (starts are implicit in the cache index)."""
         plans = [[r, self.slot_of[r.rid], r.m, c] for r, c in prefill_items]
         emits = {r.rid: r.m + c == r.target_context for r, c in prefill_items}
 
         def step(toks, lens, starts):
-            t0 = time.perf_counter()        # one upload: [toks | lens]
-            grid = torch.from_numpy(np.concatenate(
-                [toks, lens[:, None]], axis=1)).to(self.device)
-            self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+            g = self._prefill_graph(toks.shape[1])   # [toks | lens]
+            self._upload(g.inputs[0], np.concatenate([toks, lens[:, None]],
+                                                     axis=1))
             self.prefill_rounds += 1
-            return self._prefill_many(grid[:, :-1], grid[:, -1])
+            return g()
 
         return self._run_prefill_rounds(plans, emits, step)
 
     def _run_decodes_batched(self, decode_items) -> np.ndarray:
-        """Slot plane: one decode step over all slots, kept by the rows of
-        ``decode_items``."""
+        """Slot plane: one decode-graph replay over all slots, kept by the
+        rows of ``decode_items``."""
         packed = np.zeros((2, self.ecfg.nslots), np.int32)   # toks, active
         for r, _ in decode_items:
             packed[:, self.slot_of[r.rid]] = (self.token_ids[r.rid][-1], 1)
-        t0 = time.perf_counter()
-        dev = torch.from_numpy(packed).to(self.device)       # ONE upload
-        self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+        g = self._decode_graph()
+        self._upload(g.inputs[0], packed)
         self.decode_steps += 1
-        tok_ids = self._decode_many(dev[0], dev[1].bool())
+        tok_ids = g()
         return tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
 
     def _run_prefills_paged(self, prefill_items) -> Dict[int, int]:
@@ -1266,63 +1349,52 @@ class Engine:
             skip = self._prefix_skip.pop(r.rid, 0)
             plans.append([r, self.slot_of[r.rid], r.m + skip, c - skip])
         emits = {r.rid: r.m + c == r.target_context for r, c in prefill_items}
-        block_tables = self._block_tables_device()
+        self._block_tables_device()
 
         def step(toks, lens, starts):
             # one coalesced upload per round: [toks | lens | starts]
-            t0 = time.perf_counter()
-            grid = torch.from_numpy(np.concatenate(
-                [toks, lens[:, None], starts[:, None]], axis=1)).to(
-                    self.device)
-            self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+            g = self._prefill_graph(toks.shape[1])
+            self._upload(g.inputs[0], np.concatenate(
+                [toks, lens[:, None], starts[:, None]], axis=1))
             self.prefill_rounds += 1
-            return self._paged_prefill(self.params, self.k_pools,
-                                       self.v_pools, grid[:, :-2],
-                                       grid[:, -1], grid[:, -2],
-                                       block_tables)
+            return g()
 
         return self._run_prefill_rounds(plans, emits, step)
 
     def _run_decodes_paged(self, decode_items) -> np.ndarray:
-        """One fused decode step over all slots against the pooled KV.
+        """One decode-graph replay over all slots against the pooled KV.
 
-        Steady-state decode uploads NOTHING: the inputs of step N+1 are
-        step N's own device outputs — last step's argmax ids ARE this
-        step's tokens, and ctx advances by the active mask — so a stable
-        cohort runs entirely device-resident.  The cohort key is (rid,
-        slot, m, len(token_ids)) per row: any admission, finish,
-        preemption or recompute-refill perturbs it and forces one packed
-        re-upload.  Non-cohort rows carry garbage on a hit, harmlessly:
-        inactive rows write only the sentinel page and their outputs are
-        never read."""
+        Steady-state decode uploads NOTHING: the graph ends by writing
+        step N+1's inputs into its own cohort buffer -- step N's argmax
+        ids ARE the next tokens, and ctx advances by the active mask --
+        so a stable cohort runs entirely device-resident.  The cohort is
+        carried in that input buffer, never in a graph output: every
+        graph of the engine shares one memory pool, so a prefill replay
+        between two decode steps may overwrite any graph's outputs.  The
+        cohort key is (rid, slot, m, len(token_ids)) per row: any
+        admission, finish, preemption or recompute-refill perturbs it and
+        forces one packed re-upload.  Non-cohort rows carry garbage on a
+        hit, harmlessly: inactive rows write only the sentinel page and
+        their outputs are never read."""
         nslots = self.ecfg.nslots
         key = tuple(sorted(
             (r.rid, self.slot_of[r.rid], r.m, len(self.token_ids[r.rid]))
             for r, _ in decode_items))
         st = self._decode_state
-        t0 = time.perf_counter()
-        if st is not None and st["key"] == key:
-            toks_dev, ctx_dev = st["toks"], st["ctx"]
-            active_dev, ones = st["active"], st["ones"]
-        else:
+        g = self._decode_graph()
+        if st is None or st["key"] != key:
             packed = np.zeros((3, nslots), np.int32)   # toks, ctx, active
             for r, _ in decode_items:
                 slot = self.slot_of[r.rid]
                 packed[:, slot] = (self.token_ids[r.rid][-1], r.m, 1)
-            dev = torch.from_numpy(packed).to(self.device)  # ONE upload
-            toks_dev, ctx_dev, ones = dev[0], dev[1], dev[2]
-            active_dev = ones.bool()
-        self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+            self._upload(g.inputs[0], packed)
+        self._block_tables_device()
         self.decode_steps += 1
-        tok_ids = self._paged_decode(
-            self.params, self.k_pools, self.v_pools, toks_dev, ctx_dev,
-            self._block_tables_device(), active_dev)
+        tok_ids = g()
         nxt = tuple(sorted(
             (r.rid, self.slot_of[r.rid], r.m + 1,
              len(self.token_ids[r.rid]) + 1) for r, _ in decode_items))
-        self._decode_state = {"key": nxt, "toks": tok_ids,
-                              "ctx": ctx_dev + ones,
-                              "active": active_dev, "ones": ones}
+        self._decode_state = {"key": nxt}
         return tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
 
     # ------------------------------------------------------------------ #
@@ -1387,17 +1459,23 @@ class Engine:
         JAX engine's ``_begin_txn`` captures.
 
         Device state: JAX restores its immutable cache and pools by
-        reference.  The port writes them in place, so it saves the same
-        references (and the cache's leaf map, whose leaves the slot
-        plane's merge replaces) and relies on the commit point: before
-        ``_commit`` an attempt writes no page of the pools and no slot of
-        the cache, and no fault point follows it, so the references
-        restore every page and slot bit for bit.
+        reference.  The port writes them in place -- the slot plane's
+        merge too, into the same leaves -- so it saves the same
+        references (and the cache's leaf map) and relies on the commit
+        point: before ``_commit`` an attempt writes no page of the pools
+        and no slot of the cache, and no fault point follows it, so the
+        references restore every page and slot bit for bit.  Every graph
+        replay (and every upload into a graph's static input) comes after
+        ``_commit``, so an aborted attempt leaves those buffers as they
+        were too; the step graphs are captured against the pools and the
+        leaves, which a restore rebinds to the same objects (each call of
+        a graph checks it).
 
         Port-only state: the block-table mirror ``_bt_host`` is deep
-        copied (rows are rewritten in place); ``_bt_cache`` is keyed by
-        ``allocator.version``, which rolls back with the allocator;
-        ``_decode_state`` is replaced wholesale per step; the
+        copied (rows are rewritten in place); ``_bt_cache`` is the
+        ``allocator.version`` that ``_bt_dev`` holds, which rolls back
+        with the allocator; ``_decode_state`` (the cohort key of the
+        decode graph's buffer) is replaced wholesale per step; the
         ``_pending_*`` maps carry ``Transfer``s, shared by reference like
         their entries (a re-drain lands an entry once, ``_land``).  Not
         state: ``_link._held`` holds pinned sources until their copies

@@ -20,6 +20,10 @@ A Python loop over the stacked layer params replaces ``lax.scan``.  The
 pools are updated IN PLACE (the JAX steps return new pools): the engine
 holds one copy of them.  Sampling is fused: greedy argmax over the real
 vocabulary on the device, and only ``(B,)`` int32 ids are returned.
+
+``decode_and_advance`` is the engine's decode graph: one decode step over
+a ``(3, B)`` cohort buffer, which it then advances in place to the next
+step's inputs, so a steady cohort needs no upload between replays.
 """
 from __future__ import annotations
 
@@ -128,3 +132,19 @@ def build_paged_fns(cfg: ModelConfig) -> Tuple[Callable, Callable]:
         return _finish(params, x[:, 0])
 
     return prefill_fn, decode_fn
+
+
+def decode_and_advance(decode_fn: Callable, params: Any,
+                       k_pools: torch.Tensor, v_pools: torch.Tensor,
+                       cohort: torch.Tensor,
+                       block_tables: torch.Tensor) -> torch.Tensor:
+    """One ``decode_fn`` step over ``cohort`` (3, B) int32, rows [tokens,
+    ctx, active], then the next step's inputs written into the same
+    buffer: tokens <- the sampled ids, ctx += active.  Returns the ids
+    (the tokens row, a view of ``cohort``)."""
+    toks, ctx, active = cohort.unbind(0)
+    ids = decode_fn(params, k_pools, v_pools, toks, ctx, block_tables,
+                    active.bool())
+    toks.copy_(ids)
+    ctx.add_(active)
+    return toks
