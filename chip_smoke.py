@@ -195,16 +195,42 @@ Phases — each raises on failure, so any failure exits non-zero:
    capture); then the smoke workload served through the graphs (fp32
    tokens equal to phase 3's, bf16 ones counted against phases 4 and 11)
    and the wall of a decode-only batch.
+21. The other data planes (``repro_torch.launch.serve.smoke_plane_server``:
+   phase 3's engine settings and workload).  First B1 through
+   ``kernels.paged_attention.ops.decode_attention_dense`` (the smoke
+   engine's 8 x 512-token slot cache viewed as 64-token pages, identity
+   tables, contexts 260-295) in fp32 and bf16: one launch of the dtype's
+   variant, against its plain version (``TOL``) and plain attention over
+   the dense cache.  Then TinyLlama-1.1B at full width on phase 3/4's
+   weights on ``plane="batched"`` with ``impl="paged"`` (its replays first
+   held against eager calls on cloned random state, as in phase 20), on
+   ``batched`` with ``decode_append="deferred"`` and on
+   ``plane="legacy"``: B1 launches = layers x decode steps through
+   ``split_simt`` (fp32) or ``split_mma`` (bf16) on the ``impl="paged"``
+   run and 0 on the others, B2 none; ``num_graphs == len(buckets) + 1``
+   before and after with replays = rounds + steps (legacy: the decode
+   graph alone, replayed once per decode step, its prefill eager).  fp32:
+   16/16 requests equal to phase 3's references (and so to its paged
+   outputs); bf16: tokens/s, the wall of a decode-only batch and the
+   requests equal to phase 4's outputs (printed, not a gate).  RWKV6-7B
+   fp32 at 4 layers on ``legacy`` and ``batched`` with
+   ``decode_append="deferred"``: tokens against phase 10's references
+   under its tie rule, B4 launches = layers x prefill rounds (the legacy
+   plane's rounds are its exact-shape chunk calls).  B1 on the dense
+   view is timed with the kernels (phase 4's method).
 
 Each phase prints the seconds since the start when it is done; phase
 20's three engines run after phase 18's fp32 and bf16 serves and phase
-15's bf16 one, on their weights.
+15's bf16 one, on their weights; phase 21's TinyLlama runs after phase
+20's fp32 and bf16 engines, its RWKV6-7B runs after phase 19.
 
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
 ``split_mma`` kernel, ``paged_prefill`` and ``flash_attention`` the bf16
-``wgmma`` kernels, ``..._simt`` the fp32 CUDA-core ones, ``wkv6`` B4's
-column-split ``colsplit`` kernel) and ``{"ok": true, "device": {...}}``.
+``wgmma`` kernels, ``..._simt`` the fp32 CUDA-core ones,
+``paged_decode_dense`` B1 on the dense view of the slot cache, ``wkv6``
+B4's column-split ``colsplit`` kernel) and ``{"ok": true, "device":
+{...}}``.
 ``--report PATH`` also writes every measurement as JSON.  Without a CUDA
 device, or outside a checkout of the repository, the script exits with
 code 1 and prints no result.
@@ -1488,7 +1514,8 @@ def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params, preempt_mode="recompute",
             "decode_steps": eng.decode_steps,
             "preemptions": res.metrics.num_preemptions,
             "diverged": diverged, "counts": swap_summary(res),
-            "recovery": recovery_summary(res)}
+            "recovery": recovery_summary(res), "outputs": res.outputs,
+            "references": refs}
 
 
 def phase_rwkv_serve_bf16(torch, wkv, cfg, params, preempt_mode="recompute"):
@@ -2270,6 +2297,219 @@ def phase_graphs(torch, label, server, cfg, params, want, seed=23):
 
 
 # --------------------------------------------------------------------- #
+# phase 21: the dense slot-resident planes and the legacy plane
+# --------------------------------------------------------------------- #
+
+#: phase 21's TinyLlama runs: name -> ``smoke_plane_server`` settings
+PLANE_RUNS = {"batched": dict(plane="batched", impl="paged"),
+              "deferred": dict(plane="batched", decode_append="deferred"),
+              "legacy": dict(plane="legacy")}
+#: ... and RWKV6-7B's (``rwkv_smoke_server`` settings)
+RWKV_PLANE_RUNS = {"legacy": dict(plane="legacy"),
+                   "deferred": dict(decode_append="deferred")}
+#: B1 on the dense view: the smoke engine's slot cache (B, H, Hkv, D,
+#: cache_len) as 64-token pages, contexts 260-295 as in phase 4
+DENSE_VIEW = (8, 32, 4, 64, 512)
+DENSE_PAGE = 64
+
+
+def dense_view_case(torch, inp, dtype):
+    """(q, k pool, v pool, identity tables, ctx): a random dense slot
+    cache viewed as B1's pools, as ``decode_attention_dense`` views it;
+    also the dense (B, S, Hkv, D) K/V it views."""
+    B, H, Hkv, D, S = DENSE_VIEW
+    q = inp.randn(B, H, D, dtype=dtype)
+    k, v = (inp.randn(B, S, Hkv, D, dtype=dtype) for _ in range(2))
+    n = S // DENSE_PAGE
+    bt = (torch.arange(B * n, device=DEVICE, dtype=torch.int32)
+          .view(B, n))
+    ctx = torch.tensor([260 + 5 * b for b in range(B)], dtype=torch.int32,
+                       device=DEVICE)
+    pool = (k.view(B * n, DENSE_PAGE, Hkv, D), v.view(B * n, DENSE_PAGE, Hkv,
+                                                      D))
+    return (q, *pool, bt, ctx), (k, v)
+
+
+def phase_dense_view(torch, pa, ref, pa_ops):
+    """B1 through ``decode_attention_dense`` at the dense view's shapes:
+    one launch of the dtype's variant, against the plain version on the
+    same view (``TOL``) and against plain attention over the first ctx
+    keys of the dense cache."""
+    inp = Inputs(torch, 21)
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        (q, kp, vp, bt, ctx), (k, v) = dense_view_case(torch, inp, dtype)
+        what = f"decode_attention_dense {dtype}"
+        before = dict(pa.paged_decode_cuda.launches_by_variant)
+        got = pa_ops.decode_attention_dense(q, k, v, ctx,
+                                            page_size=DENSE_PAGE)
+        one_launch_of(pa.paged_decode_cuda, before, dtype, what,
+                      DECODE_VARIANT)
+        errs[dtype] = compare(torch, got, ref.paged_decode_reference(
+            q, kp, vp, bt, ctx), dtype, what)
+        S, Hkv = k.shape[1], k.shape[2]
+        keep = torch.arange(S, device=DEVICE)[None] < ctx[:, None]
+        qg = q.float().view(q.shape[0], Hkv, -1, q.shape[2])
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) / math.sqrt(
+            q.shape[2])
+        w = torch.softmax(s.masked_fill(~keep[:, None, None], -1e30), -1)
+        plain = torch.einsum("bhgk,bkhd->bhgd", w, v.float()).view(q.shape)
+        compare(torch, got, plain, dtype, what + " vs dense attention")
+    print(f"decode_attention_dense (B1 on the dense view, "
+          f"{DENSE_VIEW[0]} x {DENSE_VIEW[4]} tokens, page {DENSE_PAGE}): "
+          f"max abs err {errs}")
+    return errs
+
+
+def check_plane_graphs(eng, before, label):
+    """``check_graph_run``; on the legacy plane: the decode graph alone,
+    replayed once per decode step, no prefill graph, no eager step."""
+    if eng.ecfg.plane != "legacy":
+        return check_graph_run(eng, before, label)
+    n0, r0, e0 = before
+    n1, r1, e1 = graph_counts(eng)
+    check(n0 == n1 == 1, f"{label}: {n0} step graphs before the run, {n1} "
+          "after; expected the decode graph alone")
+    check(r1 - r0 == eng.decode_steps and e1 == e0,
+          f"{label}: {r1 - r0} replays and {e1 - e0} eager graph calls for "
+          f"{eng.decode_steps} decode steps")
+    check(eng.num_compiles == 0, f"{label}: num_compiles moved")
+    return {"graphs": n1, "replays": r1 - r0,
+            "capture_s": eng.graphs.capture_s}
+
+
+def serve_plane(torch, counters, server, cfg, params, label, replay=False,
+                **kw):
+    """A warmed slot-plane engine's run of its smoke workload, the
+    ``counters`` zeroed just before it: (engine, requests, result, wall s,
+    graph counts, replay-vs-eager comparison or None)."""
+    eng, reqs = server(cfg, params, device=DEVICE, **kw)
+    check(eng.cache is not None and eng.k_pools is None,
+          f"{label}: not on the slot-resident plane")
+    cmp = replay_vs_eager(torch, eng, seed=29) if replay else None
+    for what, c in (cmp or {}).items():
+        check(c["close"], f"{label} {what}: replay and eager call differ "
+              f"beyond {TOL[cfg.dtype]}: {c}")
+    torch.cuda.synchronize()
+    zero_counts(*counters)
+    before = graph_counts(eng)
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    graphs = check_plane_graphs(eng, before, label)
+    check(all(r.finished for r in reqs), f"{label}: unfinished requests")
+    return eng, reqs, res, wall, graphs, cmp
+
+
+def phase_planes(torch, pa, cfg, params, want):
+    """Phase 21 for TinyLlama-1.1B at full width: ``smoke_plane_server``
+    on each of ``PLANE_RUNS``.  B1 launches = layers x decode steps through
+    the dtype's variant on the ``impl="paged"`` run and 0 on the others,
+    B2 none; the graph counts of ``check_plane_graphs``; the batched run's
+    replays against eager calls on cloned state first.  fp32: every
+    request's tokens equal ``want`` (phase 3's references, which phase 3's
+    outputs equal); bf16: the requests equal to ``want`` (phase 4's
+    outputs) counted, tokens/s and the wall of a decode-only batch."""
+    from repro_torch.launch.serve import smoke_plane_server
+    fp32 = cfg.dtype == "float32"
+    tag = "fp32" if fp32 else "bf16"
+    variant, L = DECODE_VARIANT[cfg.dtype], cfg.num_layers
+    out = {}
+    for name, kw in PLANE_RUNS.items():
+        label = f"{tag} {name} plane serve ({kw})"
+        eng, reqs, res, wall, graphs, cmp = serve_plane(
+            torch, (pa.paged_decode_cuda, pa.paged_prefill_cuda),
+            smoke_plane_server, cfg, params, label,
+            replay=name == "batched", **kw)
+        b1 = dict(pa.paged_decode_cuda.launches_by_variant)
+        b1_want = L * eng.decode_steps if kw.get("impl") == "paged" else 0
+        check(b1 == {**dict.fromkeys(b1, 0), variant: b1_want}
+              and eng.decode_steps > 0,
+              f"{label}: paged_decode launches by variant {b1}, expected "
+              f"{b1_want} through {variant}")
+        check(pa.paged_prefill_cuda.launches == 0,
+              f"{label}: paged_prefill launched on the slot plane")
+        tokens = sum(len(o) for o in res.outputs.values())
+        same = sum(res.outputs[r.rid] == want[r.rid] for r in reqs)
+        # the first position where each differing request leaves ``want``
+        first = sorted(next(i for i, (a, b) in enumerate(
+            zip(res.outputs[r.rid], want[r.rid])) if a != b)
+            for r in reqs if res.outputs[r.rid] != want[r.rid])
+        step_ms = decode_step_ms(res)
+        print(f"{label}: {tokens} tokens in {wall:.3f} s = "
+              f"{tokens / wall:.1f} tok/s; {eng.prefill_rounds} prefill "
+              f"rounds, {eng.decode_steps} decode steps, {graphs['replays']}"
+              f" replays of {graphs['graphs']} graphs; wall of a "
+              f"decode-only batch {step_ms:.3f} ms; preemptions "
+              f"{res.metrics.num_preemptions}; paged_decode {b1}; "
+              f"{same}/{len(reqs)} requests token-identical to phase "
+              f"{3 if fp32 else 4}"
+              + (f" (the others first differ at output positions {first})"
+                 if first else "")
+              + ("" if cmp is None else "; replays vs eager: " + ", ".join(
+                  f"{w} {'bit-equal' if c['bit_equal'] else c['max_abs']}"
+                  for w, c in cmp.items())))
+        check(same == len(reqs) or not fp32,
+              f"{label}: {same}/{len(reqs)} requests equal to "
+              "generate_reference")
+        out[name] = {"wall_s": wall, "tokens": tokens,
+                     "tok_per_s": tokens / wall, "decode_step_ms": step_ms,
+                     "prefill_rounds": eng.prefill_rounds,
+                     "decode_steps": eng.decode_steps,
+                     "decode_variants": b1, "graphs": graphs,
+                     "preemptions": res.metrics.num_preemptions,
+                     "same_tokens": same, "first_differences": first,
+                     "phase_stats": res.phase_stats,
+                     "replay_vs_eager": cmp}
+    return out
+
+
+def phase_rwkv_planes(torch, wkv, M, cfg, params, refs):
+    """Phase 21 for RWKV6-7B in fp32 at ``RWKV_FP32_LAYERS``: the smoke
+    workload on each of ``RWKV_PLANE_RUNS``; tokens against phase 10's
+    ``generate_reference`` tokens (``refs``) under its top-2 tie rule; B4
+    launches = layers x prefill rounds (the legacy plane's rounds are its
+    exact-shape chunk calls)."""
+    from repro_torch.launch.serve import rwkv_smoke_server
+    L, out = cfg.num_layers, {}
+    for name, kw in RWKV_PLANE_RUNS.items():
+        label = f"RWKV6-7B fp32 {name} plane serve ({kw})"
+        eng, reqs, res, wall, graphs, _ = serve_plane(
+            torch, (wkv.wkv6_cuda,), rwkv_smoke_server, cfg, params, label,
+            **kw)
+        launches = wkv.wkv6_cuda.launches
+        check(launches == L * eng.prefill_rounds > 0,
+              f"{label}: wkv6 launched {launches} times, expected {L} x "
+              f"{eng.prefill_rounds} prefill rounds")
+        diverged = {}
+        for r in reqs:
+            got, want = res.outputs[r.rid], refs[r.rid]
+            check(len(got) == len(want), f"rid {r.rid}: {len(got)} tokens")
+            if got != want:
+                pos = next(i for i, (a, b) in enumerate(zip(got, want))
+                           if a != b)
+                diverged[r.rid] = (pos, reference_top2_gap(
+                    torch, M, cfg, params, r.prompt, want, pos))
+        print(f"{label}: {sum(len(o) for o in res.outputs.values())} tokens "
+              f"in {wall:.3f} s; {eng.prefill_rounds} prefill rounds, "
+              f"{eng.decode_steps} decode steps, {graphs['replays']} "
+              f"replays; wkv6 launches {launches} = {L} x "
+              f"{eng.prefill_rounds}; {len(reqs) - len(diverged)}/"
+              f"{len(reqs)} requests token-identical to generate_reference"
+              + (f", divergences (position, reference top-2 gap) {diverged}"
+                 if diverged else ""))
+        check(all(gap < TIE_GAP for _, gap in diverged.values()),
+              f"{label}: tokens differ from generate_reference beyond a "
+              f"tie: {diverged}")
+        out[name] = {"wall_s": wall, "launches": launches,
+                     "prefill_rounds": eng.prefill_rounds,
+                     "decode_steps": eng.decode_steps, "graphs": graphs,
+                     "diverged": diverged}
+    return out
+
+
+# --------------------------------------------------------------------- #
 
 def ptxas_report(log: str):
     """(kernel, "N registers, S bytes spill stores, ...") per entry
@@ -2314,6 +2554,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.paged_attention import ref
     from repro_torch.kernels.rwkv_scan import ref as wref
@@ -2360,6 +2601,7 @@ def main(argv=None) -> int:
         errs["flash_attention"] = phase_flash_kernel(torch, fa, fref)
         errs["wkv6"] = phase_wkv_kernel(torch, wkv, wref, pick_chunk,
                                         SMOKE_RWKV_ENGINE.nslots)
+        errs["paged_decode_dense"] = phase_dense_view(torch, pa, ref, pa_ops)
         lap("kernel checks")
         race = phase_transfer_race(torch, M, get_config)
         torch.cuda.empty_cache()
@@ -2379,6 +2621,8 @@ def main(argv=None) -> int:
         graphs = {"float32": phase_graphs(torch, "fp32 graphs", smoke_server,
                                           cfg, params, fp32["outputs"])}
         lap("fp32 graphs")
+        planes32 = phase_planes(torch, pa, cfg, params, fp32["references"])
+        lap("fp32 planes")
         prefill = phase_full_prefill(torch, fa, M, cfg, params)
         lap("full prefill")
 
@@ -2397,8 +2641,10 @@ def main(argv=None) -> int:
         lap("bf16 faulted swap serve")
         graphs["bfloat16"] = phase_graphs(torch, "bf16 graphs", smoke_server,
                                           cfg16, params16, bf16["outputs"])
-        del params16
         lap("bf16 graphs")
+        planes16 = phase_planes(torch, pa, cfg16, params16, bf16["outputs"])
+        del params16
+        lap("bf16 planes")
 
     train = phase_train(torch)
     torch.cuda.empty_cache()
@@ -2426,6 +2672,8 @@ def main(argv=None) -> int:
                                                   ecfg), dtype)
             times["flash_attention" + sfx] = time_flash(
                 torch, fa, fref, flash_case(inp, *FLASH_MAIN, dtype), dtype)
+            times["paged_decode_dense" + sfx] = time_decode(
+                torch, pa, ref, dense_view_case(torch, inp, dtype)[0], dtype)
         flash_more = {
             "bfloat16_S2048": time_flash(
                 torch, fa, fref, flash_case(inp, *FLASH_LONG, "bfloat16"),
@@ -2447,9 +2695,12 @@ def main(argv=None) -> int:
         rwkv32_faulted = phase_rwkv_serve_fp32(
             torch, wkv, M, rcfg, rparams, preempt_mode="swap",
             faults=FaultSpec(**MIXED))
+        lap("RWKV6-7B fp32 faulted swap serve")
+        rwkv_planes = phase_rwkv_planes(torch, wkv, M, rcfg, rparams,
+                                        rwkv32["references"])
         del rparams
         torch.cuda.empty_cache()
-        lap("RWKV6-7B fp32 faulted swap serve")
+        lap("RWKV6-7B fp32 planes")
         rcfg16 = dataclasses.replace(get_config(SMOKE_RWKV_ARCH),
                                      dtype="bfloat16")
         rparams16 = M.init_params(rcfg16, seed=0, device=DEVICE)
@@ -2498,6 +2749,14 @@ def main(argv=None) -> int:
         ("flash_attention_simt", "flash_attention", "simt", "float32",
          prefill["variants"]["simt"], errs["flash_attention"]["main_float32"],
          "full-prefill shapes B2 S512 H32 Hkv4"),
+        ("paged_decode_dense", "paged_decode", "split_mma", "bfloat16",
+         planes16["batched"]["decode_variants"]["split_mma"],
+         errs["paged_decode_dense"]["bfloat16"],
+         "dense view of the slot cache, page 64"),
+        ("paged_decode_dense_simt", "paged_decode", "split_simt", "float32",
+         planes32["batched"]["decode_variants"]["split_simt"],
+         errs["paged_decode_dense"]["float32"],
+         "dense view of the slot cache, page 64"),
         ("wkv6", "wkv6", "colsplit", "float32", rwkv32["launches"],
          errs["wkv6"]["main_float32"], "engine round B{} S{} H{} D{}".format(
              SMOKE_RWKV_ENGINE.nslots, *WKV_ROUND)),
@@ -2550,6 +2809,8 @@ def main(argv=None) -> int:
                   rollback=rollback, faulted_serve_fp32=faulted32,
                   faulted_serve_bf16=faulted16,
                   rwkv_faulted_serve_fp32=rwkv32_faulted, graphs=graphs,
+                  planes_fp32=planes32, planes_bf16=planes16,
+                  rwkv_planes_fp32=rwkv_planes,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

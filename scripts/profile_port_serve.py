@@ -3,16 +3,24 @@
 
     python3 scripts/profile_port_serve.py [--arch tinyllama-1.1b|rwkv6-7b]
                                           [--workload smoke|swap]
+                                          [--plane paged|batched|legacy]
+                                          [--impl reference|paged|flash_jnp]
+                                          [--decode-append inline|deferred]
+                                          [--window mid|tail]
                                           [--dtype bfloat16] [--report PATH]
                                           [--src DIR]
 
 Serves the smoke workload of ``repro_torch.launch.serve.smoke_server``
-(full-width TinyLlama-1.1B, the paged engine, its two CUDA kernels), with
+(full-width TinyLlama-1.1B, the paged engine, its two CUDA kernels; with
+``--plane batched`` or ``legacy`` ``smoke_plane_server``'s slot-resident
+planes, ``--impl`` and ``--decode-append`` picking their decode), with
 ``--workload swap`` that of ``smoke_swap_server`` (the same model under
 swap, tail sheds and the host demotion tier; the swap walls are printed
 too), or with ``--arch rwkv6-7b`` that of ``rwkv_smoke_server`` (full-width
 RWKV6-7B, the slot-resident plane, the WKV6 kernel), twice: once plainly, for the wall time per step, and once with engine
-steps 40-59 (decode steps, mostly) under
+steps 40-59 (decode steps, mostly; ``--window tail``: the run's last 20
+steps, all decode steps, so the device time per decode step compares
+across planes whose schedules differ) under
 ``torch.profiler`` (CPU + CUDA activities, a device sync after each
 step), for the device time and launch counts by kernel name; the
 device's busy share is that device time over the unprofiled wall of the
@@ -21,7 +29,8 @@ kernel launches and CUDA graph launches (an engine with step graphs
 replays one graph per prefill round and decode step; the kernels inside
 a replay are still traced one by one).  It also times the host's cost of
 enqueuing one tiny eager op.  Prints a table of the top kernels,
-the device time of the WKV6 kernel (B4) in the window, and one JSON
+the device time of the paged decode (B1) and the WKV6 kernel (B4) in the
+window, and one JSON
 summary line; ``--report`` writes the summary as a file.  ``--src DIR``
 profiles the ``repro_torch`` of another tree (a parent checkout unpacked
 under an ignored directory), so a parent and a change run in one call.
@@ -32,6 +41,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -105,6 +115,15 @@ def main(argv=None) -> int:
                     choices=["tinyllama-1.1b", "rwkv6-7b"])
     ap.add_argument("--workload", default="smoke", choices=["smoke", "swap"],
                     help="TinyLlama only: smoke_server or smoke_swap_server")
+    ap.add_argument("--plane", default="paged",
+                    choices=["paged", "batched", "legacy"],
+                    help="TinyLlama smoke only: smoke_plane_server's plane")
+    ap.add_argument("--impl", default="reference",
+                    choices=["reference", "paged", "flash_jnp"])
+    ap.add_argument("--decode-append", default="inline",
+                    choices=["inline", "deferred"])
+    ap.add_argument("--window", default="mid", choices=["mid", "tail"],
+                    help="profile engine steps 40-59, or the last 20")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--report")
@@ -138,12 +157,19 @@ def main(argv=None) -> int:
         pa.build_all()
         server = smoke_swap_server if args.workload == "swap" \
             else smoke_server
+        if args.plane != "paged":
+            assert args.workload == "smoke", "--plane serves the smoke one"
+            from repro_torch.launch.serve import smoke_plane_server
+            server = functools.partial(
+                smoke_plane_server, plane=args.plane, impl=args.impl,
+                decode_append=args.decode_append)
     cfg = dataclasses.replace(get_config(args.arch), dtype=args.dtype)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     out = {"arch": args.arch, "dtype": args.dtype, "workload": args.workload,
-           "card": smi.stdout.strip().splitlines()[0]}
+           "plane": args.plane, "impl": args.impl,
+           "decode_append": args.decode_append, "card": smi.stdout.strip().splitlines()[0]}
     with torch.no_grad():
         params = M.init_params(cfg, seed=0, device="cuda")
 
@@ -171,19 +197,22 @@ def main(argv=None) -> int:
                    wall_ms_per_decode_step=sum(dec) / len(dec) * 1e3,
                    prefill_s=eng.phase_stats["prefill_s"])
 
-        # profiled: engine steps WAIT..WAIT+ACTIVE only (mostly decode)
+        # profiled: engine steps wait..wait+ACTIVE only (mostly decode; the
+        # last ACTIVE steps with --window tail)
+        wait = WAIT if args.window == "mid" else len(plain) - ACTIVE
         eng, reqs = server(cfg, params)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
-                     schedule=schedule(wait=WAIT - 1, warmup=1,
+                     schedule=schedule(wait=wait - 1, warmup=1,
                                        active=ACTIVE, repeat=1)) as prof:
             marks = instrument(torch, eng, prof.step)
             eng.run(reqs)
-        (t0, p0, d0), (t1, p1, d1) = marks[WAIT - 1], marks[WAIT + ACTIVE - 1]
+        (t0, p0, d0), (t1, p1, d1) = marks[wait - 1], marks[wait + ACTIVE - 1]
         # the schedule is deterministic: the same steps, unprofiled
         window = {"steps": ACTIVE, "prefill_rounds": p1 - p0,
                   "decode_steps": d1 - d0, "profiled_wall_s": t1 - t0,
-                  "wall_s": plain[WAIT + ACTIVE - 1][0] - plain[WAIT - 1][0]}
+                  "first_step": wait,
+                  "wall_s": plain[wait + ACTIVE - 1][0] - plain[wait - 1][0]}
 
     by_kernel, launches = kernel_summary(prof)
     n_kernels = sum(c for c, _ in by_kernel.values())
@@ -193,10 +222,13 @@ def main(argv=None) -> int:
                device_ms_per_step=device_s / ACTIVE * 1e3,
                device_busy_share=device_s / window["wall_s"])
     out["top_kernels"] = top_kernels(by_kernel)
-    wkv = [(c, t) for name, (c, t) in by_kernel.items() if "wkv6" in name]
-    out["wkv6"] = {"count": sum(c for c, _ in wkv),
-                   "ms": sum(t for _, t in wkv) / 1e3}
-    print(f"{out['card']}, {args.arch} {args.dtype} {args.workload}: "
+    for key, sub in (("wkv6", "wkv6"), ("paged_decode", "paged_decode")):
+        hits = [(c, t) for name, (c, t) in by_kernel.items() if sub in name]
+        out[key] = {"count": sum(c for c, _ in hits),
+                    "ms": sum(t for _, t in hits) / 1e3}
+    print(f"{out['card']}, {args.arch} {args.dtype} {args.workload} "
+          f"(plane {args.plane}, impl {args.impl}, "
+          f"{args.decode_append}): "
           f"{out['tok_per_s']:.1f} tok/s, swap walls {out['swap_walls']}; "
           f"{steps} steps ({eng.decode_steps} decode) in {wall:.3f} s "
           f"unprofiled = "
@@ -213,10 +245,13 @@ def main(argv=None) -> int:
           f"unprofiled wall)")
     for k in out["top_kernels"]:
         print(f"  {k['ms']:10.2f} ms  {k['count']:7d}  {k['name']}")
-    share = out["wkv6"]["ms"] / 1e3 / device_s
-    print(f"wkv6 (B4) in the window: {out['wkv6']['ms']:.3f} ms in "
-          f"{out['wkv6']['count']} launches ({share:.1%} of the device "
-          f"time); tree {src}")
+    for key, what in (("paged_decode", "B1, split and merge kernels"),
+                      ("wkv6", "B4")):
+        share = out[key]["ms"] / 1e3 / device_s
+        print(f"{key} ({what}) in the window: {out[key]['ms']:.3f} ms in "
+              f"{out[key]['count']} launches ({share:.1%} of the device "
+              f"time)")
+    print(f"tree {src}")
     print(json.dumps(out))
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,6 @@
 """Distributed layer of the port: so far the fault-tolerance primitives
-(the mesh, sharding and collectives wait for ROADMAP A13)."""
+and the single-device decode-attention partials (``collectives``); the
+mesh, sharding and the sharded collectives wait for ROADMAP A13."""
 from repro_torch.distributed.fault_tolerance import (  # noqa: F401
     StragglerEvent,
     StragglerMonitor,

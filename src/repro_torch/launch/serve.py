@@ -13,11 +13,15 @@ paged kernels take); weights are random, from ``--seed``.
 ``smoke_server`` builds the card's fixed smoke workload (full-width
 TinyLlama-1.1B, a shared-prefix workload with registry hits and recompute
 preemptions) that ``chip_smoke.py`` and ``scripts/profile_port_serve.py``
-both serve; ``rwkv_smoke_server`` the RWKV6-7B one (8 requests of 60-300
-prompt tokens on 4 slots, with recompute or, given ``preempt_mode``, swap
-preemptions); ``smoke_swap_server`` the swap one (TinyLlama-1.1B on
-Zipf-hot prompt templates, with swap preemptions, tail sheds and the
-host demotion tier).
+both serve; ``smoke_plane_server`` the same engine settings and workload
+on another data plane (the dense slot-resident ``batched`` plane with a
+decode ``impl`` and ``decode_append``, or the ``legacy`` plane);
+``rwkv_smoke_server`` the RWKV6-7B one (8 requests of 60-300 prompt
+tokens on 4 slots, with recompute or, given ``preempt_mode``, swap
+preemptions; ``plane`` and ``decode_append`` as above);
+``smoke_swap_server`` the swap one (TinyLlama-1.1B on Zipf-hot prompt
+templates, with swap preemptions, tail sheds and the host demotion
+tier).
 """
 from __future__ import annotations
 
@@ -70,6 +74,23 @@ def smoke_server(cfg, params, device: str = "cuda"):
     return eng, shared_prefix(**SMOKE_WORKLOAD)
 
 
+def smoke_plane_server(cfg, params, device: str = "cuda",
+                       plane: str = "batched", impl: str = "reference",
+                       decode_append: str = "inline"):
+    """``smoke_server``'s engine settings, scheduler and workload on the
+    data plane ``plane`` (``"batched"``: the slot-resident cache with the
+    decode attention ``impl`` and ``decode_append``; ``"legacy"``: the
+    per-request exact-shape prefill), warmed."""
+    sched = make_scheduler("vllm", SMOKE_M, S=SMOKE_ENGINE.cache_len,
+                           replacement="srf")
+    eng = Engine(cfg, params, sched,
+                 replace(SMOKE_ENGINE, plane=plane, impl=impl,
+                         decode_append=decode_append),
+                 cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
+                 device=device).warmup()
+    return eng, shared_prefix(**SMOKE_WORKLOAD)
+
+
 # the RWKV6 smoke workload: 8 requests (one prompt of prime length, 127)
 # of 32 output tokens on 4 slots, chunk 64, over an 800-token budget that
 # forces recompute preemptions (2 on this schedule)
@@ -89,17 +110,20 @@ def rwkv_smoke_requests(vocab: int, seed: int = 0):
 
 
 def rwkv_smoke_server(cfg, params, device: str = "cuda",
-                      preempt_mode: str = "recompute", faults=None):
+                      preempt_mode: str = "recompute", faults=None,
+                      plane: str = "batched", decode_append: str = "inline"):
     """A warmed slot-plane ``Engine`` (vLLM scheduler, SRF replacement)
     and fresh requests of the RWKV6 smoke workload, for ``cfg``/``params``
     of ``SMOKE_RWKV_ARCH`` in any dtype (or depth); ``preempt_mode="swap"``
     suspends its victims' slots to the host instead of recomputing them,
-    and ``faults`` (a ``serving.faults.FaultSpec``) injects faults."""
+    ``faults`` (a ``serving.faults.FaultSpec``) injects faults, and
+    ``plane="legacy"`` / ``decode_append="deferred"`` pick those paths."""
     sched = make_scheduler("vllm", SMOKE_RWKV_M,
                            S=SMOKE_RWKV_ENGINE.cache_len, replacement="srf",
                            preempt_mode=preempt_mode)
     eng = Engine(cfg, params, sched,
-                 replace(SMOKE_RWKV_ENGINE, faults=faults),
+                 replace(SMOKE_RWKV_ENGINE, faults=faults, plane=plane,
+                         decode_append=decode_append),
                  cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
                  device=device).warmup()
     return eng, rwkv_smoke_requests(cfg.vocab_size)

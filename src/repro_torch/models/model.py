@@ -9,12 +9,17 @@ Public API (functional, on nested dicts of tensors):
   prefill(cfg, params, batch, cache_len, impl=...) -> (last_logits, cache)
   prefill_chunk(cfg, params, tokens, cache, length=...) -> (logits, cache)
   decode_step(cfg, params, tokens, cache, impl=...) -> (logits, cache)
+  decode_step_deferred(cfg, params, tokens, cache, impl=...)
+                                              -> (logits, cache)
   init_cache(cfg, batch, cache_len, device=...) -> cache
 
 ``impl="flash"`` runs the full-sequence attention of ``train_loss`` and
 ``prefill`` on the hand-written flash-attention kernel (forward-only:
 a backward through it raises, as the JAX package has none either);
-decode takes the reference branch for it, as in JAX.
+decode takes the reference branch for it, as in JAX.  The dense decode's
+``impl="paged"`` runs the paged decode kernel on the contiguous cache
+and ``"flash_jnp"`` the chunked online-softmax loop
+(``models.attention``); ``"seqsharded"`` is ROADMAP A13.
 
 The cache dict carries "index" (B,) = tokens already in context (== next
 absolute position), plus, for the dense family, "k"/"v" of shape
@@ -22,11 +27,10 @@ absolute position), plus, for the dense family, "k"/"v" of shape
 (L, B, H, D, D) fp32 and the token-shift samples "x_tm"/"x_cm"
 (L, B, 1, d).  RWKV6's full-sequence time-mix runs on the WKV6 kernel
 (``kernels.rwkv_scan``), forward-only, so ``train_loss`` refuses it
-(ROADMAP A9); ``prefill_chunk`` (the batched plane's chunk step) is
-ported for RWKV6 only (the dense family's needs ``attention_chunk`` with
-a length mask, ROADMAP A5).  Mixture-of-experts, sliding-window/hybrid
-and the VLM/audio frontends raise ``ValueError`` naming the ROADMAP item
-that ports them.
+(ROADMAP A9).  ``prefill_chunk`` (the slot planes' chunk step) and
+``decode_step_deferred`` (one cache scatter per step) run both families.
+Mixture-of-experts, sliding-window/hybrid and the VLM/audio frontends
+raise ``ValueError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -44,10 +48,9 @@ from repro_torch.models.common import (Params, embed_init, gated_mlp,
                                        softmax_cross_entropy)
 
 
-def check_supported(cfg: ModelConfig, *, train: bool = False,
-                    chunked: bool = False) -> None:
+def check_supported(cfg: ModelConfig, *, train: bool = False) -> None:
     """Raise ``ValueError`` unless ``cfg`` is a family this port runs
-    (``train``: one it trains; ``chunked``: one ``prefill_chunk`` runs)."""
+    (``train``: one it trains)."""
     if cfg.num_experts:
         raise ValueError(f"{cfg.name}: mixture-of-experts layers are not "
                          "ported yet (ROADMAP A7)")
@@ -61,10 +64,6 @@ def check_supported(cfg: ModelConfig, *, train: bool = False,
     if cfg.family not in ("dense", "ssm") or cfg.frontend != "none":
         raise ValueError(f"{cfg.name}: the {cfg.family!r} family/frontends "
                          "are not ported yet (ROADMAP A10)")
-    if chunked and cfg.family != "ssm":
-        raise ValueError(f"{cfg.name}: prefill_chunk on the dense family "
-                         "needs attention_chunk with a length mask, not "
-                         "ported yet (ROADMAP A5)")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -282,6 +281,29 @@ def _stack(layer_caches: List[Dict[str, torch.Tensor]]
             for k in layer_caches[0]}
 
 
+def _block_chunk(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                 layer_cache: Dict[str, torch.Tensor], start: torch.Tensor,
+                 impl: str, length: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Chunked-prefill block continuing from the layer's cache (JAX's
+    ``_block_chunk``): x (B, c, d), ``start`` (B,) the chunk's first
+    position; ``length`` (B,) marks each row's real prefix, and padded
+    steps leave the cache and state as they were."""
+    if cfg.family == "ssm":
+        return _rwkv_block(cfg, lp, x, layer_cache, length)
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, kv = attn.attention_chunk(lp["attn"], cfg, h, layer_cache, start,
+                                 impl=impl, length=length)
+    x = x + a
+    x = x + gated_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x, kv
+
+
+def _cache_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The cache leaves stacked on L (every leaf but ``index``)."""
+    return SSM_LEAVES if cfg.family == "ssm" else ("k", "v")
+
+
 def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   cache: Dict[str, torch.Tensor], *,
                   impl: str = "reference",
@@ -289,24 +311,28 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the next c prompt tokens of each row against an existing
     cache (chunked prefill): tokens (B, c); ``cache["index"]`` (B,) =
-    tokens already cached.  Returns (last-token logits (B, Vpad), a new
-    cache with index += c); the input cache is not modified.
+    tokens already cached (the absolute position of ``tokens[:, 0]``).
+    Returns (last-token logits (B, Vpad), a new cache with index += c);
+    the input cache is not modified.
 
     ``length`` (B,) makes the call shape-stable (the engine's bucketed
     rounds): only the first ``length[b]`` tokens of row b are real, the
     logits row is the last valid token's, ``index`` advances by
-    ``length``, and padded steps leave the state as it was.  Rows with
-    length 0 are inert (logits garbage, state untouched).  RWKV6 only;
-    ``impl`` is accepted for the JAX signature (no attention here)."""
-    check_supported(cfg, chunked=True)
+    ``length``, and every cache leaf is as an unpadded call of
+    ``length[b]`` tokens leaves it (bit for bit on the dense family).
+    Rows with length 0 are inert (logits garbage, state untouched).
+    ``impl`` is accepted for the JAX signature: neither package's chunk
+    step has a kernel choice."""
+    check_supported(cfg)
     B, c = tokens.shape
     start = cache["index"]
     x = _embed(cfg, params, tokens)
     layer_caches = []
     for l, lp in enumerate(unstack_layers(params)):
-        x, st = _rwkv_block(cfg, lp, x, {k: cache[k][l] for k in SSM_LEAVES},
-                            length)
-        layer_caches.append(st)
+        x, lc = _block_chunk(cfg, lp, x,
+                             {k: cache[k][l] for k in _cache_leaves(cfg)},
+                             start, impl, length)
+        layer_caches.append(lc)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     if length is None:
         x_last, advance = x[:, -1], c
@@ -320,21 +346,16 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return _logits(cfg, params, x_last), out
 
 
-#: decode backends of the JAX package that this port does not have yet
-_DECODE_IMPL_ITEMS = {"paged": "A5", "flash_jnp": "A5", "seqsharded": "A13"}
-
-
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Dict[str, torch.Tensor], *, impl: str = "reference"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens (B,) or (B, 1); one decode step.  Returns (logits (B, Vpad),
-    a new cache with index + 1); the input cache is not modified.
-    ``impl`` "reference" and "flash" (and any other the JAX package
-    sends to its reference branch) take the reference decode."""
+    a new cache with index + 1); the input cache is not modified.  The
+    dense family's attention backend is ``impl`` ("paged", "flash_jnp";
+    "reference", "flash" and any other the JAX package sends to its
+    reference branch take the reference decode; "seqsharded" raises,
+    A13); RWKV6 ignores it, as in JAX."""
     check_supported(cfg)
-    if impl in _DECODE_IMPL_ITEMS:
-        raise ValueError(f"decode impl={impl!r} is not ported yet (ROADMAP "
-                         f"{_DECODE_IMPL_ITEMS[impl]})")
     if tokens.ndim == 1:
         tokens = tokens[:, None]
     index = cache["index"]
@@ -346,7 +367,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, kv = attn.attention_decode(lp["attn"], cfg, h,
                                       {"k": cache["k"][l],
-                                       "v": cache["v"][l]}, index)
+                                       "v": cache["v"][l]}, index,
+                                      impl=impl)
         x = x + a
         x = x + gated_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
         ks.append(kv["k"])
@@ -355,6 +377,47 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     logits = _logits(cfg, params, x[:, 0])
     return logits, {"index": index + 1, "k": torch.stack(ks),
                     "v": torch.stack(vs)}
+
+
+def decode_step_deferred(cfg: ModelConfig, params: Params,
+                         tokens: torch.Tensor,
+                         cache: Dict[str, torch.Tensor], *,
+                         impl: str = "reference"
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step with a DEFERRED cache append (JAX's
+    ``decode_step_deferred``): every layer reads the cache as it stands
+    (``attention_decode_deferred``) and returns its new token's K/V, and
+    ONE scatter over (L, rows, slot) writes them all after the layer loop
+    instead of one cache write per layer.  Equal to ``decode_step`` up to
+    the fp32 merge of the new token's softmax group.  RWKV6's states are
+    the delta: its step is ``decode_step``'s.  Returns (logits (B, Vpad),
+    a new cache with index + 1); the input cache is not modified."""
+    check_supported(cfg)
+    if tokens.ndim == 1:
+        tokens = tokens[:, None]
+    index = cache["index"]
+    x = _embed(cfg, params, tokens)
+    if cfg.family == "ssm":
+        return _decode_rwkv(cfg, params, x, cache)
+    ks, vs = [], []
+    for l, lp in enumerate(unstack_layers(params)):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a, delta = attn.attention_decode_deferred(
+            lp["attn"], cfg, h, {"k": cache["k"][l], "v": cache["v"][l]},
+            index, impl=impl)
+        x = x + a
+        x = x + gated_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+        ks.append(delta["k_new"])
+        vs.append(delta["v_new"])
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = _logits(cfg, params, x[:, 0])
+    B, Smax = tokens.shape[0], cache["k"].shape[2]
+    rows = torch.arange(B, device=tokens.device)
+    slot = torch.clamp(index, max=Smax - 1)
+    new_k, new_v = cache["k"].clone(), cache["v"].clone()
+    new_k[:, rows, slot] = torch.stack(ks)          # (L, B, Hkv, D)
+    new_v[:, rows, slot] = torch.stack(vs)
+    return logits, {"index": index + 1, "k": new_k, "v": new_v}
 
 
 def _decode_rwkv(cfg: ModelConfig, params: Params, x: torch.Tensor,

@@ -1,6 +1,7 @@
 """Continuous-batching serving engine on PyTorch — the paper's deployment
-path (Fig. 1) with the paged data plane on hand-written CUDA kernels, and
-the slot-resident plane for RWKV6.
+path (Fig. 1) with the paged data plane on hand-written CUDA kernels, the
+slot-resident planes for the dense family and RWKV6, and the legacy
+plane.
 
 The engine drives the unified ``Scheduler`` (Algorithm 1) against the
 real model.  Memory accounting (the scheduler's M) is backed by a
@@ -34,14 +35,25 @@ the paged flash-decoding kernel.  On top of the pooled pages:
 
 The slot-resident plane (``plane="batched"``, and ``plane="paged"`` on a
 family whose state is not worth paging: RWKV6's is O(1) per request, as
-in the JAX engine): every slot's recurrent state lives in one cache of
-``models.model.init_cache(cfg, nslots, ...)``.  A prefill round is ONE
-``prefill_chunk`` call over ``(nslots, bucket)`` tokens and ``(nslots,)``
-lengths (the WKV6 kernel runs once per layer), a decode step one
-``decode_step`` over all slots; each merges its new state into the
-active rows only, and a claimed slot's state is zeroed first.  The
-allocator still keeps the page-rounded control plane (the scheduler's
-M); prefix sharing, which maps KV pages, runs on the pooled plane only.
+in the JAX engine): every slot's state -- the dense family's contiguous
+K/V rows (``index``, ``k``, ``v``), RWKV6's recurrent state -- lives in
+one cache of ``models.model.init_cache(cfg, nslots, cache_len)``.  A
+prefill round is ONE ``prefill_chunk`` call over ``(nslots, bucket)``
+tokens and ``(nslots,)`` lengths (the WKV6 kernel runs once per layer on
+RWKV6), a decode step one decode over all slots; each merges its new
+state into the active rows only, and a claimed slot's state is zeroed
+first.  ``EngineConfig.impl`` picks the dense decode's attention
+(``"paged"``: the paged decode kernel on the contiguous cache viewed as
+64-token pages), and ``decode_append="deferred"`` writes a step's new
+K/V with one scatter after the layer loop.  The allocator still keeps
+the page-rounded control plane (the scheduler's M); prefix sharing,
+which maps KV pages, runs on the pooled plane only.
+
+The legacy plane (``plane="legacy"``, the JAX engine's first plane, kept
+as the baseline of ``benchmarks/fig_engine_wall.py``): the same slot
+cache, but each request's prefill is an exact-shape chunk loop on its
+own slot (``prefill_chunk`` with no ``length`` on a one-slot gather,
+written back into the same leaves).  Its decode is the slot plane's.
 
 Preemption follows ``SchedulerConfig.preempt_mode``, as in the JAX
 engine: ``recompute`` frees a victim's pages (or slot) and its
@@ -92,7 +104,7 @@ Differences from the JAX engine (``repro.serving.engine``):
 * Compiled steps are CUDA graphs (``serving.step_graphs``).  Where the
   JAX engine jits each plane step, the port captures one graph per step
   shape: one prefill round per ladder bucket and one decode step, on
-  both planes, sharing one memory pool.  On a card every prefill round
+  every plane, sharing one memory pool.  On a card every prefill round
   and decode step after a graph's first call is one ``replay()``; the
   step reads static input buffers the engine uploads into (the packed
   round grid, the decode cohort, the block tables) and writes the pools
@@ -102,10 +114,13 @@ Differences from the JAX engine (``repro.serving.engine``):
   built (the same count on the CPU, where each call runs the same
   function eagerly over the same buffers) and stays a small constant
   during ``run``; ``num_compiles`` is 0, as nothing is traced or compiled
-  per signature (the CUDA kernels are built once per source).
-* Settings this port does not run yet (the dense family on the slot
-  plane and the ``legacy`` plane: A5d) raise ``ValueError`` naming the
-  ROADMAP item that will port them.
+  per signature (the CUDA kernels are built once per source).  The
+  legacy plane's prefill is the exception: it runs eagerly, as its exact
+  shapes (one JAX compile per tail length) are the point of the plane,
+  and only its decode step is a graph.
+* Settings this port does not run yet (mixture-of-experts A7, sliding
+  windows A8, other families A10, ``impl="seqsharded"`` A13) raise
+  ``ValueError`` naming the ROADMAP item that will port them.
 
 Correctness contract (tested against the JAX engine on the CPU, and
 against ``generate_reference`` on the card): scheduling, chunking,
@@ -170,8 +185,15 @@ class EngineConfig:
     #                                    victim fall back to recompute
     plane: str = "paged"          # "paged": pooled KV pages (dense) or
     #                               slot-resident state (RWKV6);
-    #                               "batched": slot-resident (RWKV6 only;
-    #                               dense is ROADMAP A5d); "legacy": A5d
+    #                               "batched": slot-resident, bucketed
+    #                               rounds; "legacy": slot-resident,
+    #                               per-request exact-shape prefill
+    impl: str = "reference"       # the slot planes' dense decode
+    #                               attention: "reference", "paged" (the
+    #                               paged decode kernel on the contiguous
+    #                               cache), "flash_jnp"
+    decode_append: str = "inline"  # "inline" | "deferred" (one cache
+    #                               scatter per step; slot planes)
     prefix_lookup: Optional[str] = None  # "trie" | "exact"; None keeps
     #                               the SchedulerConfig's choice, set it is
     #                               written through (like page_size)
@@ -233,13 +255,13 @@ def _validate(cfg: ModelConfig, ecfg: EngineConfig,
     scfg = scheduler.cfg
     if ecfg.plane not in ("batched", "legacy", "paged"):
         raise ValueError(f"unknown plane {ecfg.plane!r}")
-    if ecfg.plane == "legacy":
-        raise ValueError("plane 'legacy' is not ported (ROADMAP A5d)")
+    if ecfg.decode_append not in ("inline", "deferred"):
+        raise ValueError(f"unknown decode_append {ecfg.decode_append!r}")
     M.check_supported(cfg)         # dense and RWKV6 only (A7, A8, A10)
-    if ecfg.plane == "batched" and paged_supported(cfg):
-        raise ValueError("plane 'batched' (slot-resident KV) for the dense "
-                         "family is not ported (ROADMAP A5d); use "
-                         "plane='paged'")
+    if ecfg.impl == "seqsharded" and cfg.family != "ssm" \
+            and not (ecfg.plane == "paged" and paged_supported(cfg)):
+        raise ValueError("decode impl 'seqsharded' (a sequence-sharded "
+                         "cache) is not ported yet (ROADMAP A13)")
     if scfg.partial_preempt and not (ecfg.plane == "paged"
                                      and paged_supported(cfg)):
         raise ValueError("partial_preempt needs the pooled paged data plane")
@@ -284,6 +306,7 @@ class Engine:
         # pooled paged plane for unbounded dense attention; the bounded
         # state of RWKV6 stays slot-resident (and keeps no host tier)
         self._pooled = ecfg.plane == "paged" and paged_supported(cfg)
+        self._legacy = ecfg.plane == "legacy"
         self._demotion = bool(scheduler.cfg.cache_demotion) and self._pooled
         self.allocator = PagedAllocator(
             num_pages=max(1, -(-scheduler.cfg.M // ecfg.page_size)),
@@ -303,8 +326,9 @@ class Engine:
             self.k_pools = self.v_pools = None
             self.cache = M.init_cache(cfg, ecfg.nslots, ecfg.cache_len,
                                       device=device)
-            self._chunk_fn = build_prefill_chunk_fn(cfg)
-            self._decode_fn = build_decode_fn(cfg)
+            self._chunk_fn = build_prefill_chunk_fn(cfg, impl=ecfg.impl)
+            self._decode_fn = build_decode_fn(cfg, impl=ecfg.impl,
+                                              append=ecfg.decode_append)
         # shared-prefix bookkeeping: chained page keys per rid and the
         # per-grant data-plane skip from a registry hit
         self._page_keys_of: Dict[int, List[int]] = {}
@@ -403,9 +427,11 @@ class Engine:
         self._carry_swap_s = 0.0
         self._carry_out = 0
         # kernel-path step counts: prefill rounds and decode steps run
-        # (a round runs every layer's prefill kernel -- paged prefill, or
-        # WKV6 on the slot plane -- once; a paged decode step every
-        # layer's paged decode kernel)
+        # (a round -- on the legacy plane, one exact-shape chunk call --
+        # runs every layer's prefill kernel once: paged prefill, or WKV6
+        # on RWKV6's slots; a decode step on the pooled plane, or with
+        # impl="paged" on the dense slot plane, every layer's paged
+        # decode kernel)
         self.prefill_rounds = 0
         self.decode_steps = 0
         self.now = 0.0
@@ -415,15 +441,17 @@ class Engine:
     # ------------------------------------------------------------------ #
     def warmup(self) -> "Engine":
         """Capture every step graph the run loop can hit -- one prefill
-        round per ladder bucket and the decode step -- as the JAX
+        round per ladder bucket and the decode step; on the legacy plane,
+        whose prefill runs eagerly, the decode step only -- as the JAX
         engine's ``warmup`` compiles every signature.  Each graph's first
         call runs once with inert inputs (zero lengths, no active row):
         outputs are discarded, the allocator's pages and the slots' state
         stay bit-identical (inactive decode rows write only the sentinel
         page; the slot plane merges no row), and the step counters do not
         move."""
-        for g in [self._prefill_graph(b) for b in self.buckets] \
-                + [self._decode_graph()]:
+        prefill = [] if self._legacy else [self._prefill_graph(b)
+                                           for b in self.buckets]
+        for g in prefill + [self._decode_graph()]:
             g.inputs[0].zero_()
             g()
         self._decode_state = None     # its buffer holds no cohort now
@@ -439,7 +467,8 @@ class Engine:
     @property
     def num_graphs(self) -> int:
         """Step graphs built: ``len(buckets) + 1`` once every shape has
-        run (``warmup``), on the CPU and on a card alike."""
+        run (``warmup``), on the CPU and on a card alike; 1 (the decode
+        step) on the legacy plane, whose prefill builds none."""
         return len(self.graphs)
 
     # --- step graphs (serving.step_graphs) ------------------------------ #
@@ -1313,9 +1342,50 @@ class Engine:
         return torch.argmax(logits[:, :self.cfg.vocab_size],
                             dim=-1).to(torch.int32)
 
+    def _run_prefills_legacy(self, prefill_items) -> Dict[int, int]:
+        """The legacy plane (JAX's ``_run_prefills_legacy``): for each
+        request, an exact-shape chunk loop on its own slot -- a fresh
+        gather of the slot, ``prefill_chunk`` with no ``length``, the new
+        state written back into the same leaves (``restore_slot``: the
+        decode graph is captured against them).  Eager on every device:
+        one JAX compile per tail length is what this plane measures.
+        Each chunk call counts as a prefill round (it runs every layer's
+        prefill kernel once)."""
+        self._check_in_cache(prefill_items)
+        final_tok: Dict[int, int] = {}
+        for r, c in prefill_items:
+            slot = self._link.ids([self.slot_of[r.rid]])
+            ids = self.token_ids[r.rid]
+            start, remaining = r.m, c
+            logits = None
+            while remaining > 0:
+                step_c = min(self.ecfg.chunk, remaining)
+                toks = torch.tensor([ids[start:start + step_c]],
+                                    dtype=torch.int32, device=self.device)
+                logits, new = self._chunk_fn(
+                    self.params, toks, gather_slot(self.cache, slot), None)
+                restore_slot(self.cache, slot, new)
+                self.prefill_rounds += 1
+                start += step_c
+                remaining -= step_c
+            if r.m + c == r.target_context:   # this batch emits a token
+                final_tok[r.rid] = int(torch.argmax(  # repro: allow-host-sync(legacy plane: one sampled id per emitting request, as the JAX engine's _sample)
+                    logits[0, :self.cfg.vocab_size]))
+        return final_tok
+
+    def _check_in_cache(self, prefill_items) -> None:
+        """Every prompt token a slot plane writes lies inside the dense
+        cache: ``submit`` refuses a request whose peak KV exceeds
+        ``cache_len``, so the chunk step's wrap (``attention_chunk``;
+        JAX clamps such a token to the last slot instead) is never hit."""
+        invariant(self.cfg.family == "ssm" or all(
+            r.m + c <= self.ecfg.cache_len for r, c in prefill_items),
+            [(r.rid, r.m, c) for r, c in prefill_items])
+
     def _run_prefills_batched(self, prefill_items) -> Dict[int, int]:
         """Slot plane: the shared round loop over the bucket graphs of
         ``_prefill_many`` (starts are implicit in the cache index)."""
+        self._check_in_cache(prefill_items)
         plans = [[r, self.slot_of[r.rid], r.m, c] for r, c in prefill_items]
         emits = {r.rid: r.m + c == r.target_context for r, c in prefill_items}
 
@@ -1671,6 +1741,7 @@ class Engine:
         if prefill_items:
             t_pf = time.perf_counter()
             final_tok = (self._run_prefills_paged if self._pooled
+                         else self._run_prefills_legacy if self._legacy
                          else self._run_prefills_batched)(prefill_items)
             self.phase_stats[SK.PREFILL_S] += time.perf_counter() - t_pf
             for r, c in prefill_items:
@@ -1806,8 +1877,9 @@ def generate_reference(cfg: ModelConfig, params: Any, prompt: Sequence[int],
                        device: str = "cuda") -> List[int]:
     """Greedy generation of one request: full prefill + sequential decode
     through the dense-cache attention of ``models`` (no pages).
-    ``impl="flash"`` runs the prefill on the flash-attention kernel; the
-    decode takes the reference branch for every ``impl``, as in JAX.
+    ``impl="flash"`` runs the prefill on the flash-attention kernel (its
+    decode takes the reference branch, as in JAX); ``impl="paged"`` the
+    decode on the paged decode kernel over the contiguous cache.
     Sampling is on the device; only token ids reach the host."""
     vocab = cfg.vocab_size
     toks = torch.tensor([list(prompt)], dtype=torch.long, device=device)

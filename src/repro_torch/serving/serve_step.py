@@ -30,10 +30,10 @@ def build_prefill_chunk_fn(cfg: ModelConfig, *,
     """(params, tokens (B, bucket), cache, lengths (B,)) -> (logits, cache).
 
     The shape-stable bucketed chunk step of the engine's slot-resident
-    (batched) plane: tokens are padded to a fixed bucket length and
-    ``lengths`` marks each row's real prefix (0 = inert row).  Ported for
-    RWKV6; the dense family raises (ROADMAP A5)."""
-    M.check_supported(cfg, chunked=True)
+    (batched) plane, for the dense family and RWKV6: tokens are padded to
+    a fixed bucket length and ``lengths`` marks each row's real prefix
+    (0 = inert row)."""
+    M.check_supported(cfg)
 
     def chunk_step(params, tokens, cache, lengths):
         return M.prefill_chunk(cfg, params, tokens, cache, impl=impl,
@@ -44,13 +44,15 @@ def build_prefill_chunk_fn(cfg: ModelConfig, *,
 
 def build_decode_fn(cfg: ModelConfig, *, impl: str = "reference",
                     append: str = "inline") -> Callable:
-    """(params, tokens, cache) -> (logits, cache): one serve step."""
-    if append != "inline":
-        raise ValueError(f"decode append={append!r} is not ported yet "
-                         "(ROADMAP A11)")
+    """(params, tokens, cache) -> (logits, cache): one serve step;
+    ``append="deferred"`` writes the step's new K/V with one scatter
+    after the layer loop (``models.model.decode_step_deferred``)."""
+    if append not in ("inline", "deferred"):
+        raise ValueError(f"unknown decode append {append!r}")
+    step = M.decode_step_deferred if append == "deferred" else M.decode_step
 
     def serve_step(params, tokens, cache):
-        return M.decode_step(cfg, params, tokens, cache, impl=impl)
+        return step(cfg, params, tokens, cache, impl=impl)
 
     return serve_step
 

@@ -253,8 +253,11 @@ def test_tokens_equal_both_references(runs, models, name):
 
 
 @pytest.mark.parametrize("ekw,skw,item", [
-    (dict(plane="batched"), {}, "A5d"),
-    (dict(plane="legacy"), {}, "A5d"),
+    (dict(plane="batched", impl="seqsharded"), {}, "A13"),
+    (dict(plane="legacy", impl="seqsharded"), {}, "A13"),
+    (dict(plane="batched"), dict(partial_preempt=True),
+     "pooled paged data plane"),
+    (dict(decode_append="later"), {}, "unknown decode_append"),
 ])
 def test_unported_settings_raise(models, ekw, skw, item):
     _, tcfg, _, tp = models
@@ -498,7 +501,8 @@ def test_rwkv_step_counters_count_chunk_and_decode_calls(rwkv_models):
 
 
 @pytest.mark.parametrize("ekw,skw,item", [
-    (dict(plane="legacy"), {}, "A5d"),
+    (dict(plane="legacy"), dict(partial_preempt=True),
+     "pooled paged data plane"),
     ({}, dict(partial_preempt=True), "pooled paged data plane"),
 ])
 def test_rwkv_unported_settings_raise(rwkv_models, ekw, skw, item):

@@ -50,7 +50,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
               "kernels.flash_attention.ops", "training.train_step",
               "checkpoint.manager", "distributed.fault_tolerance",
               "data.synthetic", "launch.train", "kernels.rwkv_scan.ops",
-              "models.rwkv"):
+              "models.rwkv", "distributed.collectives"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -264,14 +264,20 @@ def test_causal_mask_options_match_jax(kw):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("impl,item", [("paged", "A5"), ("flash_jnp", "A5"),
-                                       ("seqsharded", "A13")])
-def test_unported_decode_impls_raise(models, impl, item):
+@pytest.mark.parametrize("fn,over,item", [
+    ("decode_step", {}, "A13"),
+    ("decode_step_deferred", {}, "A13"),
+    ("decode_step", dict(window=4), "A8"),
+])
+def test_unported_decode_impls_raise(models, fn, over, item):
+    """``impl="seqsharded"`` (a sequence-sharded cache) is A13 on both
+    decode paths; a sliding window is A8."""
     _, tcfg, _, tp = models
     cache = TM.init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(ValueError, match=item):
-        TM.decode_step(tcfg, tp, torch.zeros((1,), dtype=torch.long), cache,
-                       impl=impl)
+        getattr(TM, fn)(dataclasses.replace(tcfg, **over), tp,
+                        torch.zeros((1,), dtype=torch.long), cache,
+                        impl="seqsharded")
 
 
 def test_attention_full_refuses_window_and_short_cache(models):
@@ -301,7 +307,13 @@ def test_serve_step_builders(models):
     loss = SS.build_train_fn(tcfg, remat=False)(
         tp, {"tokens": toks, "labels": toks})
     assert loss.ndim == 0 and torch.isfinite(loss)
-    with pytest.raises(ValueError, match="A5"):
-        SS.build_prefill_chunk_fn(tcfg)
-    with pytest.raises(ValueError, match="A11"):
-        SS.build_decode_fn(tcfg, append="deferred")
+    # the slot planes' chunk step and the deferred-append decode
+    chunk = SS.build_prefill_chunk_fn(tcfg)(tp, toks, cache,
+                                            torch.tensor([7, 3]))
+    want = TM.prefill_chunk(tcfg, tp, toks, cache,
+                            length=torch.tensor([7, 3]))
+    torch.testing.assert_close(chunk[0], want[0])
+    deferred = SS.build_decode_fn(tcfg, append="deferred")(tp, nxt, cache)
+    torch.testing.assert_close(deferred[0], got[0], **TOL)
+    with pytest.raises(ValueError, match="unknown decode append"):
+        SS.build_decode_fn(tcfg, append="later")
