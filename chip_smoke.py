@@ -218,6 +218,31 @@ Phases — each raises on failure, so any failure exits non-zero:
    under its tie rule, B4 launches = layers x prefill rounds (the legacy
    plane's rounds are its exact-shape chunk calls).  B1 on the dense
    view is timed with the kernels (phase 4's method).
+22. The mixture-of-experts family (``models.moe``'s dense dispatch,
+   the engine's default), on ``smoke_server``'s engine and workload
+   (paged plane, page 16, 8 slots, ``cache_len`` 512, chunk 128, M=2048,
+   vLLM with SRF; 16 shared-prefix requests of 256 prompt and 48 output
+   tokens, ids over the model's vocabulary), after every earlier phase's
+   engines and weights are freed: qwen2-moe-a2.7b at full width (d=2048,
+   16 q / 16 kv heads of 128, 60 routed experts padded to 64 with top-4,
+   4 shared experts, ``moe_d_ff`` 1408, vocab 151936; random weights from
+   seed 0) in fp32 at ``MOE_FP32_LAYERS`` of its 24 layers (the fp32
+   weights at full depth are 60.6 GB) and in bf16 at full depth, and
+   qwen3-moe-30b-a3b at full widths (128 experts, top-8, 32 q over 4 kv
+   heads, qk-norm) at ``MOE3_LAYERS`` of 48 layers in fp32.  Each engine's
+   replays must be bit-equal to eager calls on cloned random state (phase
+   20's method); each run must replay its graphs alone and launch B1 and
+   B2 once per layer of every decode step and prefill round through its
+   dtype's variants; fp32 tokens must equal ``generate_reference`` (dense
+   dispatch) for every request, bf16 ones are counted.  Printed, not
+   gated: tokens/s, the wall of a decode-only batch, the decode graph's
+   replay time against the weight-read bound (the params' own bytes but
+   the embedding table's, over 3.35 TB/s; the dense dispatch reads all 64
+   experts), a full prefill round (T = 1024 rows) replayed and eagerly in
+   the dense and the sparse dispatch, and the phase's peak device memory.
+   Phase 2 also holds B1 and B2 at both models' serving shapes (q (8, 16,
+   128) against pools (P, 16, 16, 128); q (8, 128, 16, 128); and qwen3's
+   32 over 4 heads) against their plain versions, and phase 4 times them.
 
 Each phase prints the seconds since the start when it is done; phase
 20's three engines run after phase 18's fp32 and bf16 serves and phase
@@ -228,8 +253,9 @@ The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
 ``split_mma`` kernel, ``paged_prefill`` and ``flash_attention`` the bf16
 ``wgmma`` kernels, ``..._simt`` the fp32 CUDA-core ones,
-``paged_decode_dense`` B1 on the dense view of the slot cache, ``wkv6``
-B4's column-split ``colsplit`` kernel) and ``{"ok": true, "device":
+``paged_decode_dense`` B1 on the dense view of the slot cache,
+``paged_decode_moe`` / ``paged_prefill_moe`` B1 / B2 at qwen2-moe's
+serving shapes, ``wkv6`` B4's column-split ``colsplit`` kernel) and ``{"ok": true, "device":
 {...}}``.
 ``--report PATH`` also writes every measurement as JSON.  Without a CUDA
 device, or outside a checkout of the repository, the script exits with
@@ -457,24 +483,31 @@ def check_prefill(torch, pa, ref, case, dtype, what) -> float:
     return err
 
 
-def main_path_decode(torch, inp, dtype, P, ecfg):
+#: (H, Hkv, D) of the smoke models: TinyLlama-1.1B, and the MoE family's
+#: qwen2-moe (G = 1) and qwen3-moe (G = 8), both at head dim 128
+HEADS = {"tinyllama": (32, 4, 64), "qwen2_moe": (16, 16, 128),
+         "qwen3_moe": (32, 4, 128)}
+
+
+def main_path_decode(torch, inp, dtype, P, ecfg, heads=HEADS["tinyllama"]):
     """Decode at the serving shapes: 8 rows mid-generation (context ~270
-    of a 512-token budget), two prompt groups sharing 12 prefix pages."""
+    of a 512-token budget), two prompt groups sharing 12 prefix pages;
+    ``heads`` (H, Hkv, D) of the served model."""
     ns, page = ecfg.nslots, ecfg.page_size
     ctx = [260 + 5 * b for b in range(ns)]
-    return decode_case(torch, inp, ns, 32, 4, 64, page,
+    return decode_case(torch, inp, ns, *heads, page,
                        ecfg.cache_len // page, dtype, ctx, P=P,
                        shared=[((0, 2, 4, 6), 12), ((1, 3, 5, 7), 12)])
 
 
-def main_path_prefill(torch, inp, dtype, P, ecfg):
+def main_path_prefill(torch, inp, dtype, P, ecfg, heads=HEADS["tinyllama"]):
     """Prefill at the serving shapes: a 128-row bucket over 8 rows —
     first and second chunks of 256-token prompts, and two rows resuming
     after a 192-token attached prefix."""
     starts = [0, 128, 0, 128, 192, 192, 0, 128]
     lengths = [128, 128, 128, 128, 64, 64, 128, 128]
     page = ecfg.page_size
-    return prefill_case(torch, inp, ecfg.nslots, ecfg.chunk, 32, 4, 64, page,
+    return prefill_case(torch, inp, ecfg.nslots, ecfg.chunk, *heads, page,
                         ecfg.cache_len // page, dtype, starts, lengths, P=P,
                         shared=[((4, 5), 12)])
 
@@ -2511,6 +2544,219 @@ def phase_rwkv_planes(torch, wkv, M, cfg, params, refs):
 
 # --------------------------------------------------------------------- #
 
+# --------------------------------------------------------------------- #
+# phase 22: the mixture-of-experts family at full width
+# --------------------------------------------------------------------- #
+
+#: depth of the fp32 token checks at full width: qwen2-moe's fp32 weights
+#: at all 24 layers are 60.6 GB; qwen3-moe runs 4 of its 48 layers
+MOE_FP32_LAYERS = 4
+MOE3_LAYERS = 4
+
+
+def phase_moe_kernels(torch, pa, ref, P_main, ecfg):
+    """Phase 2 at the MoE serving shapes: B1 and B2 against their plain
+    versions with qwen2-moe's heads and qwen3-moe's, in both dtypes, on
+    the smoke engine's pages (B1 also repeated: the same bits)."""
+    inp = Inputs(torch, 5)
+    errs = {"paged_decode": {}, "paged_prefill": {}}
+    for dtype in ("float32", "bfloat16"):
+        for arch in ("qwen2_moe", "qwen3_moe"):
+            h = HEADS[arch]
+            errs["paged_decode"][f"{arch}_{dtype}"] = check_decode(
+                torch, pa, ref, main_path_decode(torch, inp, dtype, P_main,
+                                                 ecfg, h),
+                dtype, f"decode {arch} H{h[0]} Hkv{h[1]} D{h[2]} {dtype}",
+                repeat=True)
+            errs["paged_prefill"][f"{arch}_{dtype}"] = check_prefill(
+                torch, pa, ref, main_path_prefill(torch, inp, dtype, P_main,
+                                                  ecfg, h),
+                dtype, f"prefill {arch} H{h[0]} Hkv{h[1]} D{h[2]} {dtype}")
+    for k, e in errs.items():
+        print(f"{k} at the MoE serving shapes: max abs err "
+              + ", ".join(f"{w} {v:.3g}" for w, v in e.items()))
+    return errs
+
+
+def param_bytes(params, skip=("embed",)) -> int:
+    """Bytes of every leaf but ``skip``'s: what a decode step reads (the
+    embedding table gives it 8 rows)."""
+    out = 0
+    for k, v in params.items():
+        if k in skip:
+            continue
+        out += param_bytes(v, ()) if isinstance(v, dict) \
+            else v.numel() * v.element_size()
+    return out
+
+
+def event_ms(torch, fn, iters=10, warm=2) -> float:
+    """Mean device time of ``fn`` from CUDA events, no flush (a call that
+    reads gigabytes of weights is not helped by a 50 MB L2)."""
+    for _ in range(warm):
+        fn()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def moe_round_times(torch, eng, cfg, params):
+    """A full prefill round (every slot 128 tokens: T = 1024 rows through
+    every expert) timed as the captured graph and eagerly in the dense
+    and the sparse dispatch, and the decode graph's replay; after the
+    run, on its pools (the writes land in pages nobody reads again)."""
+    from repro_torch.serving.paged_plane import build_paged_fns
+    b = eng.buckets[-1]
+    ns = eng.ecfg.nslots
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size, (ns, b), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    lens = torch.full((ns,), b, dtype=torch.int32, device=DEVICE)
+    starts = torch.zeros((ns,), dtype=torch.int32, device=DEVICE)
+    g = eng._prefill_graph(b)
+    g.inputs[0].copy_(torch.cat([toks, lens[:, None], starts[:, None]], 1))
+    out = {"prefill_graph_ms": event_ms(torch, g)}
+    for impl in ("dense", "sparse"):
+        pf, _ = build_paged_fns(cfg, moe_impl=impl)
+        out[f"prefill_eager_{impl}_ms"] = event_ms(
+            torch, lambda: pf(params, eng.k_pools, eng.v_pools, toks, starts,
+                              lens, eng._bt_dev), iters=3, warm=1)
+    out["decode_graph_ms"] = event_ms(torch, eng._decode_graph())
+    return out
+
+
+def moe_serve(torch, pa, cfg, params, label, replays=True, refs=None):
+    """One MoE serve of ``smoke_server``'s engine and workload: replays
+    bit-equal to eager calls on cloned random state (``replays``), then
+    the run through the graphs with B1 and B2 launched once per layer of
+    every decode step and prefill round through the dtype's variants, and
+    the tokens against ``generate_reference`` (dense dispatch; required
+    equal in fp32, counted in bf16)."""
+    from repro_torch.launch.serve import SMOKE_ENGINE, smoke_server
+    from repro_torch.serving import generate_reference
+    dtype = cfg.dtype
+    t0 = time.perf_counter()
+    eng, reqs = smoke_server(cfg, params, device=DEVICE)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    cmp = {}
+    if replays:
+        cmp = replay_vs_eager(torch, eng, seed=29, device=DEVICE)
+        for what, c in cmp.items():
+            check(c["bit_equal"], f"{label} {what}: the replay differs from "
+                  f"the eager call on cloned state: {c}")
+        print(f"  {label}: {len(cmp)} replays bit-equal to their eager "
+              "calls on cloned random state")
+    torch.cuda.synchronize()
+    zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
+    before = graph_counts(eng)
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    graphs = check_graph_run(eng, before, label)
+    L = cfg.num_layers
+    launches = {"paged_decode": pa.paged_decode_cuda.launches,
+                "paged_prefill": pa.paged_prefill_cuda.launches}
+    variants = dict(pa.paged_prefill_cuda.launches_by_variant)
+    dvariants = dict(pa.paged_decode_cuda.launches_by_variant)
+    check(launches["paged_prefill"] == L * eng.prefill_rounds > 0,
+          f"{label}: paged_prefill launched {launches['paged_prefill']} "
+          f"times, expected {L} x {eng.prefill_rounds}")
+    check(launches["paged_decode"] == L * eng.decode_steps > 0,
+          f"{label}: paged_decode launched {launches['paged_decode']} "
+          f"times, expected {L} x {eng.decode_steps}")
+    check(variants[VARIANT[dtype]] == launches["paged_prefill"]
+          and dvariants[DECODE_VARIANT[dtype]] == launches["paged_decode"],
+          f"{label}: launches by variant {variants} / {dvariants}: every "
+          f"one should be {VARIANT[dtype]} / {DECODE_VARIANT[dtype]}")
+    check(all(r.finished for r in reqs), f"{label}: unfinished requests")
+    tokens = sum(len(o) for o in res.outputs.values())
+    out = {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
+           "built_s": built_s, "graphs": graphs, "replay_vs_eager": cmp,
+           "launches": launches, "prefill_variants": variants,
+           "decode_variants": dvariants,
+           "prefill_rounds": eng.prefill_rounds,
+           "decode_steps": eng.decode_steps,
+           "preemptions": res.metrics.num_preemptions,
+           "trie_hits": res.swap_stats["trie_hits"],
+           "decode_step_ms": decode_step_ms(res), "outputs": res.outputs,
+           "param_bytes": param_bytes(params)}
+    out.update(moe_round_times(torch, eng, cfg, params))
+    out["decode_bound_ms"] = out["param_bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"{label}: {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} "
+          f"tok/s; {eng.prefill_rounds} prefill rounds, {eng.decode_steps} "
+          f"decode steps, preemptions {res.metrics.num_preemptions}, prefix "
+          f"hits {res.swap_stats['trie_hits']}; launches {launches}; wall "
+          f"of a decode-only batch {out['decode_step_ms']:.3f} ms; decode "
+          f"graph replay {out['decode_graph_ms']:.3f} ms of device time "
+          f"against the weight-read bound {out['decode_bound_ms']:.3f} ms "
+          f"({out['param_bytes'] / 1e9:.2f} GB at 3.35 TB/s); a full "
+          f"prefill round (T = 1024) {out['prefill_graph_ms']:.2f} ms "
+          f"replayed, eager {out['prefill_eager_dense_ms']:.2f} ms dense / "
+          f"{out['prefill_eager_sparse_ms']:.2f} ms sparse dispatch")
+    del eng
+    t0 = time.perf_counter()
+    refs = dict(refs or {})
+    same, first = 0, {}
+    for r in reqs:
+        want = refs.get(r.rid)
+        if want is None:
+            want = refs[r.rid] = generate_reference(
+                cfg, params, r.prompt, r.output_len,
+                cache_len=SMOKE_ENGINE.cache_len, moe_impl="dense",
+                device=DEVICE)
+        got = res.outputs[r.rid]
+        if got == want:
+            same += 1
+        else:
+            first[r.rid] = next(i for i, (a, b) in enumerate(zip(got, want))
+                                if a != b)
+    print(f"{label} reference: {same}/{len(reqs)} requests token-identical "
+          f"({time.perf_counter() - t0:.1f} s)"
+          + (f"; first differences (rid: position) {first}" if first else ""))
+    check(same == len(reqs) or dtype != "float32",
+          f"{label}: tokens differ from generate_reference: {first}")
+    out.update(same_tokens=same, first_diffs=first)
+    return out
+
+
+def phase_moe(torch, pa, M, get_config):
+    """Phase 22: qwen2-moe at full width on ``smoke_server``'s engine and
+    workload, fp32 at ``MOE_FP32_LAYERS`` layers and bf16 at full depth,
+    and qwen3-moe at full widths and ``MOE3_LAYERS`` layers in fp32;
+    every earlier phase's engines and weights are gone by now."""
+    import gc
+    from repro_torch.launch.serve import SMOKE_MOE3_ARCH, SMOKE_MOE_ARCH
+    gc.collect()          # engines live in reference cycles: free them
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    base = get_config(SMOKE_MOE_ARCH)
+    for key, cfg in (
+            ("qwen2_fp32", dataclasses.replace(
+                base, dtype="float32", num_layers=MOE_FP32_LAYERS)),
+            ("qwen3_fp32", dataclasses.replace(
+                get_config(SMOKE_MOE3_ARCH), dtype="float32",
+                num_layers=MOE3_LAYERS)),
+            ("qwen2_bf16", dataclasses.replace(base, dtype="bfloat16"))):
+        params = M.init_params(cfg, seed=0, device=DEVICE)
+        label = f"MoE {cfg.name} {cfg.dtype} at {cfg.num_layers} layers"
+        out[key] = moe_serve(torch, pa, cfg, params, label)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"phase 22 peak device memory allocated: "
+          f"{out['max_memory_allocated'] / 2**30:.2f} GiB")
+    return out
+
+
 def ptxas_report(log: str):
     """(kernel, "N registers, S bytes spill stores, ...") per entry
     function of an ``nvcc -Xptxas -v`` log; the kernel named by its
@@ -2602,6 +2848,7 @@ def main(argv=None) -> int:
         errs["wkv6"] = phase_wkv_kernel(torch, wkv, wref, pick_chunk,
                                         SMOKE_RWKV_ENGINE.nslots)
         errs["paged_decode_dense"] = phase_dense_view(torch, pa, ref, pa_ops)
+        errs["moe"] = phase_moe_kernels(torch, pa, ref, P_main, ecfg)
         lap("kernel checks")
         race = phase_transfer_race(torch, M, get_config)
         torch.cuda.empty_cache()
@@ -2653,7 +2900,7 @@ def main(argv=None) -> int:
     with torch.no_grad():
         inp = Inputs(torch, 2)
         times = {}
-        decode_more = {}
+        decode_more, prefill_more = {}, {}
         # "paged_decode" / "paged_prefill" / "flash_attention" the bf16
         # (tensor-core) kernels, "..._simt" the fp32 (CUDA-core) ones
         for dtype, sfx in (("bfloat16", ""), ("float32", "_simt")):
@@ -2674,6 +2921,20 @@ def main(argv=None) -> int:
                 torch, fa, fref, flash_case(inp, *FLASH_MAIN, dtype), dtype)
             times["paged_decode_dense" + sfx] = time_decode(
                 torch, pa, ref, dense_view_case(torch, inp, dtype)[0], dtype)
+            # phase 4 at the MoE serving shapes (qwen2-moe's heads in the
+            # kernels' line; qwen3-moe's beside them)
+            for arch, key in (("qwen2_moe", "moe"), ("qwen3_moe", "moe3")):
+                h = HEADS[arch]
+                t = decode_more[f"{key}_{dtype}"] = time_decode(
+                    torch, pa, ref, main_path_decode(torch, inp, dtype,
+                                                     P_main, ecfg, h), dtype)
+                t["span"] = pa.decode_span(ecfg.nslots, h[1],
+                                           ecfg.cache_len)
+                prefill_more[f"{key}_{dtype}"] = time_prefill(
+                    torch, pa, ref, main_path_prefill(torch, inp, dtype,
+                                                      P_main, ecfg, h), dtype)
+            times["paged_decode_moe" + sfx] = decode_more[f"moe_{dtype}"]
+            times["paged_prefill_moe" + sfx] = prefill_more[f"moe_{dtype}"]
         flash_more = {
             "bfloat16_S2048": time_flash(
                 torch, fa, fref, flash_case(inp, *FLASH_LONG, "bfloat16"),
@@ -2725,6 +2986,9 @@ def main(argv=None) -> int:
         lap("wkv6 timing")
         link = phase_host_link(torch, M, get_config)
         lap("host link")
+        del inp
+        moe = phase_moe(torch, pa, M, get_config)
+        lap("MoE serve")
     # each entry: its launches on its main path (counts zeroed just before
     # that run), its comparison with the plain version at the main shapes,
     # and its times at those shapes
@@ -2760,6 +3024,23 @@ def main(argv=None) -> int:
         ("wkv6", "wkv6", "colsplit", "float32", rwkv32["launches"],
          errs["wkv6"]["main_float32"], "engine round B{} S{} H{} D{}".format(
              SMOKE_RWKV_ENGINE.nslots, *WKV_ROUND)),
+        # B1 and B2 at qwen2-moe's serving shapes (phase 22)
+        ("paged_decode_moe", "paged_decode", "split_mma", "bfloat16",
+         moe["qwen2_bf16"]["decode_variants"]["split_mma"],
+         errs["moe"]["paged_decode"]["qwen2_moe_bfloat16"],
+         "qwen2-moe serving shapes H16 Hkv16 D128"),
+        ("paged_decode_moe_simt", "paged_decode", "split_simt", "float32",
+         moe["qwen2_fp32"]["decode_variants"]["split_simt"],
+         errs["moe"]["paged_decode"]["qwen2_moe_float32"],
+         "qwen2-moe serving shapes H16 Hkv16 D128"),
+        ("paged_prefill_moe", "paged_prefill", "wgmma", "bfloat16",
+         moe["qwen2_bf16"]["prefill_variants"]["wgmma"],
+         errs["moe"]["paged_prefill"]["qwen2_moe_bfloat16"],
+         "qwen2-moe serving shapes H16 Hkv16 D128"),
+        ("paged_prefill_moe_simt", "paged_prefill", "simt", "float32",
+         moe["qwen2_fp32"]["prefill_variants"]["simt"],
+         errs["moe"]["paged_prefill"]["qwen2_moe_float32"],
+         "qwen2-moe serving shapes H16 Hkv16 D128"),
     ]
     kernels = []
     for entry, name, var, dtype, launches, err, shape in entries:
@@ -2785,6 +3066,11 @@ def main(argv=None) -> int:
               f"{t['plain_ms']:.4f} ms; sdpa {t['library_ms']:.4f} ms; bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.3g} B, "
               f"{t['ops']:.3g} ops)")
+    for what, t in prefill_more.items():
+        print(f"paged_prefill ({what}): {t['ms']:.4f} ms; plain "
+              f"{t['plain_ms']:.4f} ms; sdpa {t['library_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.3g} B, "
+              f"{t['ops']:.3g} ops)")
     for what, t in flash_more.items():
         print(f"flash_attention ({t['dtype']}, shape {t['shape']}, Hkv "
               f"{t['kv_heads']}): {t['ms']:.4f} ms; plain {t['plain_ms']:.4f}"
@@ -2799,6 +3085,7 @@ def main(argv=None) -> int:
     times["flash_attention_more"] = flash_more
     times["wkv6_more"] = wkv_more
     times["paged_decode_more"] = decode_more
+    times["paged_prefill_more"] = prefill_more
     report.update(errors=errs, serve_fp32=fp32, serve_bf16=bf16,
                   full_prefill=prefill, full_prefill_bf16=prefill16,
                   train=train, timings=times,
@@ -2810,7 +3097,7 @@ def main(argv=None) -> int:
                   faulted_serve_bf16=faulted16,
                   rwkv_faulted_serve_fp32=rwkv32_faulted, graphs=graphs,
                   planes_fp32=planes32, planes_bf16=planes16,
-                  rwkv_planes_fp32=rwkv_planes,
+                  rwkv_planes_fp32=rwkv_planes, moe=moe,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

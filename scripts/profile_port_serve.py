@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's served run goes, on one NVIDIA card.
 
-    python3 scripts/profile_port_serve.py [--arch tinyllama-1.1b|rwkv6-7b]
+    python3 scripts/profile_port_serve.py [--arch tinyllama-1.1b|rwkv6-7b|
+                                           qwen2-moe-a2.7b]
                                           [--workload smoke|swap]
                                           [--plane paged|batched|legacy]
                                           [--impl reference|paged|flash_jnp]
@@ -17,7 +18,9 @@ planes, ``--impl`` and ``--decode-append`` picking their decode), with
 ``--workload swap`` that of ``smoke_swap_server`` (the same model under
 swap, tail sheds and the host demotion tier; the swap walls are printed
 too), or with ``--arch rwkv6-7b`` that of ``rwkv_smoke_server`` (full-width
-RWKV6-7B, the slot-resident plane, the WKV6 kernel), twice: once plainly, for the wall time per step, and once with engine
+RWKV6-7B, the slot-resident plane, the WKV6 kernel), or with ``--arch
+qwen2-moe-a2.7b`` ``smoke_server``'s engine and workload on the MoE
+model (full width, the dense expert dispatch), twice: once plainly, for the wall time per step, and once with engine
 steps 40-59 (decode steps, mostly; ``--window tail``: the run's last 20
 steps, all decode steps, so the device time per decode step compares
 across planes whose schedules differ) under
@@ -112,7 +115,7 @@ def instrument(torch, eng, after):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tinyllama-1.1b",
-                    choices=["tinyllama-1.1b", "rwkv6-7b"])
+                    choices=["tinyllama-1.1b", "rwkv6-7b", "qwen2-moe-a2.7b"])
     ap.add_argument("--workload", default="smoke", choices=["smoke", "swap"],
                     help="TinyLlama only: smoke_server or smoke_swap_server")
     ap.add_argument("--plane", default="paged",
@@ -152,6 +155,10 @@ def main(argv=None) -> int:
     if args.arch == SMOKE_RWKV_ARCH:
         wkv.build_all()
         server = rwkv_smoke_server
+    elif args.arch != SMOKE_ARCH:          # the MoE smoke model
+        assert args.workload == "smoke" and args.plane == "paged"
+        pa.build_all()
+        server = smoke_server
     else:
         assert args.arch == SMOKE_ARCH
         pa.build_all()
@@ -167,7 +174,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
-    out = {"arch": args.arch, "dtype": args.dtype, "workload": args.workload,
+    out = {"arch": args.arch, "layers": cfg.num_layers, "dtype": args.dtype,
+           "workload": args.workload,
            "plane": args.plane, "impl": args.impl,
            "decode_append": args.decode_append, "card": smi.stdout.strip().splitlines()[0]}
     with torch.no_grad():
@@ -222,11 +230,13 @@ def main(argv=None) -> int:
                device_ms_per_step=device_s / ACTIVE * 1e3,
                device_busy_share=device_s / window["wall_s"])
     out["top_kernels"] = top_kernels(by_kernel)
-    for key, sub in (("wkv6", "wkv6"), ("paged_decode", "paged_decode")):
+    for key, sub in (("wkv6", "wkv6"), ("paged_decode", "paged_decode"),
+                     ("paged_prefill", "paged_prefill")):
         hits = [(c, t) for name, (c, t) in by_kernel.items() if sub in name]
         out[key] = {"count": sum(c for c, _ in hits),
                     "ms": sum(t for _, t in hits) / 1e3}
-    print(f"{out['card']}, {args.arch} {args.dtype} {args.workload} "
+    print(f"{out['card']}, {args.arch} ({cfg.num_layers} layers) "
+          f"{args.dtype} {args.workload} "
           f"(plane {args.plane}, impl {args.impl}, "
           f"{args.decode_append}): "
           f"{out['tok_per_s']:.1f} tok/s, swap walls {out['swap_walls']}; "
@@ -246,7 +256,7 @@ def main(argv=None) -> int:
     for k in out["top_kernels"]:
         print(f"  {k['ms']:10.2f} ms  {k['count']:7d}  {k['name']}")
     for key, what in (("paged_decode", "B1, split and merge kernels"),
-                      ("wkv6", "B4")):
+                      ("paged_prefill", "B2"), ("wkv6", "B4")):
         share = out[key]["ms"] / 1e3 / device_s
         print(f"{key} ({what}) in the window: {out[key]['ms']:.3f} ms in "
               f"{out[key]['count']} launches ({share:.1%} of the device "

@@ -1,5 +1,6 @@
 """Config registry: importing this package registers the architectures
-this port serves: the dense family and RWKV6 (``family="ssm"``)."""
+this port serves: the dense family, the mixture-of-experts family and
+RWKV6 (``family="ssm"``)."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ModelConfig,
@@ -16,5 +17,7 @@ from repro_torch.configs import (  # noqa: F401
     qwen3_4b,
     llama2_7b,
     llama3_8b,
+    qwen3_moe_30b_a3b,
+    qwen2_moe_a2_7b,
     rwkv6_7b,
 )

@@ -1,6 +1,5 @@
-"""Paper core: scheduling, cache management, cost models (a copy of
-``repro.core``'s modules; ``csp``, ``slo`` and the simulation loop are
-not part of this port yet)."""
+"""Paper core: scheduling, cache management, cost models, CSP, 5-min rule
+(a copy of ``repro.core``'s modules)."""
 from repro_torch.core.cost_model import (  # noqa: F401
     HARDWARE,
     BatchSpec,
@@ -12,6 +11,11 @@ from repro_torch.core.cost_model import (  # noqa: F401
     fit_linear_model,
     get_hardware,
     profile_synthetic,
+)
+from repro_torch.core.csp import (  # noqa: F401
+    CSPResult,
+    exists_schedule_below,
+    solve_optimal_schedule,
 )
 from repro_torch.core.five_minute_rule import break_even_interval, break_even_table  # noqa: F401
 from repro_torch.core.histogram import OutputLengthHistogram  # noqa: F401
@@ -40,4 +44,12 @@ from repro_torch.core.scheduler import (  # noqa: F401
     SchedulerConfig,
     make_scheduler,
 )
-from repro_torch.core.simulator import BatchLog, SimResult  # noqa: F401
+from repro_torch.core.simulator import (  # noqa: F401
+    BatchLog,
+    PrefixTierSim,
+    SimResult,
+    fresh_requests,
+    run_sim,
+    simulate,
+)
+from repro_torch.core.slo import pareto_curve  # noqa: F401

@@ -2,8 +2,9 @@
 
 Runs the continuous-batching engine on a workload with the selected
 scheduling / cache-replacement policy (the paper's deployment path) and
-prints the §5.1 metrics.  A dense ``--arch`` runs on the paged plane
-(the hand-written paged-attention kernels); ``--arch rwkv6-7b`` on the
+prints the §5.1 metrics.  A dense or MoE ``--arch`` runs on the paged
+plane (the hand-written paged-attention kernels; MoE layers in the
+engine's default dense dispatch); ``--arch rwkv6-7b`` on the
 slot-resident plane (the hand-written WKV6 kernel).  Runs on ``--device
 cuda`` (the default); ``--device cpu`` runs the kernels' plain PyTorch
 versions.  Without ``--full`` the model is the config's ``reduced()``
@@ -13,7 +14,8 @@ paged kernels take); weights are random, from ``--seed``.
 ``smoke_server`` builds the card's fixed smoke workload (full-width
 TinyLlama-1.1B, a shared-prefix workload with registry hits and recompute
 preemptions) that ``chip_smoke.py`` and ``scripts/profile_port_serve.py``
-both serve; ``smoke_plane_server`` the same engine settings and workload
+both serve, and serves the MoE smoke models (``SMOKE_MOE_ARCH``) the
+same way; ``smoke_plane_server`` the same engine settings and workload
 on another data plane (the dense slot-resident ``batched`` plane with a
 decode ``impl`` and ``decode_append``, or the ``legacy`` plane);
 ``rwkv_smoke_server`` the RWKV6-7B one (8 requests of 60-300 prompt
@@ -57,7 +59,7 @@ WORKLOADS = {
 SMOKE_ARCH = "tinyllama-1.1b"
 SMOKE_M = 2048                     # scheduler M: KV capacity in tokens
 SMOKE_ENGINE = EngineConfig(nslots=8, cache_len=512, chunk=128,
-                            page_size=16)
+                            page_size=16, plane="paged")
 SMOKE_WORKLOAD = dict(n=16, input_len=256, prefix_frac=0.75, num_groups=2,
                       output_len=48, vocab=32000, stagger=1e-6, seed=0)
 
@@ -65,13 +67,14 @@ SMOKE_WORKLOAD = dict(n=16, input_len=256, prefix_frac=0.75, num_groups=2,
 def smoke_server(cfg, params, device: str = "cuda"):
     """A warmed ``Engine`` (vLLM scheduler, SRF replacement) and fresh
     requests of the smoke workload, for ``cfg``/``params`` of
-    ``SMOKE_ARCH`` in any dtype."""
+    ``SMOKE_ARCH`` in any dtype, or of another model on the paged plane
+    (``SMOKE_MOE_ARCH``: prompt ids drawn over its own vocabulary)."""
     sched = make_scheduler("vllm", SMOKE_M, S=SMOKE_ENGINE.cache_len,
                            replacement="srf")
     eng = Engine(cfg, params, sched, SMOKE_ENGINE,
                  cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
                  device=device).warmup()
-    return eng, shared_prefix(**SMOKE_WORKLOAD)
+    return eng, shared_prefix(**dict(SMOKE_WORKLOAD, vocab=cfg.vocab_size))
 
 
 def smoke_plane_server(cfg, params, device: str = "cuda",
@@ -89,6 +92,14 @@ def smoke_plane_server(cfg, params, device: str = "cuda",
                  cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
                  device=device).warmup()
     return eng, shared_prefix(**SMOKE_WORKLOAD)
+
+
+# the MoE smoke model: qwen2-moe (60 routed experts padded to 64, top-4,
+# 4 shared; 16 q / 16 kv heads of 128) served by ``smoke_server``'s engine
+# and workload with the engine's default dense dispatch; qwen3-moe (128
+# experts, top-8, 32 q over 4 kv heads, qk-norm) is its second family
+SMOKE_MOE_ARCH = "qwen2-moe-a2.7b"
+SMOKE_MOE3_ARCH = "qwen3-moe-30b-a3b"
 
 
 # the RWKV6 smoke workload: 8 requests (one prompt of prime length, 127)
@@ -208,7 +219,7 @@ def main(argv=None) -> int:
     eng = Engine(cfg, params, sched,
                  EngineConfig(nslots=args.nslots, cache_len=args.cache_len,
                               chunk=args.chunk, page_size=args.page_size,
-                              cache_policy=args.cache_policy),
+                              plane="paged", cache_policy=args.cache_policy),
                  cost_model=cm, device=args.device)
     res = eng.run(reqs)
     s = res.metrics.summary()

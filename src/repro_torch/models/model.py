@@ -1,6 +1,7 @@
-"""Decoder-LM assembly for the dense and RWKV6 (``ssm``) families: a
-Python loop over layers whose parameters are stacked on a leading ``L``
-axis, as in ``repro.models.model`` (``lax.scan`` there).
+"""Decoder-LM assembly for the dense, mixture-of-experts and RWKV6
+(``ssm``) families: a Python loop over layers whose parameters are
+stacked on a leading ``L`` axis, as in ``repro.models.model``
+(``lax.scan`` there).
 
 Public API (functional, on nested dicts of tensors):
   init_params(cfg, seed, device=...)          -> params
@@ -28,9 +29,13 @@ absolute position), plus, for the dense family, "k"/"v" of shape
 (L, B, 1, d).  RWKV6's full-sequence time-mix runs on the WKV6 kernel
 (``kernels.rwkv_scan``), forward-only, so ``train_loss`` refuses it
 (ROADMAP A9).  ``prefill_chunk`` (the slot planes' chunk step) and
-``decode_step_deferred`` (one cache scatter per step) run both families.
-Mixture-of-experts, sliding-window/hybrid and the VLM/audio frontends
-raise ``ValueError`` naming the ROADMAP item that ports them.
+``decode_step_deferred`` (one cache scatter per step) run every family.
+The MoE family's MLP is ``models.moe``'s dispatch chosen by ``moe_impl``
+(``"dense"``, ``"sparse"``; ``"ep"`` is ROADMAP A13), with JAX's
+defaults: ``"sparse"`` in the model functions, ``"dense"`` in the
+engine.  MoE serves but does not train yet (ROADMAP A7-ii).
+Sliding-window/hybrid and the VLM/audio frontends raise ``ValueError``
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (Params, embed_init, gated_mlp,
                                        gated_mlp_init, rms_norm,
@@ -51,9 +57,9 @@ from repro_torch.models.common import (Params, embed_init, gated_mlp,
 def check_supported(cfg: ModelConfig, *, train: bool = False) -> None:
     """Raise ``ValueError`` unless ``cfg`` is a family this port runs
     (``train``: one it trains)."""
-    if cfg.num_experts:
-        raise ValueError(f"{cfg.name}: mixture-of-experts layers are not "
-                         "ported yet (ROADMAP A7)")
+    if cfg.num_experts and train:
+        raise ValueError(f"{cfg.name}: training mixture-of-experts layers "
+                         "is not ported yet (ROADMAP A7-ii)")
     if cfg.window or cfg.family == "hybrid":
         raise ValueError(f"{cfg.name}: sliding-window/hybrid attention is "
                          "not ported yet (ROADMAP A8)")
@@ -61,7 +67,7 @@ def check_supported(cfg: ModelConfig, *, train: bool = False) -> None:
         raise ValueError(f"{cfg.name}: training RWKV6 needs a backward "
                          "through the forward-only WKV6 kernel, which "
                          "neither package has (ROADMAP A9)")
-    if cfg.family not in ("dense", "ssm") or cfg.frontend != "none":
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.frontend != "none":
         raise ValueError(f"{cfg.name}: the {cfg.family!r} family/frontends "
                          "are not ported yet (ROADMAP A10)")
 
@@ -94,8 +100,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     if cfg.family == "ssm":
         layers.update(rwkv_mod.init_rwkv_layer(gen, cfg, dtype, lead))
     else:
-        layers.update(attn=attn.init_attention(gen, cfg, dtype, lead),
-                      mlp=gated_mlp_init(gen, d, cfg.d_ff, dtype, lead))
+        layers["attn"] = attn.init_attention(gen, cfg, dtype, lead)
+        if cfg.num_experts:
+            layers["moe"] = moe_mod.init_moe(gen, cfg, dtype, lead)
+        else:
+            layers["mlp"] = gated_mlp_init(gen, d, cfg.d_ff, dtype, lead)
     params: Params = {"embed": embed_init(gen, cfg.padded_vocab, d, dtype),
                       "ln_f": zeros(d), "layers": layers}
     if not cfg.tie_embeddings:
@@ -201,8 +210,19 @@ def _rwkv_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     return x + cm, st
 
 
+def _mlp_or_moe(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                moe_impl: str) -> torch.Tensor:
+    """The block's MLP: the MoE dispatch ``moe_impl`` on the MoE family,
+    else the gated MLP."""
+    if cfg.num_experts:
+        if moe_impl not in moe_mod.DISPATCH:
+            raise ValueError(f"unknown moe_impl {moe_impl!r}")
+        return moe_mod.DISPATCH[moe_impl](lp["moe"], cfg, x)
+    return gated_mlp(lp["mlp"], x)
+
+
 def _block_full(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                positions: torch.Tensor, impl: str,
+                positions: torch.Tensor, impl: str, moe_impl: str,
                 cache_len: int) -> Tuple[torch.Tensor, Dict]:
     """One full-sequence block: (x, layer cache or {}); an RWKV6 block
     starts from a zero state and always returns its state.  No prefix-LM
@@ -214,7 +234,8 @@ def _block_full(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     a, kv = attn.attention_full(lp["attn"], cfg, h, positions, impl=impl,
                                 cache_len=cache_len)
     x = x + a
-    x = x + gated_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    x = x + _mlp_or_moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                        moe_impl)
     return x, (kv if cache_len else {})
 
 
@@ -225,7 +246,7 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 def train_loss(cfg: ModelConfig, params: Params,
                batch: Dict[str, torch.Tensor], *, impl: str = "reference",
-               remat: bool = True) -> torch.Tensor:
+               moe_impl: str = "sparse", remat: bool = True) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S)
     against ``batch["labels"]`` (labels < 0 masked).  ``remat`` keeps
     only each layer's input for the backward and recomputes the layer
@@ -236,7 +257,7 @@ def train_loss(cfg: ModelConfig, params: Params,
     x = _embed(cfg, params, tokens)
 
     def body(xc, lp):
-        return _block_full(cfg, lp, xc, positions, impl, 0)[0]
+        return _block_full(cfg, lp, xc, positions, impl, moe_impl, 0)[0]
 
     for lp in unstack_layers(params):
         x = (checkpoint(body, x, lp, use_reentrant=False) if remat
@@ -247,7 +268,8 @@ def train_loss(cfg: ModelConfig, params: Params,
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            cache_len: int, *, impl: str = "reference"
+            cache_len: int, *, impl: str = "reference",
+            moe_impl: str = "sparse"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the whole prompt ``batch["tokens"]`` (B, S); returns
     (last-token logits (B, Vpad), cache padded to ``cache_len``).  An
@@ -260,7 +282,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     x = _embed(cfg, params, tokens)
     layer_caches = []
     for lp in unstack_layers(params):
-        x, lc = _block_full(cfg, lp, x, positions, impl, cache_len)
+        x, lc = _block_full(cfg, lp, x, positions, impl, moe_impl,
+                            cache_len)
         layer_caches.append(lc)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _logits(cfg, params, x[:, -1])
@@ -283,7 +306,7 @@ def _stack(layer_caches: List[Dict[str, torch.Tensor]]
 
 def _block_chunk(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                  layer_cache: Dict[str, torch.Tensor], start: torch.Tensor,
-                 impl: str, length: Optional[torch.Tensor]
+                 impl: str, moe_impl: str, length: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Chunked-prefill block continuing from the layer's cache (JAX's
     ``_block_chunk``): x (B, c, d), ``start`` (B,) the chunk's first
@@ -295,7 +318,8 @@ def _block_chunk(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     a, kv = attn.attention_chunk(lp["attn"], cfg, h, layer_cache, start,
                                  impl=impl, length=length)
     x = x + a
-    x = x + gated_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    x = x + _mlp_or_moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                        moe_impl)
     return x, kv
 
 
@@ -306,7 +330,7 @@ def _cache_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
 
 def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   cache: Dict[str, torch.Tensor], *,
-                  impl: str = "reference",
+                  impl: str = "reference", moe_impl: str = "sparse",
                   length: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the next c prompt tokens of each row against an existing
@@ -331,7 +355,7 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     for l, lp in enumerate(unstack_layers(params)):
         x, lc = _block_chunk(cfg, lp, x,
                              {k: cache[k][l] for k in _cache_leaves(cfg)},
-                             start, impl, length)
+                             start, impl, moe_impl, length)
         layer_caches.append(lc)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     if length is None:
@@ -347,7 +371,8 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                cache: Dict[str, torch.Tensor], *, impl: str = "reference"
+                cache: Dict[str, torch.Tensor], *, impl: str = "reference",
+                moe_impl: str = "sparse"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens (B,) or (B, 1); one decode step.  Returns (logits (B, Vpad),
     a new cache with index + 1); the input cache is not modified.  The
@@ -370,7 +395,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                        "v": cache["v"][l]}, index,
                                       impl=impl)
         x = x + a
-        x = x + gated_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + _mlp_or_moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                            moe_impl)
         ks.append(kv["k"])
         vs.append(kv["v"])
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -382,7 +408,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def decode_step_deferred(cfg: ModelConfig, params: Params,
                          tokens: torch.Tensor,
                          cache: Dict[str, torch.Tensor], *,
-                         impl: str = "reference"
+                         impl: str = "reference", moe_impl: str = "sparse"
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step with a DEFERRED cache append (JAX's
     ``decode_step_deferred``): every layer reads the cache as it stands
@@ -406,7 +432,8 @@ def decode_step_deferred(cfg: ModelConfig, params: Params,
             lp["attn"], cfg, h, {"k": cache["k"][l], "v": cache["v"][l]},
             index, impl=impl)
         x = x + a
-        x = x + gated_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + _mlp_or_moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                            moe_impl)
         ks.append(delta["k_new"])
         vs.append(delta["v_new"])
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)

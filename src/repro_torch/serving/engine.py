@@ -16,7 +16,8 @@ prefill writes K/V through the block table into owned pages with the
 fused paged-prefill kernel, and decode appends one row per slot and runs
 the paged flash-decoding kernel.  On top of the pooled pages:
 
-* *shared-prefix reuse* (always on) — full prompt pages are published
+* *shared-prefix reuse* (``prefix_sharing``, on by default; off: no
+  attach, no registration, no demotion) — full prompt pages are published
   to the radix-trie prefix registry; a new request whose prompt matches
   maps the SAME physical pages (longest run, partial hits included; or all-or-nothing
   under ``prefix_lookup="exact"``) and skips their prefill compute.  A
@@ -118,9 +119,11 @@ Differences from the JAX engine (``repro.serving.engine``):
   legacy plane's prefill is the exception: it runs eagerly, as its exact
   shapes (one JAX compile per tail length) are the point of the plane,
   and only its decode step is a graph.
-* Settings this port does not run yet (mixture-of-experts A7, sliding
-  windows A8, other families A10, ``impl="seqsharded"`` A13) raise
+* Settings this port does not run yet (sliding windows A8, other
+  families A10, ``impl="seqsharded"`` and ``moe_impl="ep"`` A13) raise
   ``ValueError`` naming the ROADMAP item that will port them.
+  ``EngineConfig`` has no ``share_jits``: a step graph belongs to the
+  engine that captured it.
 
 Correctness contract (tested against the JAX engine on the CPU, and
 against ``generate_reference`` on the card): scheduling, chunking,
@@ -151,6 +154,7 @@ from repro_torch.core import stat_keys as SK
 from repro_torch.distributed.fault_tolerance import (StragglerMonitor,
                                                      run_with_retries)
 from repro_torch.models import model as M
+from repro_torch.models import moe as moe_mod
 from repro_torch.serving.faults import (FaultError, FaultPlan,
                                         IntegrityError, PermanentStoreError,
                                         TransientStoreError)
@@ -176,24 +180,36 @@ _MAX_STEP_ATTEMPTS = 50
 
 @dataclass
 class EngineConfig:
+    """The JAX engine's ``EngineConfig``: the same fields and defaults,
+    save ``share_jits``, which has no counterpart here -- a step graph
+    captures one engine's static buffers and pool, so graphs are never
+    shared between engines."""
     nslots: int = 8
     cache_len: int = 256          # per-request context capacity (tokens)
     chunk: int = 64               # chunked-prefill chunk size
-    page_size: int = 16           # allocator granularity = KV page size
-    swap_bytes: Optional[int] = None   # host swap-store capacity (None =
-    #                                    unbounded); a full store makes the
-    #                                    victim fall back to recompute
-    plane: str = "paged"          # "paged": pooled KV pages (dense) or
-    #                               slot-resident state (RWKV6);
-    #                               "batched": slot-resident, bucketed
-    #                               rounds; "legacy": slot-resident,
-    #                               per-request exact-shape prefill
+    page_size: int = 1            # allocator granularity (1 = token-exact,
+    #                               matching the scheduler's M accounting)
+    #                               = the KV page size on the pooled plane
     impl: str = "reference"       # the slot planes' dense decode
     #                               attention: "reference", "paged" (the
     #                               paged decode kernel on the contiguous
     #                               cache), "flash_jnp"
-    decode_append: str = "inline"  # "inline" | "deferred" (one cache
-    #                               scatter per step; slot planes)
+    moe_impl: str = "dense"       # MoE dispatch: "dense" (chunk-invariant,
+    #                               for parity) or "sparse" (capacity
+    #                               buffers); "ep" is ROADMAP A13
+    swap_bytes: Optional[int] = None   # host swap-store capacity (None =
+    #                                    unbounded); a full store makes the
+    #                                    victim fall back to recompute
+    check_invariants: bool = True  # the allocator, swap-store and index
+    #                               checks after every step and run
+    plane: str = "batched"        # "batched": slot-resident, bucketed
+    #                               rounds; "paged": pooled KV pages
+    #                               (dense attention) or slot-resident
+    #                               state (RWKV6); "legacy": slot-resident,
+    #                               per-request exact-shape prefill
+    prefix_sharing: bool = True   # pooled plane: map identical full
+    #                               prompt pages to the same physical
+    #                               pages via the refcounted registry
     prefix_lookup: Optional[str] = None  # "trie" | "exact"; None keeps
     #                               the SchedulerConfig's choice, set it is
     #                               written through (like page_size)
@@ -203,8 +219,11 @@ class EngineConfig:
     #                               to the host KVSwapStore instead of
     #                               being discarded (pooled plane only);
     #                               None keeps the SchedulerConfig's choice
+    decode_append: str = "inline"  # "inline" | "deferred" (one cache
+    #                               scatter per step; slot planes)
     async_swap: bool = True       # host copies on the copy stream, drained
     #                               at step boundaries; False: synchronous
+    min_bucket: int = 8           # smallest tail bucket of the ladder
     faults: Optional[Any] = None  # a serving.faults.FaultSpec, written
     #                               through to SchedulerConfig.faults so
     #                               the engine and any simulator shadow
@@ -213,9 +232,6 @@ class EngineConfig:
     #                               step whose measured wall exceeds factor
     #                               x the cost model's dt requeues every
     #                               running request (wall-clock dependent)
-
-
-MIN_BUCKET = 8                    # smallest tail bucket of the ladder
 
 
 def merge_rows(cache: Dict[str, torch.Tensor], active: torch.Tensor,
@@ -233,12 +249,12 @@ def merge_rows(cache: Dict[str, torch.Tensor], active: torch.Tensor,
         torch.where(active.reshape(shape), new, leaf, out=leaf)
 
 
-def _bucket_ladder(chunk: int) -> List[int]:
-    """Fixed padding targets: powers of two in [MIN_BUCKET, chunk), plus
+def _bucket_ladder(chunk: int, min_bucket: int) -> List[int]:
+    """Fixed padding targets: powers of two in [min_bucket, chunk), plus
     ``chunk`` itself.  Every prefill sub-chunk is padded UP to the
     smallest bucket that holds it."""
     b = 1
-    while b < min(MIN_BUCKET, chunk):
+    while b < min(min_bucket, chunk):
         b *= 2
     ladder = []
     while b < chunk:
@@ -257,7 +273,12 @@ def _validate(cfg: ModelConfig, ecfg: EngineConfig,
         raise ValueError(f"unknown plane {ecfg.plane!r}")
     if ecfg.decode_append not in ("inline", "deferred"):
         raise ValueError(f"unknown decode_append {ecfg.decode_append!r}")
-    M.check_supported(cfg)         # dense and RWKV6 only (A7, A8, A10)
+    M.check_supported(cfg)         # dense, MoE and RWKV6 (A8, A10)
+    if ecfg.moe_impl not in moe_mod.DISPATCH:
+        raise ValueError(f"unknown moe_impl {ecfg.moe_impl!r}")
+    if ecfg.moe_impl == "ep" and cfg.num_experts:
+        raise ValueError("moe_impl 'ep' (expert parallelism over a device "
+                         "mesh) is not ported yet (ROADMAP A13)")
     if ecfg.impl == "seqsharded" and cfg.family != "ssm" \
             and not (ecfg.plane == "paged" and paged_supported(cfg)):
         raise ValueError("decode impl 'seqsharded' (a sequence-sharded "
@@ -307,7 +328,8 @@ class Engine:
         # state of RWKV6 stays slot-resident (and keeps no host tier)
         self._pooled = ecfg.plane == "paged" and paged_supported(cfg)
         self._legacy = ecfg.plane == "legacy"
-        self._demotion = bool(scheduler.cfg.cache_demotion) and self._pooled
+        self._demotion = bool(scheduler.cfg.cache_demotion) \
+            and self._pooled and ecfg.prefix_sharing
         self.allocator = PagedAllocator(
             num_pages=max(1, -(-scheduler.cfg.M // ecfg.page_size)),
             page_size=ecfg.page_size,
@@ -319,15 +341,19 @@ class Engine:
         self.max_pages = -(-ecfg.cache_len // pg)
         if self._pooled:
             self.k_pools, self.v_pools = init_pools(
-                cfg, self.allocator.num_pages, pg, device=device)
-            self._paged_prefill, self._paged_decode = build_paged_fns(cfg)
+                cfg, self.allocator.num_pages, pg, nslots=ecfg.nslots,
+                device=device)
+            self._paged_prefill, self._paged_decode = build_paged_fns(
+                cfg, moe_impl=ecfg.moe_impl)
             self.cache = None
         else:
             self.k_pools = self.v_pools = None
             self.cache = M.init_cache(cfg, ecfg.nslots, ecfg.cache_len,
                                       device=device)
-            self._chunk_fn = build_prefill_chunk_fn(cfg, impl=ecfg.impl)
+            self._chunk_fn = build_prefill_chunk_fn(
+                cfg, impl=ecfg.impl, moe_impl=ecfg.moe_impl)
             self._decode_fn = build_decode_fn(cfg, impl=ecfg.impl,
+                                              moe_impl=ecfg.moe_impl,
                                               append=ecfg.decode_append)
         # shared-prefix bookkeeping: chained page keys per rid and the
         # per-grant data-plane skip from a registry hit
@@ -352,7 +378,7 @@ class Engine:
         self.slot_of: Dict[int, int] = {}
         self.token_ids: Dict[int, List[int]] = {}
         self.outputs: Dict[int, List[int]] = {}
-        self.buckets = _bucket_ladder(ecfg.chunk)
+        self.buckets = _bucket_ladder(ecfg.chunk, ecfg.min_bucket)
         # wall-clock attribution of the step (prefix attach / prefill
         # compute / host->device uploads)
         self.phase_stats: Dict[str, float] = {
@@ -772,8 +798,9 @@ class Engine:
                     lambda: self.swap_store.put(
                         victim.rid, host, self.token_ids[victim.rid],
                         victim.suspended_m))
-                invariant(int(host["index"][0]) == victim.suspended_m,
-                          (victim.rid, host["index"], victim.suspended_m))
+                if self.ecfg.check_invariants:
+                    invariant(int(host["index"][0]) == victim.suspended_m,
+                              (victim.rid, host["index"], victim.suspended_m))
                 entry.corrupt = self._corrupt_draw("corrupt_put", fkey)
                 self._finalize_entry(entry)
         except SwapStoreFullError:
@@ -812,8 +839,9 @@ class Engine:
             entry, _, xfer = self._pending_swaps.pop(r)
             t0 = time.perf_counter()
             self._land(entry, xfer)       # CRC seal (+ fault-plan flip)
-            invariant(int(entry.cache["index"][0]) == entry.num_kv,
-                      (r, entry.cache["index"], entry.num_kv))
+            if self.ecfg.check_invariants:
+                invariant(int(entry.cache["index"][0]) == entry.num_kv,
+                          (r, entry.cache["index"], entry.num_kv))
             self.swap_stats[SK.WALL_OUT_S] += time.perf_counter() - t0
         if rid is None:
             if before_step is not None:
@@ -864,8 +892,9 @@ class Engine:
                     slots=(slot,))
         self.allocator.allocate(r.rid, entry.num_kv)
         restored = r.resume()
-        invariant(restored == entry.num_kv, (r.rid, restored, entry.num_kv))
-        invariant(self.token_ids[r.rid] == entry.tokens, r.rid)
+        if self.ecfg.check_invariants:
+            invariant(restored == entry.num_kv, (r.rid, restored, entry.num_kv))
+            invariant(self.token_ids[r.rid] == entry.tokens, r.rid)
         self.swap_stats[SK.SWAP_INS] += 1
         self.swap_stats[SK.KV_IN] += entry.num_kv
         self.swap_stats[SK.WALL_IN_S] += time.perf_counter() - t0
@@ -1051,7 +1080,8 @@ class Engine:
                         self.swap_stats[SK.SWAP_FALLBACKS] += 1
                 self._purge_pending_runs(r.rid)
         removed = self.allocator.free_tail(r.rid, npages)
-        invariant(removed == n_tokens, (r.rid, removed, n_tokens))
+        if self.ecfg.check_invariants:
+            invariant(removed == n_tokens, (r.rid, removed, n_tokens))
         if swapped:
             while len(self._pending_runs) > 2:
                 self._drain_runs(rid=next(iter(self._pending_runs))[0])
@@ -1089,7 +1119,8 @@ class Engine:
         self._write_runs(r.rid, runs,
                          kind="run_restore" if claim else "tail_restore")
         restored = resume()
-        invariant(restored == total, (r.rid, restored, total))
+        if self.ecfg.check_invariants:
+            invariant(restored == total, (r.rid, restored, total))
         self.swap_stats[SK.SWAP_INS] += len(runs)   # run-for-run with outs
         self.swap_stats[SK.KV_IN] += total
         self.swap_stats[SK.WALL_IN_S] += time.perf_counter() - t0
@@ -1656,8 +1687,9 @@ class Engine:
                     num_swap_out += 1
                 else:
                     removed = self.allocator.free_tail(r.rid, npages)
-                    invariant(removed == n_tokens, (r.rid, removed,
-                                                    n_tokens))
+                    if self.ecfg.check_invariants:
+                        invariant(removed == n_tokens, (r.rid, removed,
+                                                        n_tokens))
                 continue
             if self._shed_tail(r, npages, n_tokens, mode):
                 swap_s += self._swap_time(n_tokens)
@@ -1714,7 +1746,8 @@ class Engine:
                 self._claim_slot(r.rid, reset=not self._pooled)
             skip = 0
             if self._pooled:           # prefix sharing maps KV pages
-                if r.m == 0 and not self.allocator.has(r.rid):
+                if (self.ecfg.prefix_sharing and r.m == 0
+                        and not self.allocator.has(r.rid)):
                     skip = self._attach_prefix(r, c)
                 self._prefix_skip[r.rid] = skip
             self.allocator.allocate(r.rid, c - skip)
@@ -1747,7 +1780,7 @@ class Engine:
             for r, c in prefill_items:
                 m_new = r.m + c
                 generated = r.advance(c, self.now)
-                if self._pooled:
+                if self._pooled and self.ecfg.prefix_sharing:
                     self._register_prefix(r, m_new)
                 if generated:
                     tok = final_tok[r.rid]
@@ -1780,9 +1813,10 @@ class Engine:
         wall_s = time.perf_counter() - t0
         self.wall += wall_s
         self._last_dt, self._last_wall = dt, wall_s   # straggler inputs  # repro: allow-txn-coverage(straggler-monitor inputs describe the attempt that COMMITTED - an aborted attempt never reaches this line)
-        self.allocator.check_invariants()
-        self.swap_store.check_invariants()
-        self._check_index_sync(batch)
+        if self.ecfg.check_invariants:
+            self.allocator.check_invariants()
+            self.swap_store.check_invariants()
+            self._check_index_sync(batch)
         kv_used = sum(r.m for r in self.sched.running)
         self.batch_logs.append(BatchLog(
             t_start=self.now - dt, t_end=self.now,
@@ -1835,10 +1869,12 @@ class Engine:
         else:
             raise RuntimeError("engine did not converge")
         self._drain_swaps()
-        invariant(not (self._pending_swaps or self._pending_demotes
-                       or self._pending_runs), "transfers left in flight")
-        invariant(len(self.swap_store) == 0,
-                  ("swap store leaked rids", self.swap_store.suspended_rids))
+        if self.ecfg.check_invariants:
+            invariant(not (self._pending_swaps or self._pending_demotes
+                           or self._pending_runs), "transfers left in flight")
+            invariant(len(self.swap_store) == 0,
+                      ("swap store leaked rids",
+                       self.swap_store.suspended_rids))
         sim = SimResult(requests=list(requests), batches=self.batch_logs,
                         num_preemptions=self.sched.num_preemptions,
                         num_partial_preempts=self.sched.num_partial_preempts,
@@ -1873,22 +1909,25 @@ class EngineResult:
 @torch.no_grad()
 def generate_reference(cfg: ModelConfig, params: Any, prompt: Sequence[int],
                        num_tokens: int, *, cache_len: int,
-                       impl: str = "reference",
+                       impl: str = "reference", moe_impl: str = "dense",
                        device: str = "cuda") -> List[int]:
     """Greedy generation of one request: full prefill + sequential decode
     through the dense-cache attention of ``models`` (no pages).
     ``impl="flash"`` runs the prefill on the flash-attention kernel (its
     decode takes the reference branch, as in JAX); ``impl="paged"`` the
-    decode on the paged decode kernel over the contiguous cache.
-    Sampling is on the device; only token ids reach the host."""
+    decode on the paged decode kernel over the contiguous cache.  An MoE
+    model's layers take the ``moe_impl`` dispatch.  Sampling is on the
+    device; only token ids reach the host."""
     vocab = cfg.vocab_size
     toks = torch.tensor([list(prompt)], dtype=torch.long, device=device)
     logits, cache = M.prefill(cfg, params, {"tokens": toks},
-                              cache_len=cache_len, impl=impl)
+                              cache_len=cache_len, impl=impl,
+                              moe_impl=moe_impl)
     cur = torch.argmax(logits[:, :vocab], dim=-1)
     out: List[int] = [int(cur[0])]
     for _ in range(num_tokens - 1):
-        logits, cache = M.decode_step(cfg, params, cur, cache, impl=impl)
+        logits, cache = M.decode_step(cfg, params, cur, cache, impl=impl,
+                                      moe_impl=moe_impl)
         cur = torch.argmax(logits[:, :vocab], dim=-1)
         out.append(int(cur[0]))
     return out

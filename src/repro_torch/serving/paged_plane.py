@@ -1,13 +1,16 @@
 """Pooled-KV model steps for the engine's ``plane="paged"``.
 
 Attention KV lives in per-layer page pools stacked over layers,
-``(L, num_pages + 1, page_size, Hkv, D)``; a request's pages are named
-by the ``PagedAllocator`` block table, passed in as a ``(B, max_pages)``
-int32 tensor.  The last page of every pool is a SENTINEL that no block
-table names: the decode append aims the rows of inactive slots at it,
-which is how this port gets the JAX version's out-of-range "drop" write
-without a boolean mask (a host sync) and without clamped indices (which
-would make inactive rows collide with live rows' slots).
+``(L, num_pages + sentinel pages, page_size, Hkv, D)``; a request's pages
+are named by the ``PagedAllocator`` block table, passed in as a ``(B,
+max_pages)`` int32 tensor.  The last ``sentinel_pages(nslots, page_size)``
+pages of every pool are SENTINELS that no block table names: the decode
+append aims the rows of inactive slots at them, which is how this port
+gets the JAX version's out-of-range "drop" write without a boolean mask
+(a host sync) and without clamped indices (which would make inactive rows
+collide with live rows' slots).  Row b writes sentinel slot b, so no two
+rows write one slot: a write whose winner is a race would leave bytes
+that differ between a step graph's replay and an eager call.
 
 * ``prefill``: the chunk's K/V are projected, then ONE fused kernel per
   layer — ``kernels.paged_attention.ops.paged_prefill`` — writes the
@@ -36,10 +39,12 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import scatter_rows
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
-from repro_torch.models.common import gated_mlp, rms_norm
+from repro_torch.models.common import rms_norm
 
-#: pages every pool carries beyond the allocator's: the drop target
-SENTINEL_PAGES = 1
+def sentinel_pages(nslots: int, page_size: int) -> int:
+    """Pages every pool carries beyond the allocator's: the drop target,
+    one slot per decode row."""
+    return -(-nslots // page_size)
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
@@ -50,18 +55,23 @@ def paged_supported(cfg: ModelConfig) -> bool:
 
 
 def init_pools(cfg: ModelConfig, num_pages: int, page_size: int, *,
-               device: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+               nslots: int = 1, device: str = "cuda"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zeroed K and V pools for ``num_pages`` allocator pages plus the
-    sentinel: ``(L, num_pages + SENTINEL_PAGES, page, Hkv, D)``."""
-    shape = (cfg.num_layers, num_pages + SENTINEL_PAGES, page_size,
+    sentinel pages of ``nslots`` decode rows: ``(L, num_pages +
+    sentinel_pages(nslots, page), page, Hkv, D)``."""
+    shape = (cfg.num_layers, num_pages + sentinel_pages(nslots, page_size),
+             page_size,
              cfg.num_kv_heads, cfg.head_dim_)
     dtype = getattr(torch, cfg.dtype)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def build_paged_fns(cfg: ModelConfig) -> Tuple[Callable, Callable]:
-    """Returns ``(prefill_fn, decode_fn)`` over pooled KV.
+def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense"
+                    ) -> Tuple[Callable, Callable]:
+    """Returns ``(prefill_fn, decode_fn)`` over pooled KV; an MoE block's
+    MLP is the ``moe_impl`` dispatch (``models.moe``).
 
     prefill_fn(params, k_pools, v_pools, tokens (B, bucket),
                starts (B,), lengths (B,), block_tables (B, maxp))
@@ -100,7 +110,7 @@ def build_paged_fns(cfg: ModelConfig) -> Tuple[Callable, Callable]:
                 k_pools[l], v_pools[l], block_tables, starts, lengths)
             x = x + out.reshape(B, c, cfg.q_dim) @ lp["attn"]["wo"]
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + gated_mlp(lp["mlp"], h)
+            x = x + M._mlp_or_moe(cfg, lp, h, moe_impl)
         last = torch.clamp(lengths.long() - 1, min=0)
         x_last = x[torch.arange(B, device=x.device), last]
         return _finish(params, x_last)
@@ -114,8 +124,9 @@ def build_paged_fns(cfg: ModelConfig) -> Tuple[Callable, Callable]:
         page_idx = torch.gather(
             block_tables.long(), 1,
             torch.clamp(ctx // pg, 0, maxp - 1)[:, None])[:, 0]
+        rows = torch.arange(B, device=tokens.device)
         dest = torch.where(active, page_idx * pg + ctx % pg,
-                           (P1 - SENTINEL_PAGES) * pg)
+                           (P1 - sentinel_pages(B, pg)) * pg + rows)
         # write-then-attend: context_lens = ctx + 1 includes the new token
         ctx_lens = (ctx + 1).to(torch.int32)
         x = M._embed(cfg, params, tokens.long()[:, None])
@@ -128,7 +139,7 @@ def build_paged_fns(cfg: ModelConfig) -> Tuple[Callable, Callable]:
                                       v_pools[l], block_tables, ctx_lens)
             x = x + (out.reshape(B, cfg.q_dim) @ lp["attn"]["wo"])[:, None]
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + gated_mlp(lp["mlp"], h)
+            x = x + M._mlp_or_moe(cfg, lp, h, moe_impl)
         return _finish(params, x[:, 0])
 
     return prefill_fn, decode_fn

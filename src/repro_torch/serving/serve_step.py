@@ -16,17 +16,19 @@ from repro_torch.models import model as M
 
 
 def build_prefill_fn(cfg: ModelConfig, *, cache_len: int,
-                     impl: str = "reference") -> Callable:
+                     impl: str = "reference",
+                     moe_impl: str = "sparse") -> Callable:
     """(params, batch) -> (last-token logits, KV cache)."""
 
     def prefill_step(params, batch):
-        return M.prefill(cfg, params, batch, cache_len=cache_len, impl=impl)
+        return M.prefill(cfg, params, batch, cache_len=cache_len, impl=impl,
+                         moe_impl=moe_impl)
 
     return prefill_step
 
 
-def build_prefill_chunk_fn(cfg: ModelConfig, *,
-                           impl: str = "reference") -> Callable:
+def build_prefill_chunk_fn(cfg: ModelConfig, *, impl: str = "reference",
+                           moe_impl: str = "sparse") -> Callable:
     """(params, tokens (B, bucket), cache, lengths (B,)) -> (logits, cache).
 
     The shape-stable bucketed chunk step of the engine's slot-resident
@@ -37,12 +39,13 @@ def build_prefill_chunk_fn(cfg: ModelConfig, *,
 
     def chunk_step(params, tokens, cache, lengths):
         return M.prefill_chunk(cfg, params, tokens, cache, impl=impl,
-                               length=lengths)
+                               moe_impl=moe_impl, length=lengths)
 
     return chunk_step
 
 
 def build_decode_fn(cfg: ModelConfig, *, impl: str = "reference",
+                    moe_impl: str = "sparse",
                     append: str = "inline") -> Callable:
     """(params, tokens, cache) -> (logits, cache): one serve step;
     ``append="deferred"`` writes the step's new K/V with one scatter
@@ -52,16 +55,18 @@ def build_decode_fn(cfg: ModelConfig, *, impl: str = "reference",
     step = M.decode_step_deferred if append == "deferred" else M.decode_step
 
     def serve_step(params, tokens, cache):
-        return step(cfg, params, tokens, cache, impl=impl)
+        return step(cfg, params, tokens, cache, impl=impl,
+                    moe_impl=moe_impl)
 
     return serve_step
 
 
 def build_train_fn(cfg: ModelConfig, *, impl: str = "reference",
-                   remat: bool = True) -> Callable:
+                   moe_impl: str = "sparse", remat: bool = True) -> Callable:
     """(params, batch) -> scalar loss (the differentiable objective)."""
 
     def loss_fn(params, batch):
-        return M.train_loss(cfg, params, batch, impl=impl, remat=remat)
+        return M.train_loss(cfg, params, batch, impl=impl,
+                            moe_impl=moe_impl, remat=remat)
 
     return loss_fn

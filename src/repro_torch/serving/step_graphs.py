@@ -30,7 +30,12 @@ until the next replay of ANY graph of the set: the engine fetches what it
 needs at once and carries state across steps only in buffers allocated
 outside the pool (the static inputs, the KV pools, the cache leaves).
 Captures run under ``torch.no_grad()`` (``ops.wkv6`` is an
-``autograd.Function``).
+``autograd.Function``), with Python's cyclic garbage collector held off:
+an engine lives in reference cycles (its graphs' step functions close
+over it), so a dead one is freed by that collector, and freeing its
+graphs, events and buffers inside another engine's capture invalidates
+the capture.  Each capture collects first, then runs with the collector
+disabled.
 
 Kernel launch counters.  A kernel wrapper counts its launches where it
 launches (``launches``, and ``launches_by_variant`` where it has one);
@@ -41,6 +46,7 @@ kernel), and every replay adds them again: the counters keep meaning
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, Hashable, Optional, Sequence, Tuple
 
@@ -145,6 +151,9 @@ class StepGraph:
             owner.eager_calls += 1
             before = read_counts(owner.counters)
             graph = torch.cuda.CUDAGraph()
+            collecting = gc.isenabled()
+            gc.collect()          # free dead engines before, not during
+            gc.disable()
             try:
                 with torch.cuda.graph(graph, pool=owner.pool(), stream=side):
                     outputs = self.fn(*self.inputs)
@@ -152,6 +161,8 @@ class StepGraph:
                 raise StepGraphError(f"{self.name} {self.shape}: capture "
                                      f"failed: {e}") from e
             finally:
+                if collecting:
+                    gc.enable()
                 # a capture runs no kernel: take its counts back out
                 self._moved = counts_moved(before,
                                            read_counts(owner.counters))

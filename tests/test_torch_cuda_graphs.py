@@ -97,7 +97,7 @@ def test_faulted_swap_serve_replays_every_step(card, warm):
                            preempt_mode="swap", partial_preempt=True)
     eng = Engine(cfg, params, sched,
                  EngineConfig(nslots=4, cache_len=64, chunk=16, page_size=8,
-                              faults=FaultSpec(**MIXED)),
+                              plane="paged", faults=FaultSpec(**MIXED)),
                  cost_model=TheoreticalCostModel(cfg,
                                                  get_hardware("tpu_v5e")),
                  device="cuda")

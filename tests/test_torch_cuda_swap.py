@@ -56,7 +56,7 @@ def _pool_engine(dtype):
     cfg = dataclasses.replace(get_config("tinyllama-1.1b"), dtype=dtype)
     return Engine(cfg, None, make_scheduler("vllm", 2048, S=512),
                   EngineConfig(nslots=8, cache_len=512, chunk=128,
-                               page_size=16), device="cuda")
+                               page_size=16, plane="paged"), device="cuda")
 
 
 @pytest.mark.cuda
@@ -159,7 +159,7 @@ def test_swap_serve_matches_the_reference_on_card(gen, async_swap, faults):
                            preempt_mode="swap", partial_preempt=True)
     eng = Engine(cfg, params, sched,
                  EngineConfig(nslots=4, cache_len=64, chunk=16, page_size=8,
-                              async_swap=async_swap,
+                              plane="paged", async_swap=async_swap,
                               faults=faults and FaultSpec(**faults)),
                  cost_model=TheoreticalCostModel(cfg,
                                                  get_hardware("tpu_v5e")),

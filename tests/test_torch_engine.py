@@ -267,16 +267,18 @@ def test_unported_settings_raise(models, ekw, skw, item):
                 device="cpu")
 
 
-@pytest.mark.parametrize("over,item", [
+@pytest.mark.parametrize("over,ekw,item", [
+    # the MoE family serves; its expert-parallel dispatch is A13
     (dict(family="moe", num_experts=4, experts_per_token=2, moe_d_ff=32),
-     "A7"),
-    (dict(window=32), "A8"),
+     dict(moe_impl="ep"), "A13"),
+    (dict(window=32), {}, "A8"),
 ])
-def test_non_dense_family_raises(models, over, item):
+def test_non_dense_family_raises(models, over, ekw, item):
     _, tcfg, _, tp = models
     sched = t_sched("vllm", 64, S=128)
     with pytest.raises(ValueError, match=item):
-        TEngine(dataclasses.replace(tcfg, **over), tp, sched, device="cpu")
+        TEngine(dataclasses.replace(tcfg, **over), tp, sched,
+                TEngineConfig(**ekw), device="cpu")
 
 
 def test_warmup_leaves_allocator_pages_untouched(models):

@@ -57,8 +57,8 @@ def rwkv():
 def engine(model, sched, M_kv, S=128, preempt_mode="recompute",
            partial=False, **ekw):
     cfg, params = model
-    ekw = dict(dict(nslots=4, cache_len=CACHE_LEN, chunk=16, page_size=8),
-               **ekw)
+    ekw = dict(dict(nslots=4, cache_len=CACHE_LEN, chunk=16, page_size=8,
+                    plane="paged"), **ekw)
     return Engine(cfg, params,
                   make_scheduler(sched, M_kv, S=S, replacement="srf",
                                  preempt_mode=preempt_mode,
