@@ -243,11 +243,39 @@ Phases — each raises on failure, so any failure exits non-zero:
    Phase 2 also holds B1 and B2 at both models' serving shapes (q (8, 16,
    128) against pools (P, 16, 16, 128); q (8, 128, 16, 128); and qwen3's
    32 over 4 heads) against their plain versions, and phase 4 times them.
+23. The hybrid family, hymba-1.5b at its published widths (32 layers,
+   d=1600, 25 q / 5 kv heads of 64 over a 2048-token sliding window, the
+   selective SSM's d_inner 3200 x N 16, d_ff 5504, vocab 32001; random
+   weights from seed 0), after every earlier phase's engines and weights
+   are freed.  (a) B1 through the dense view of the ring, q (4, 25, 64)
+   over (4, 2048, 5, 64) (G = 5) at contexts 1, 63, 64, 65, 2047, 2048
+   and a mix, and B3 causal with the 2048-token window at hymba's heads
+   over S = 3100 and 2048, in both dtypes, each one launch of its
+   dtype's variant within ``TOL`` of the plain version.  (b) Both timed
+   with phase 4's method (B1 at the full ring, B3 at S = 3100 and 2048)
+   beside the plain version, SDPA (given the window's mask) and the
+   bound.  (c) ``hybrid_smoke_server`` (4 slots, ``cache_len`` 2048 =
+   the ring, chunk 128, M=4096, vLLM with SRF; 8 requests of 48 output
+   tokens, prompts 127-3100: 2030-2048 wrap the ring while decoding,
+   2049 and 3100 while prefilling, both checked) in fp32 at full depth
+   on ``batched`` with ``impl="paged"`` (B1 launches = layers x decode
+   steps), with the reference decode, with ``decode_append="deferred"``,
+   on ``legacy`` and under ``preempt_mode="swap"``: every run at least
+   2 preemptions (3 on this schedule) and its graphs alone, every request's tokens
+   equal to ``generate_reference(impl="flash")`` (B3 with the window on
+   its prefill, layers x requests launches) under phase 10's tie rule.
+   (d) The same workload in bf16 at full depth with ``impl="paged"``:
+   replays bit-equal to eager calls on cloned random state, B1 launches
+   = layers x decode steps through ``split_mma``; printed, not gated:
+   the requests equal to the bf16 reference, tokens/s, the wall of a
+   decode-only batch, the decode graph's replay time against the step's
+   byte bound, and the phase's peak device memory.
 
 Each phase prints the seconds since the start when it is done; phase
 20's three engines run after phase 18's fp32 and bf16 serves and phase
 15's bf16 one, on their weights; phase 21's TinyLlama runs after phase
-20's fp32 and bf16 engines, its RWKV6-7B runs after phase 19.
+20's fp32 and bf16 engines, its RWKV6-7B runs after phase 19; phase 23
+runs last.
 
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
@@ -255,8 +283,9 @@ entry per kernel and variant: ``paged_decode`` is B1's bf16
 ``wgmma`` kernels, ``..._simt`` the fp32 CUDA-core ones,
 ``paged_decode_dense`` B1 on the dense view of the slot cache,
 ``paged_decode_moe`` / ``paged_prefill_moe`` B1 / B2 at qwen2-moe's
-serving shapes, ``wkv6`` B4's column-split ``colsplit`` kernel) and ``{"ok": true, "device":
-{...}}``.
+serving shapes, ``paged_decode_hymba`` / ``flash_attention_hymba`` B1 on
+hymba's ring and B3 with its window, ``wkv6`` B4's column-split
+``colsplit`` kernel) and ``{"ok": true, "device": {...}}``.
 ``--report PATH`` also writes every measurement as JSON.  Without a CUDA
 device, or outside a checkout of the repository, the script exits with
 code 1 and prints no result.
@@ -1285,24 +1314,30 @@ def phase_train(torch):
 # phase 8: timing the flash-attention kernel
 # --------------------------------------------------------------------- #
 
-def time_flash(torch, fa, fref, case, dtype):
+def time_flash(torch, fa, fref, case, dtype, window=0):
+    """B3 on ``case``, causal (with a sliding ``window``, SDPA given the
+    window's boolean mask), beside its plain version, SDPA and its bound
+    (the pairs the mask keeps)."""
     import torch.nn.functional as F
     q, k, v = case
     B, S, H, D = q.shape
     es = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * es
-    pairs = int(fref.visible(S, device=DEVICE).sum())
-    ops = 4 * D * pairs * B * H
+    mask = fref.visible(S, window=window, device=DEVICE)
+    ops = 4 * D * int(mask.sum()) * B * H
     b_ms, b_by = bound(nbytes, ops, dtype)
-    ms = time_ms(torch, lambda: fa.flash_attention_cuda(*case))
-    plain = time_ms(torch, lambda: fref.attention_reference(*case))
+    ms = time_ms(torch, lambda: fa.flash_attention_cuda(*case,
+                                                        window=window))
+    plain = time_ms(torch, lambda: fref.attention_reference(*case,
+                                                            window=window))
     qt, kt, vt = (t.transpose(1, 2) for t in case)      # views, no copy
+    kw = dict(attn_mask=mask) if window else dict(is_causal=True)
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+        qt, kt, vt, enable_gqa=True, **kw)
     lib_ms = time_ms(torch, lib)
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, bytes=nbytes, ops=ops, shape=list(q.shape),
-                kv_heads=k.shape[2], dtype=dtype)
+                kv_heads=k.shape[2], dtype=dtype, window=window)
 
 
 # --------------------------------------------------------------------- #
@@ -1462,17 +1497,35 @@ TIE_GAP = 1e-4
 RWKV_FP32_LAYERS = 4
 
 
-def reference_top2_gap(torch, M, cfg, params, prompt, tokens, pos) -> float:
+def reference_top2_gap(torch, M, cfg, params, prompt, tokens, pos,
+                       cache_len=0, impl="reference") -> float:
     """The reference's top-2 logit gap at output position ``pos``, on the
-    path ``generate_reference`` takes (prefill, then decode steps fed the
-    reference's own tokens)."""
+    path ``generate_reference(cache_len=..., impl=...)`` takes (prefill,
+    then decode steps fed the reference's own tokens)."""
     toks = torch.tensor([list(prompt)], dtype=torch.long, device=DEVICE)
-    logits, cache = M.prefill(cfg, params, {"tokens": toks}, cache_len=0)
+    logits, cache = M.prefill(cfg, params, {"tokens": toks},
+                              cache_len=cache_len, impl=impl)
     for t in tokens[:pos]:
         logits, cache = M.decode_step(
-            cfg, params, torch.tensor([t], device=DEVICE), cache)
+            cfg, params, torch.tensor([t], device=DEVICE), cache, impl=impl)
     top = torch.topk(logits[0, :cfg.vocab_size].float(), 2).values
     return (top[0] - top[1]).item()
+
+
+def divergences(torch, M, cfg, params, reqs, outputs, refs, **gap_kw):
+    """{rid: (first output position where ``outputs`` leaves ``refs``,
+    the reference's top-2 logit gap there)} of the requests that differ;
+    every request must have the reference's token count."""
+    out = {}
+    for r in reqs:
+        got, want = outputs[r.rid], refs[r.rid]
+        check(len(got) == len(want), f"rid {r.rid}: {len(got)} tokens")
+        if got != want:
+            pos = next(i for i, (a, b) in enumerate(zip(got, want))
+                       if a != b)
+            out[r.rid] = (pos, reference_top2_gap(
+                torch, M, cfg, params, r.prompt, want, pos, **gap_kw))
+    return out
 
 
 def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params, preempt_mode="recompute",
@@ -1524,17 +1577,10 @@ def phase_rwkv_serve_fp32(torch, wkv, M, cfg, params, preempt_mode="recompute",
     check(ref_launches == L * len(reqs),
           f"wkv6 launched {ref_launches} times in generate_reference, "
           f"expected {L} x {len(reqs)} prefills")
-    diverged = {}
-    for r in reqs:
-        got, want = res.outputs[r.rid], refs[r.rid]
-        check(len(got) == len(want), f"rid {r.rid}: {len(got)} tokens")
-        if got != want:
-            pos = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-            gap = reference_top2_gap(torch, M, cfg, params, r.prompt, want,
-                                     pos)
-            diverged[r.rid] = (pos, gap)
-            print(f"  rid {r.rid}: first diverging position {pos}, "
-                  f"reference top-2 logit gap there {gap:.3g}")
+    diverged = divergences(torch, M, cfg, params, reqs, res.outputs, refs)
+    for rid, (pos, gap) in diverged.items():
+        print(f"  rid {rid}: first diverging position {pos}, "
+              f"reference top-2 logit gap there {gap:.3g}")
     print(f"fp32 reference: {len(reqs) - len(diverged)}/{len(reqs)} "
           f"requests token-identical; wkv6 launches in generate_reference "
           f"{ref_launches} = {L} x {len(reqs)} ({time.perf_counter() - t0:.1f}"
@@ -2346,48 +2392,58 @@ DENSE_VIEW = (8, 32, 4, 64, 512)
 DENSE_PAGE = 64
 
 
-def dense_view_case(torch, inp, dtype):
+def dense_view_case(torch, inp, dtype, view=DENSE_VIEW, ctx=None):
     """(q, k pool, v pool, identity tables, ctx): a random dense slot
-    cache viewed as B1's pools, as ``decode_attention_dense`` views it;
-    also the dense (B, S, Hkv, D) K/V it views."""
-    B, H, Hkv, D, S = DENSE_VIEW
+    cache of ``view`` = (B, H, Hkv, D, S) viewed as B1's pools, as
+    ``decode_attention_dense`` views it, with row b's context ``ctx[b]``
+    (default 260 + 5 b); also the dense (B, S, Hkv, D) K/V it views."""
+    B, H, Hkv, D, S = view
     q = inp.randn(B, H, D, dtype=dtype)
     k, v = (inp.randn(B, S, Hkv, D, dtype=dtype) for _ in range(2))
     n = S // DENSE_PAGE
     bt = (torch.arange(B * n, device=DEVICE, dtype=torch.int32)
           .view(B, n))
-    ctx = torch.tensor([260 + 5 * b for b in range(B)], dtype=torch.int32,
-                       device=DEVICE)
+    ctx = torch.tensor(ctx or [260 + 5 * b for b in range(B)],
+                       dtype=torch.int32, device=DEVICE)
     pool = (k.view(B * n, DENSE_PAGE, Hkv, D), v.view(B * n, DENSE_PAGE, Hkv,
                                                       D))
     return (q, *pool, bt, ctx), (k, v)
 
 
-def phase_dense_view(torch, pa, ref, pa_ops):
-    """B1 through ``decode_attention_dense`` at the dense view's shapes:
+def check_dense_view(torch, pa, ref, pa_ops, case, dense, dtype,
+                     what) -> float:
+    """B1 through ``decode_attention_dense`` on one ``dense_view_case``:
     one launch of the dtype's variant, against the plain version on the
     same view (``TOL``) and against plain attention over the first ctx
-    keys of the dense cache."""
+    keys of the dense cache (or ring: attention is order-free)."""
+    q, kp, vp, bt, ctx = case
+    k, v = dense
+    before = dict(pa.paged_decode_cuda.launches_by_variant)
+    got = pa_ops.decode_attention_dense(q, k, v, ctx, page_size=DENSE_PAGE)
+    one_launch_of(pa.paged_decode_cuda, before, dtype, what, DECODE_VARIANT)
+    err = compare(torch, got, ref.paged_decode_reference(q, kp, vp, bt, ctx),
+                  dtype, what)
+    S, Hkv = k.shape[1], k.shape[2]
+    keep = torch.arange(S, device=DEVICE)[None] < ctx[:, None]
+    qg = q.float().view(q.shape[0], Hkv, -1, q.shape[2])
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) / math.sqrt(
+        q.shape[2])
+    w = torch.softmax(s.masked_fill(~keep[:, None, None], -1e30), -1)
+    plain = torch.einsum("bhgk,bkhd->bhgd", w, v.float()).view(q.shape)
+    compare(torch, got, plain, dtype, what + " vs dense attention")
+    return err
+
+
+def phase_dense_view(torch, pa, ref, pa_ops):
+    """B1 through ``decode_attention_dense`` at the dense view's shapes
+    (``check_dense_view``)."""
     inp = Inputs(torch, 21)
     errs = {}
     for dtype in ("float32", "bfloat16"):
-        (q, kp, vp, bt, ctx), (k, v) = dense_view_case(torch, inp, dtype)
-        what = f"decode_attention_dense {dtype}"
-        before = dict(pa.paged_decode_cuda.launches_by_variant)
-        got = pa_ops.decode_attention_dense(q, k, v, ctx,
-                                            page_size=DENSE_PAGE)
-        one_launch_of(pa.paged_decode_cuda, before, dtype, what,
-                      DECODE_VARIANT)
-        errs[dtype] = compare(torch, got, ref.paged_decode_reference(
-            q, kp, vp, bt, ctx), dtype, what)
-        S, Hkv = k.shape[1], k.shape[2]
-        keep = torch.arange(S, device=DEVICE)[None] < ctx[:, None]
-        qg = q.float().view(q.shape[0], Hkv, -1, q.shape[2])
-        s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) / math.sqrt(
-            q.shape[2])
-        w = torch.softmax(s.masked_fill(~keep[:, None, None], -1e30), -1)
-        plain = torch.einsum("bhgk,bkhd->bhgd", w, v.float()).view(q.shape)
-        compare(torch, got, plain, dtype, what + " vs dense attention")
+        case, dense = dense_view_case(torch, inp, dtype)
+        errs[dtype] = check_dense_view(torch, pa, ref, pa_ops, case, dense,
+                                       dtype,
+                                       f"decode_attention_dense {dtype}")
     print(f"decode_attention_dense (B1 on the dense view, "
           f"{DENSE_VIEW[0]} x {DENSE_VIEW[4]} tokens, page {DENSE_PAGE}): "
           f"max abs err {errs}")
@@ -2515,15 +2571,8 @@ def phase_rwkv_planes(torch, wkv, M, cfg, params, refs):
         check(launches == L * eng.prefill_rounds > 0,
               f"{label}: wkv6 launched {launches} times, expected {L} x "
               f"{eng.prefill_rounds} prefill rounds")
-        diverged = {}
-        for r in reqs:
-            got, want = res.outputs[r.rid], refs[r.rid]
-            check(len(got) == len(want), f"rid {r.rid}: {len(got)} tokens")
-            if got != want:
-                pos = next(i for i, (a, b) in enumerate(zip(got, want))
-                           if a != b)
-                diverged[r.rid] = (pos, reference_top2_gap(
-                    torch, M, cfg, params, r.prompt, want, pos))
+        diverged = divergences(torch, M, cfg, params, reqs, res.outputs,
+                               refs)
         print(f"{label}: {sum(len(o) for o in res.outputs.values())} tokens "
               f"in {wall:.3f} s; {eng.prefill_rounds} prefill rounds, "
               f"{eng.decode_steps} decode steps, {graphs['replays']} "
@@ -2753,6 +2802,280 @@ def phase_moe(torch, pa, M, get_config):
         torch.cuda.empty_cache()
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     print(f"phase 22 peak device memory allocated: "
+          f"{out['max_memory_allocated'] / 2**30:.2f} GiB")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phase 23: the hybrid family (hymba-1.5b) at full width
+# --------------------------------------------------------------------- #
+
+#: B1 on hymba's ring: the hybrid smoke engine's slot cache (B, H, Hkv, D,
+#: window) viewed as 64-token pages, each case with every row at one
+#: context: a fresh ring, both sides of a page edge, a ring one short of
+#: full and the full (wrapped) ring; then the rows at four of them
+HYMBA_RING = (4, 25, 5, 64, 2048)
+HYMBA_CTX = ([1] * 4, [63] * 4, [64] * 4, [65] * 4, [2047] * 4, [2048] * 4,
+             [1, 65, 2047, 2048])
+#: B3 at hymba's heads, causal with its 2048-token window: the smoke
+#: workload's longest prompt (the window slides over 1052 queries) and a
+#: prompt exactly as long as the window
+HYMBA_FLASH = {"S3100": (1, 3100, 25, 5, 64), "S2048": (1, 2048, 25, 5, 64)}
+#: the fp32 serves of the hybrid smoke workload: name ->
+#: ``hybrid_smoke_server`` settings (B1 on the ring with impl="paged")
+HYBRID_RUNS = {"batched_paged": dict(impl="paged"),
+               "batched": {},
+               "deferred": dict(decode_append="deferred"),
+               "legacy": dict(plane="legacy"),
+               "swap": dict(preempt_mode="swap")}
+
+
+def phase_hybrid_kernels(torch, pa, fa, fref, ref, pa_ops, cfg):
+    """Phase 23 (a): B1 on the ring at ``HYMBA_CTX`` and B3 with the window
+    at ``HYMBA_FLASH``, in both dtypes, each case one launch of its dtype's
+    variant held against its plain version (``TOL``)."""
+    B, H, Hkv, D, S = HYMBA_RING
+    check((H, Hkv, D, S) == (cfg.num_heads, cfg.num_kv_heads,
+                             cfg.head_dim_, cfg.window),
+          f"HYMBA_RING {HYMBA_RING} is not {cfg.name}'s")
+    inp = Inputs(torch, 37)
+    errs = {"paged_decode": {}, "flash_attention": {}}
+    for dtype in ("float32", "bfloat16"):
+        for ctx in HYMBA_CTX:
+            case, dense = dense_view_case(torch, inp, dtype, HYMBA_RING, ctx)
+            what = f"B1 hymba ring ctx {ctx} {dtype}"
+            errs["paged_decode"][f"ctx{ctx}_{dtype}"] = check_dense_view(
+                torch, pa, ref, pa_ops, case, dense, dtype, what)
+        for name, shape in HYMBA_FLASH.items():
+            what = f"B3 hymba {name} window {cfg.window} {dtype}"
+            errs["flash_attention"][f"{name}_{dtype}"] = check_flash(
+                torch, fa, fref, flash_case(inp, *shape, dtype), dtype, what,
+                window=cfg.window)
+    errs["paged_decode"].update(
+        main_float32=errs["paged_decode"][f"ctx{[S] * B}_float32"],
+        main_bfloat16=errs["paged_decode"][f"ctx{[S] * B}_bfloat16"])
+    errs["flash_attention"].update(
+        main_float32=errs["flash_attention"]["S3100_float32"],
+        main_bfloat16=errs["flash_attention"]["S3100_bfloat16"])
+    print(f"hymba kernels: B1 on the {S}-slot ring (G = {H // Hkv}) at "
+          f"{len(HYMBA_CTX)} contexts and B3 with window {cfg.window} at S "
+          f"{[s[1] for s in HYMBA_FLASH.values()]}, fp32 and bf16, each one "
+          f"launch of its variant, within tolerance of the plain versions: "
+          f"max abs err {errs}")
+    return errs
+
+
+def hybrid_references(torch, fa, cfg, params, reqs):
+    """``generate_reference(impl="flash")`` of every request (B3 with the
+    window on its prefill, one launch per layer) and B3's launches."""
+    from repro_torch.launch.serve import SMOKE_HYBRID_ENGINE
+    from repro_torch.serving import generate_reference
+    zero_counts(fa.flash_attention_cuda)
+    t0 = time.perf_counter()
+    refs = {r.rid: generate_reference(
+        cfg, params, r.prompt, r.output_len,
+        cache_len=SMOKE_HYBRID_ENGINE.cache_len, impl="flash",
+        device=DEVICE) for r in reqs}
+    torch.cuda.synchronize()
+    launches = dict(fa.flash_attention_cuda.launches_by_variant)
+    want = cfg.num_layers * len(reqs)
+    check(launches == {**dict.fromkeys(launches, 0),
+                       VARIANT[cfg.dtype]: want},
+          f"hymba {cfg.dtype} generate_reference: flash_attention launches "
+          f"by variant {launches}, expected {want} {VARIANT[cfg.dtype]}")
+    return refs, launches[VARIANT[cfg.dtype]], time.perf_counter() - t0
+
+
+def ring_wraps(reqs, window):
+    """(requests whose prompt wraps the ring during prefill, requests whose
+    decode wraps it): a prompt longer than the window, a prompt within it
+    whose context outgrows it."""
+    pre = [r.rid for r in reqs if r.input_len > window]
+    dec = [r.rid for r in reqs
+           if r.input_len <= window < r.input_len + r.output_len - 1]
+    return pre, dec
+
+
+def hybrid_serve_fp32(torch, pa, M, cfg, params, refs):
+    """Phase 23 (c): the hybrid smoke workload on each of ``HYBRID_RUNS``
+    in fp32, every request's tokens against ``refs``
+    (``generate_reference(impl="flash")``) under phase 10's top-2 tie rule;
+    B1 launches = layers x decode steps through ``split_simt`` on the
+    ``impl="paged"`` run and none on the others; the graph counts of
+    ``check_plane_graphs``; at least 2 preemptions, swapped on the swap
+    run (every snapshot restored, nothing left in flight)."""
+    from repro_torch.launch.serve import (SMOKE_HYBRID_ENGINE,
+                                          hybrid_smoke_server)
+    L, out = cfg.num_layers, {}
+    for name, kw in HYBRID_RUNS.items():
+        label = f"hymba fp32 {name} serve ({kw})"
+        eng, reqs, res, wall, graphs, _ = serve_plane(
+            torch, (pa.paged_decode_cuda, pa.paged_prefill_cuda),
+            hybrid_smoke_server, cfg, params, label, **kw)
+        leaves = {k: (tuple(v.shape), v.dtype) for k, v in eng.cache.items()}
+        check(leaves["k"][0][2] == cfg.window
+              and leaves["h"][1] == torch.float32,
+              f"{label}: not a {cfg.window}-slot ring beside an fp32 SSM "
+              f"state: {leaves}")
+        b1 = dict(pa.paged_decode_cuda.launches_by_variant)
+        b1_want = L * eng.decode_steps if kw.get("impl") == "paged" else 0
+        check(b1 == {**dict.fromkeys(b1, 0), "split_simt": b1_want}
+              and eng.decode_steps > 0,
+              f"{label}: paged_decode launches by variant {b1}, expected "
+              f"{b1_want} split_simt")
+        check(pa.paged_prefill_cuda.launches == 0,
+              f"{label}: paged_prefill launched on the slot plane")
+        check(res.metrics.num_preemptions >= 2,
+              f"{label}: {res.metrics.num_preemptions} preemptions")
+        if kw.get("preempt_mode") == "swap":
+            check_swapped(eng, res, label, partial=False, demotion=False)
+        diverged = divergences(torch, M, cfg, params, reqs, res.outputs,
+                               refs, cache_len=SMOKE_HYBRID_ENGINE.cache_len,
+                               impl="flash")
+        tokens = sum(len(o) for o in res.outputs.values())
+        print(f"{label}: {tokens} tokens in {wall:.3f} s; "
+              f"{eng.prefill_rounds} prefill rounds, {eng.decode_steps} "
+              f"decode steps, {graphs['replays']} replays of "
+              f"{graphs['graphs']} graphs; preemptions "
+              f"{res.metrics.num_preemptions}, swap counts "
+              f"{swap_summary(res)}; paged_decode {b1}; "
+              f"{len(reqs) - len(diverged)}/{len(reqs)} requests "
+              "token-identical to generate_reference(impl=\"flash\")"
+              + (f", divergences (position, reference top-2 gap) {diverged}"
+                 if diverged else ""))
+        check(all(gap < TIE_GAP for _, gap in diverged.values()),
+              f"{label}: tokens differ from generate_reference beyond a "
+              f"tie: {diverged}")
+        out[name] = {"wall_s": wall, "tokens": tokens,
+                     "prefill_rounds": eng.prefill_rounds,
+                     "decode_steps": eng.decode_steps,
+                     "decode_variants": b1, "graphs": graphs,
+                     "preemptions": res.metrics.num_preemptions,
+                     "counts": swap_summary(res), "diverged": diverged,
+                     "decode_step_ms": decode_step_ms(res)}
+        del eng
+    return out
+
+
+def hybrid_serve_bf16(torch, pa, cfg, params, refs):
+    """Phase 23 (d): the hybrid smoke workload in bf16 with B1 on the ring
+    (``impl="paged"``): every replay bit-equal to its eager call on cloned
+    random state, then the run through the graphs (``check_graph_run``),
+    B1 launches = layers x decode steps through ``split_mma``, and the
+    requests equal to ``refs`` counted (not a gate); tokens/s, the wall of
+    a decode-only batch and the decode graph's replay time (device time,
+    CUDA events) beside the step's byte bound."""
+    from repro_torch.launch.serve import hybrid_smoke_server
+    label = f"hymba bf16 batched serve (impl paged, {cfg.num_layers} layers)"
+    eng, reqs = hybrid_smoke_server(cfg, params, device=DEVICE, impl="paged")
+    cmp = replay_vs_eager(torch, eng, seed=41)
+    for what, c in cmp.items():
+        check(c["bit_equal"], f"{label} {what}: the replay differs from "
+              f"the eager call on cloned state: {c}")
+    print(f"  {label}: {len(cmp)} replays bit-equal to their eager calls "
+          "on cloned random state")
+    torch.cuda.synchronize()
+    zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
+    before = graph_counts(eng)
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    graphs = check_graph_run(eng, before, label)
+    L = cfg.num_layers
+    b1 = dict(pa.paged_decode_cuda.launches_by_variant)
+    check(b1 == {**dict.fromkeys(b1, 0), "split_mma": L * eng.decode_steps}
+          and eng.decode_steps > 0 and pa.paged_prefill_cuda.launches == 0,
+          f"{label}: paged_decode launches by variant {b1}, expected "
+          f"{L} x {eng.decode_steps} split_mma")
+    check(all(r.finished for r in reqs), f"{label}: unfinished requests")
+    tokens = sum(len(o) for o in res.outputs.values())
+    same = sum(res.outputs[r.rid] == refs[r.rid] for r in reqs)
+    decode_only = sum(1 for b in res.metrics.batches
+                      if b.num_decode and not b.num_prefill)
+    step_ms = decode_step_ms(res)
+    graph_ms = event_ms(torch, eng._decode_graph())
+    # the decode step's bytes: every parameter but the embedding table,
+    # the full rings' K/V and the SSM state (read and written)
+    ring = sum(eng.cache[k].numel() * eng.cache[k].element_size()
+               for k in ("k", "v"))
+    state = sum(2 * eng.cache[k].numel() * eng.cache[k].element_size()
+                for k in ("h", "conv"))
+    bound_ms = (param_bytes(params) + ring + state) / HBM_BYTES_PER_S * 1e3
+    print(f"{label}: {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} "
+          f"tok/s; {eng.prefill_rounds} prefill rounds, {eng.decode_steps} "
+          f"decode steps ({decode_only} decode-only batches, wall "
+          f"{step_ms:.3f} ms each), {graphs['replays']} replays; "
+          f"preemptions {res.metrics.num_preemptions}; paged_decode {b1}; "
+          f"decode graph replay {graph_ms:.3f} ms of device time against "
+          f"the byte bound {bound_ms:.3f} ms (weights "
+          f"{param_bytes(params) / 1e9:.2f} GB, rings {ring / 1e9:.3f} GB, "
+          f"SSM state read and written {state / 1e9:.3f} GB at 3.35 TB/s); "
+          f"{same}/{len(reqs)} requests token-identical to the bf16 "
+          "generate_reference(impl=\"flash\") (counted, not a gate)")
+    return {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
+            "prefill_rounds": eng.prefill_rounds,
+            "decode_steps": eng.decode_steps, "decode_only": decode_only,
+            "decode_step_ms": step_ms, "decode_graph_ms": graph_ms,
+            "decode_bound_ms": bound_ms, "decode_variants": b1,
+            "graphs": graphs, "replay_vs_eager": cmp, "same_tokens": same,
+            "preemptions": res.metrics.num_preemptions}
+
+
+def phase_hybrid(torch, pa, fa, fref, ref, pa_ops, M, get_config):
+    """Phase 23: hymba-1.5b at full width, after every earlier phase's
+    engines and weights are freed: the kernels at its shapes (a), the
+    fp32 serves at full depth (c) and the bf16 one (d); (b), the kernels'
+    times, runs with phase 4's."""
+    import gc
+    from repro_torch.launch.serve import (SMOKE_HYBRID_ARCH,
+                                          hybrid_smoke_requests)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config(SMOKE_HYBRID_ARCH)
+    out = {"errors": phase_hybrid_kernels(torch, pa, fa, fref, ref, pa_ops,
+                                          base)}
+    pre, dec = ring_wraps(hybrid_smoke_requests(base.vocab_size),
+                          base.window)
+    check(pre and dec, f"no ring wrap in prefill ({pre}) or decode ({dec})")
+    print(f"hymba smoke workload: requests {pre} wrap the {base.window}-slot "
+          f"ring while prefilling, {dec} while decoding")
+    # (b) B1 on the full ring and B3 over the longest prompt, timed
+    inp, times = Inputs(torch, 43), {}
+    for dtype, sfx in (("bfloat16", ""), ("float32", "_simt")):
+        times["paged_decode_hymba" + sfx] = time_decode(
+            torch, pa, ref, dense_view_case(
+                torch, inp, dtype, HYMBA_RING,
+                [HYMBA_RING[4]] * HYMBA_RING[0])[0], dtype)
+        for name, shape in HYMBA_FLASH.items():
+            times[f"flash_attention_hymba_{name}" + sfx] = time_flash(
+                torch, fa, fref, flash_case(inp, *shape, dtype), dtype,
+                window=base.window)
+        times["flash_attention_hymba" + sfx] = \
+            times["flash_attention_hymba_S3100" + sfx]
+    del inp
+    out["times"] = times
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params = M.init_params(cfg, seed=0, device=DEVICE)
+        reqs = hybrid_smoke_requests(cfg.vocab_size)
+        refs, b3, secs = hybrid_references(torch, fa, cfg, params, reqs)
+        print(f"hymba {dtype} generate_reference(impl=\"flash\") of "
+              f"{len(reqs)} requests at {cfg.num_layers} layers: "
+              f"flash_attention launches {b3} = {cfg.num_layers} x "
+              f"{len(reqs)} ({secs:.1f} s)")
+        key = "fp32" if dtype == "float32" else "bf16"
+        out[f"reference_launches_{key}"] = b3
+        if dtype == "float32":
+            out["fp32"] = hybrid_serve_fp32(torch, pa, M, cfg, params, refs)
+        else:
+            out["bf16"] = hybrid_serve_bf16(torch, pa, cfg, params, refs)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"phase 23 peak device memory allocated: "
           f"{out['max_memory_allocated'] / 2**30:.2f} GiB")
     return out
 
@@ -2989,6 +3312,13 @@ def main(argv=None) -> int:
         del inp
         moe = phase_moe(torch, pa, M, get_config)
         lap("MoE serve")
+        hybrid = phase_hybrid(torch, pa, fa, fref, ref, pa_ops, M,
+                              get_config)
+        times.update({k: v for k, v in hybrid["times"].items()
+                      if "_S" not in k})
+        flash_more.update({k: v for k, v in hybrid["times"].items()
+                           if "_S2048" in k})
+        lap("hymba kernels and serve")
     # each entry: its launches on its main path (counts zeroed just before
     # that run), its comparison with the plain version at the main shapes,
     # and its times at those shapes
@@ -3041,6 +3371,25 @@ def main(argv=None) -> int:
          moe["qwen2_fp32"]["prefill_variants"]["simt"],
          errs["moe"]["paged_prefill"]["qwen2_moe_float32"],
          "qwen2-moe serving shapes H16 Hkv16 D128"),
+        # B1 on hymba's ring and B3 with its window (phase 23): B1's
+        # launches from the serves with impl="paged", B3's from
+        # generate_reference(impl="flash")
+        ("paged_decode_hymba", "paged_decode", "split_mma", "bfloat16",
+         hybrid["bf16"]["decode_variants"]["split_mma"],
+         hybrid["errors"]["paged_decode"]["main_bfloat16"],
+         "hymba ring 4 x 2048 H25 Hkv5 D64"),
+        ("paged_decode_hymba_simt", "paged_decode", "split_simt", "float32",
+         hybrid["fp32"]["batched_paged"]["decode_variants"]["split_simt"],
+         hybrid["errors"]["paged_decode"]["main_float32"],
+         "hymba ring 4 x 2048 H25 Hkv5 D64"),
+        ("flash_attention_hymba", "flash_attention", "wgmma", "bfloat16",
+         hybrid["reference_launches_bf16"],
+         hybrid["errors"]["flash_attention"]["main_bfloat16"],
+         "hymba prefill S3100 H25 Hkv5 window 2048"),
+        ("flash_attention_hymba_simt", "flash_attention", "simt", "float32",
+         hybrid["reference_launches_fp32"],
+         hybrid["errors"]["flash_attention"]["main_float32"],
+         "hymba prefill S3100 H25 Hkv5 window 2048"),
     ]
     kernels = []
     for entry, name, var, dtype, launches, err, shape in entries:
@@ -3073,7 +3422,8 @@ def main(argv=None) -> int:
               f"{t['ops']:.3g} ops)")
     for what, t in flash_more.items():
         print(f"flash_attention ({t['dtype']}, shape {t['shape']}, Hkv "
-              f"{t['kv_heads']}): {t['ms']:.4f} ms; plain {t['plain_ms']:.4f}"
+              f"{t['kv_heads']}, window {t['window']}): {t['ms']:.4f} ms; "
+              f"plain {t['plain_ms']:.4f}"
               f" ms; sdpa {t['library_ms']:.4f} ms; bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.3g} B, "
               f"{t['ops']:.3g} ops)")
@@ -3097,7 +3447,7 @@ def main(argv=None) -> int:
                   faulted_serve_bf16=faulted16,
                   rwkv_faulted_serve_fp32=rwkv32_faulted, graphs=graphs,
                   planes_fp32=planes32, planes_bf16=planes16,
-                  rwkv_planes_fp32=rwkv_planes, moe=moe,
+                  rwkv_planes_fp32=rwkv_planes, moe=moe, hybrid=hybrid,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

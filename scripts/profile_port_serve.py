@@ -2,7 +2,7 @@
 """Where the time of the port's served run goes, on one NVIDIA card.
 
     python3 scripts/profile_port_serve.py [--arch tinyllama-1.1b|rwkv6-7b|
-                                           qwen2-moe-a2.7b]
+                                           qwen2-moe-a2.7b|hymba-1.5b]
                                           [--workload smoke|swap]
                                           [--plane paged|batched|legacy]
                                           [--impl reference|paged|flash_jnp]
@@ -20,7 +20,10 @@ swap, tail sheds and the host demotion tier; the swap walls are printed
 too), or with ``--arch rwkv6-7b`` that of ``rwkv_smoke_server`` (full-width
 RWKV6-7B, the slot-resident plane, the WKV6 kernel), or with ``--arch
 qwen2-moe-a2.7b`` ``smoke_server``'s engine and workload on the MoE
-model (full width, the dense expert dispatch), twice: once plainly, for the wall time per step, and once with engine
+model (full width, the dense expert dispatch), or with ``--arch
+hymba-1.5b`` that of ``hybrid_smoke_server`` (full-width hymba-1.5B on
+the slot planes: ``--plane``, ``--impl paged`` for B1 on the ring, and
+``--decode-append``), twice: once plainly, for the wall time per step, and once with engine
 steps 40-59 (decode steps, mostly; ``--window tail``: the run's last 20
 steps, all decode steps, so the device time per decode step compares
 across planes whose schedules differ) under
@@ -115,12 +118,14 @@ def instrument(torch, eng, after):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tinyllama-1.1b",
-                    choices=["tinyllama-1.1b", "rwkv6-7b", "qwen2-moe-a2.7b"])
+                    choices=["tinyllama-1.1b", "rwkv6-7b", "qwen2-moe-a2.7b",
+                             "hymba-1.5b"])
     ap.add_argument("--workload", default="smoke", choices=["smoke", "swap"],
                     help="TinyLlama only: smoke_server or smoke_swap_server")
     ap.add_argument("--plane", default="paged",
                     choices=["paged", "batched", "legacy"],
-                    help="TinyLlama smoke only: smoke_plane_server's plane")
+                    help="TinyLlama smoke: smoke_plane_server's plane; "
+                    "hymba-1.5b: hybrid_smoke_server's")
     ap.add_argument("--impl", default="reference",
                     choices=["reference", "paged", "flash_jnp"])
     ap.add_argument("--decode-append", default="inline",
@@ -146,7 +151,9 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
-    from repro_torch.launch.serve import (SMOKE_ARCH, SMOKE_RWKV_ARCH,
+    from repro_torch.launch.serve import (SMOKE_ARCH, SMOKE_HYBRID_ARCH,
+                                          SMOKE_RWKV_ARCH,
+                                          hybrid_smoke_server,
                                           rwkv_smoke_server, smoke_server,
                                           smoke_swap_server)
     from repro_torch.models import model as M
@@ -155,6 +162,12 @@ def main(argv=None) -> int:
     if args.arch == SMOKE_RWKV_ARCH:
         wkv.build_all()
         server = rwkv_smoke_server
+    elif args.arch == SMOKE_HYBRID_ARCH:
+        assert args.workload == "smoke"
+        pa.build_all()
+        server = functools.partial(
+            hybrid_smoke_server, plane=args.plane, impl=args.impl,
+            decode_append=args.decode_append)
     elif args.arch != SMOKE_ARCH:          # the MoE smoke model
         assert args.workload == "smoke" and args.plane == "paged"
         pa.build_all()

@@ -1,6 +1,7 @@
 """Config registry: importing this package registers the architectures
-this port serves: the dense family, the mixture-of-experts family and
-RWKV6 (``family="ssm"``)."""
+this port serves: the dense family, the mixture-of-experts family,
+RWKV6 (``family="ssm"``) and the hybrid family (hymba: sliding-window
+attention beside a selective SSM)."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ModelConfig,
@@ -20,4 +21,5 @@ from repro_torch.configs import (  # noqa: F401
     qwen3_moe_30b_a3b,
     qwen2_moe_a2_7b,
     rwkv6_7b,
+    hymba_1_5b,
 )

@@ -5,7 +5,8 @@ scheduling / cache-replacement policy (the paper's deployment path) and
 prints the §5.1 metrics.  A dense or MoE ``--arch`` runs on the paged
 plane (the hand-written paged-attention kernels; MoE layers in the
 engine's default dense dispatch); ``--arch rwkv6-7b`` on the
-slot-resident plane (the hand-written WKV6 kernel).  Runs on ``--device
+slot-resident plane (the hand-written WKV6 kernel), and so does ``--arch
+hymba-1.5b`` (its sliding-window ring and SSM state are not paged).  Runs on ``--device
 cuda`` (the default); ``--device cpu`` runs the kernels' plain PyTorch
 versions.  Without ``--full`` the model is the config's ``reduced()``
 variant (a dense one widened to 64-dim heads, the smallest head the
@@ -23,7 +24,11 @@ tokens on 4 slots, with recompute or, given ``preempt_mode``, swap
 preemptions; ``plane`` and ``decode_append`` as above);
 ``smoke_swap_server`` the swap one (TinyLlama-1.1B on Zipf-hot prompt
 templates, with swap preemptions, tail sheds and the host demotion
-tier).
+tier); ``hybrid_smoke_server`` the hymba-1.5B one (8 requests of 127-3100
+prompt tokens on 4 slots of a 2048-token sliding-window ring, which
+prompts of 2030 tokens and more wrap in decode and the 3100-token one
+in prefill, with recompute or, given ``preempt_mode``, swap preemptions;
+``plane``, ``decode_append`` and the decode ``impl`` as above).
 """
 from __future__ import annotations
 
@@ -113,11 +118,16 @@ SMOKE_RWKV_PROMPTS = (60, 127, 300, 200, 96, 256, 160, 72)
 SMOKE_RWKV_OUTPUT = 32
 
 
-def rwkv_smoke_requests(vocab: int, seed: int = 0):
+def _fixed_requests(prompts, output_len: int, vocab: int, seed: int):
+    """One request per prompt length, all arriving at 0, ids from a seed."""
     rs = np.random.RandomState(seed)
-    return [Request(rid=i, input_len=n, output_len=SMOKE_RWKV_OUTPUT,
-                    arrival=0.0, prompt=rs.randint(0, vocab, size=n).tolist())
-            for i, n in enumerate(SMOKE_RWKV_PROMPTS)]
+    return [Request(rid=i, input_len=n, output_len=output_len, arrival=0.0,
+                    prompt=rs.randint(0, vocab, size=n).tolist())
+            for i, n in enumerate(prompts)]
+
+
+def rwkv_smoke_requests(vocab: int, seed: int = 0):
+    return _fixed_requests(SMOKE_RWKV_PROMPTS, SMOKE_RWKV_OUTPUT, vocab, seed)
 
 
 def rwkv_smoke_server(cfg, params, device: str = "cuda",
@@ -138,6 +148,46 @@ def rwkv_smoke_server(cfg, params, device: str = "cuda",
                  cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
                  device=device).warmup()
     return eng, rwkv_smoke_requests(cfg.vocab_size)
+
+
+# the hybrid smoke workload: hymba-1.5B (25 q / 5 kv heads of 64 over a
+# 2048-token sliding-window ring, beside the selective SSM) on 4 slots,
+# chunk 128; 8 requests of 48 output tokens whose prompts straddle the
+# ring (2030-2049 wrap it while decoding, 3100 while prefilling), over a
+# token budget that forces recompute preemptions (3 on this schedule);
+# the scheduler's batch budget S holds the longest prompt whole
+SMOKE_HYBRID_ARCH = "hymba-1.5b"
+SMOKE_HYBRID_M = 4096
+SMOKE_HYBRID_S = 4096
+SMOKE_HYBRID_ENGINE = EngineConfig(nslots=4, cache_len=2048, chunk=128,
+                                   plane="batched")
+SMOKE_HYBRID_PROMPTS = (127, 640, 1900, 2030, 2047, 2048, 2049, 3100)
+SMOKE_HYBRID_OUTPUT = 48
+
+
+def hybrid_smoke_requests(vocab: int, seed: int = 0):
+    return _fixed_requests(SMOKE_HYBRID_PROMPTS, SMOKE_HYBRID_OUTPUT, vocab,
+                           seed)
+
+
+def hybrid_smoke_server(cfg, params, device: str = "cuda",
+                        preempt_mode: str = "recompute", faults=None,
+                        plane: str = "batched", decode_append: str = "inline",
+                        impl: str = "reference"):
+    """A warmed slot-plane ``Engine`` (vLLM scheduler, SRF replacement)
+    and fresh requests of the hybrid smoke workload, for
+    ``cfg``/``params`` of ``SMOKE_HYBRID_ARCH`` in any dtype (or depth);
+    ``preempt_mode``, ``faults``, ``plane`` and ``decode_append`` as in
+    ``rwkv_smoke_server``, and ``impl="paged"`` runs the decode attention
+    on the paged decode kernel over the ring."""
+    sched = make_scheduler("vllm", SMOKE_HYBRID_M, S=SMOKE_HYBRID_S,
+                           replacement="srf", preempt_mode=preempt_mode)
+    eng = Engine(cfg, params, sched,
+                 replace(SMOKE_HYBRID_ENGINE, faults=faults, plane=plane,
+                         decode_append=decode_append, impl=impl),
+                 cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
+                 device=device).warmup()
+    return eng, hybrid_smoke_requests(cfg.vocab_size)
 
 
 # the swap smoke workload: 32 requests on 8 Zipf-hot prompt templates

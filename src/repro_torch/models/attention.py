@@ -1,16 +1,20 @@
-"""GQA attention with a dense KV cache: ``repro.models.attention`` for
-unbounded dense attention.
+"""GQA attention with a dense KV cache: ``repro.models.attention``.
 
-* full-sequence (train / prefill): causal (+ optional prefix-LM)
-  attention over the whole batch, optionally emitting a cache padded to
-  ``cache_len``.  ``impl="flash"`` runs the hand-written flash-attention
-  kernel (``kernels.flash_attention``, forward-only); every other
-  ``impl`` the plain reference branch, as in the JAX package.
+* full-sequence (train / prefill): causal (+ optional sliding window
+  ``cfg.window``, + optional prefix-LM) attention over the whole batch,
+  optionally emitting a cache padded to ``cache_len`` (or, under a
+  window, cropped to the last ``cache_len`` K/V in ring order).
+  ``impl="flash"`` runs the hand-written flash-attention kernel
+  (``kernels.flash_attention``, forward-only, with the window); every
+  other ``impl`` the plain reference branch, as in the JAX package.
 * chunked prefill (``attention_chunk``): the next c tokens of each row
   against an existing cache, with a ``length`` mask for the engine's
-  bucketed rounds (the slot-resident planes' chunk step).
+  bucketed rounds (the slot-resident planes' chunk step).  Under a
+  window the cache is a ring of exactly ``window`` slots (slot = position
+  mod window), and the chunk attends to the old ring before it writes.
 * decode: one query token against a dense cache ``(B, S, Hkv, D)`` with
-  a per-request length mask.  ``impl`` picks the backend as in JAX:
+  a per-request length mask; under a window the new token goes to ring
+  slot ``index mod S``.  ``impl`` picks the backend as in JAX:
   ``"paged"`` views the contiguous cache as 64-token pages and runs the
   hand-written paged decode kernel (``kernels.paged_attention.ops.
   decode_attention_dense``, B1), ``"flash_jnp"`` the chunked online-
@@ -21,9 +25,9 @@ unbounded dense attention.
 These are the token oracle (``serving.engine.generate_reference``), the
 trainer's attention, the slot-resident planes' attention and the
 model-level parity surface.  The engine's pooled plane runs the paged
-kernels through ``serving.paged_plane`` instead.  Sliding windows
-(ROADMAP A8) and the sequence-sharded decode backend (``impl=
-"seqsharded"``, A13) raise ``ValueError`` naming their item.
+kernels through ``serving.paged_plane`` instead.  The sequence-sharded
+decode backend (``impl="seqsharded"``, A13) raises ``ValueError``
+naming its item.
 """
 from __future__ import annotations
 
@@ -43,12 +47,6 @@ NEG_INF = -1e30
 
 #: decode backends of the JAX package that this port does not have yet
 _DECODE_IMPL_ITEMS = {"seqsharded": "A13"}
-
-
-def _check_window(cfg: ModelConfig) -> None:
-    if cfg.window:
-        raise ValueError(f"{cfg.name}: sliding-window attention is not "
-                         "ported yet (ROADMAP A8)")
 
 
 def _check_decode_impl(impl: str) -> None:
@@ -124,25 +122,33 @@ def attention_full(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Train / prefill attention.  Returns (out, cache_or_None);
     ``cache_len`` >= S also emits a KV cache zero-padded to that length.
+    Under a sliding window a shorter ``cache_len`` keeps the last
+    ``cache_len`` K/V in ring order (row = position mod cache_len), so
+    decode's ring writes stay aligned; full attention refuses to crop.
     ``impl="flash"`` assumes ``positions`` are ``0..S-1`` on every row,
     as the JAX kernel does."""
-    _check_window(cfg)
     B, S, _ = x.shape
-    if cache_len and cache_len < S:
+    if cache_len and cache_len < S and not cfg.window:
         raise ValueError(f"cache_len {cache_len} < prompt length {S}: only "
-                         "the sliding-window ring crops (ROADMAP A8)")
+                         "the sliding-window ring crops")
     q, k, v = _project_qkv(params, cfg, x, positions)
     if impl == "flash":
-        out = fa_ops.flash_attention(q, k, v, prefix_len=prefix_len)
+        out = fa_ops.flash_attention(q, k, v, window=cfg.window,
+                                     prefix_len=prefix_len)
     else:
         out = _sdpa(q, k, v, causal_mask(positions, positions,
+                                         window=cfg.window,
                                          prefix_len=prefix_len))
     out = out.reshape(B, S, cfg.q_dim) @ params["wo"]
     cache = None
-    if cache_len:
+    if cache_len >= S:
         pad = (0, 0, 0, 0, 0, cache_len - S)
         cache = {"k": torch.nn.functional.pad(k, pad),
                  "v": torch.nn.functional.pad(v, pad)}
+    elif cache_len:
+        s0 = (S - cache_len) % cache_len
+        cache = {"k": torch.roll(k[:, -cache_len:], s0, dims=1),
+                 "v": torch.roll(v[:, -cache_len:], s0, dims=1)}
     return out, cache
 
 
@@ -207,15 +213,39 @@ def attention_chunk(params: Params, cfg: ModelConfig, x: torch.Tensor,
     refuses such requests at ``submit``; JAX would clamp it to slot
     ``Smax - 1``).  Padded queries give rows the caller must ignore;
     padded keys never reach a real query (the causal mask hides them).
+
+    Under a sliding window the cache is a ring of exactly ``window``
+    slots and ``c <= window`` (so a chunk's slots are distinct), and the
+    chunk attends BEFORE it writes: its tokens would overwrite ring slots
+    still visible to its earlier queries.  The keys are the old ring,
+    each slot's position rebuilt from the row's newest old position
+    ``start - 1`` (``-1`` on a fresh row, hence a floored modulo), then
+    the chunk itself, under the causal window mask; then the chunk is
+    written as above.
     """
-    _check_window(cfg)
     B, c, _ = x.shape
     Smax = cache["k"].shape[1]
     if c > Smax:
         raise ValueError(f"chunk of {c} tokens > cache length {Smax}")
+    if cfg.window and cfg.window != Smax:
+        raise ValueError(f"window {cfg.window}: the ring cache must be "
+                         f"exactly window-sized, not {Smax}")
     ar = torch.arange(c, device=x.device)
     positions = start.long()[:, None] + ar[None, :]            # (B, c)
     q, k, v = _project_qkv(params, cfg, x, positions)
+    qpos = positions[:, :, None]                               # (B, c, 1)
+    sidx = torch.arange(Smax, device=x.device)[None, None, :]
+    if cfg.window:
+        prev_newest = positions[:, :1, None] - 1               # (B, 1, 1)
+        key_pos_old = prev_newest - torch.remainder(prev_newest - sidx,
+                                                    Smax)
+        mask_old = ((key_pos_old >= 0) & (key_pos_old <= qpos)
+                    & (qpos - key_pos_old < cfg.window))       # (B, c, Smax)
+        kpos_new = positions[:, None, :]                       # (B, 1, c)
+        mask_new = (kpos_new <= qpos) & (qpos - kpos_new < cfg.window)
+        out = _sdpa(q, torch.cat([cache["k"], k], dim=1),
+                    torch.cat([cache["v"], v], dim=1),
+                    torch.cat([mask_old, mask_new], dim=2))
     dest = (positions % Smax)[:, :, None, None].expand_as(k)
     if length is not None:
         valid = (ar[None, :] < length[:, None])[:, :, None, None]
@@ -223,9 +253,8 @@ def attention_chunk(params: Params, cfg: ModelConfig, x: torch.Tensor,
         v = torch.where(valid, v, cache["v"].gather(1, dest))
     new_k = cache["k"].clone().scatter_(1, dest, k)
     new_v = cache["v"].clone().scatter_(1, dest, v)
-    mask = (torch.arange(Smax, device=x.device)[None, None, :]
-            <= positions[:, :, None])                          # causal
-    out = _sdpa(q, new_k, new_v, mask)
+    if not cfg.window:
+        out = _sdpa(q, new_k, new_v, sidx <= qpos)             # causal
     out = out.reshape(B, c, cfg.q_dim) @ params["wo"]
     return out, {"k": new_k, "v": new_v}
 
@@ -235,16 +264,21 @@ def attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
                      impl: str = "reference") -> Tuple[torch.Tensor, Dict]:
     """One-token decode.  x: (B, 1, d); cache[k|v]: (B, Smax, Hkv, D);
     cache_index: (B,) number of valid cache entries (also the position).
-    The new token is written, then attended (``min(index + 1, Smax)``
-    keys), by the backend ``impl`` picks (module docstring).  Returns new
-    cache tensors; the inputs are not modified."""
-    _check_window(cfg)
+    The new token is written (under a window, at ring slot ``index mod
+    Smax``), then attended (``min(index + 1, Smax)`` keys; attention is
+    order-free, so the ring needs no reordering), by the backend ``impl``
+    picks (module docstring).  Returns new cache tensors; the inputs are
+    not modified."""
     _check_decode_impl(impl)
     B = x.shape[0]
     Smax = cache["k"].shape[1]
+    if cfg.window and cfg.window < Smax:
+        raise ValueError(f"window {cfg.window}: a ring cache of {Smax} "
+                         "slots is longer than the window")
     positions = cache_index[:, None]                          # (B, 1)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    slot = torch.clamp(cache_index, max=Smax - 1)
+    slot = (cache_index % Smax if cfg.window
+            else torch.clamp(cache_index, max=Smax - 1))
     bidx = torch.arange(B, device=x.device)
     new_k = cache["k"].clone()
     new_v = cache["v"].clone()
@@ -274,9 +308,10 @@ def attention_decode_deferred(params: Params, cfg: ModelConfig,
     (``models.model.decode_step_deferred``).  Attention over the cache's
     ``min(index, Smax)`` old entries (``decode_attn_partials``) is merged
     with the new token's own logit in fp32 (``merge_softmax_groups``).
-    Every ``impl`` but ``"seqsharded"`` (A13) takes this path, as in
-    JAX."""
-    _check_window(cfg)
+    Under a window, once the ring is full the slot the new token will
+    overwrite holds position ``index - Smax``, outside the window: it is
+    masked out.  Every ``impl`` but ``"seqsharded"`` (A13) takes this
+    path, as in JAX."""
     _check_decode_impl(impl)
     B = x.shape[0]
     Smax = cache["k"].shape[1]
@@ -286,8 +321,12 @@ def attention_decode_deferred(params: Params, cfg: ModelConfig,
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     G = H // Hkv
     n_valid = torch.clamp(cache_index, max=Smax)
-    valid = (torch.arange(Smax, device=x.device)[None, :]
-             < n_valid[:, None])
+    sidx = torch.arange(Smax, device=x.device)[None, :]
+    valid = sidx < n_valid[:, None]
+    if cfg.window:
+        expired = ((sidx == (cache_index % Smax)[:, None])
+                   & (cache_index[:, None] >= Smax))
+        valid &= ~expired
     out1, m1, l1 = decode_attn_partials(q1, cache["k"], cache["v"], valid)
     # the new token's own logit and value per query head
     qg = q1.reshape(B, Hkv, G, D).float()

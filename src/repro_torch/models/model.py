@@ -1,7 +1,7 @@
-"""Decoder-LM assembly for the dense, mixture-of-experts and RWKV6
-(``ssm``) families: a Python loop over layers whose parameters are
-stacked on a leading ``L`` axis, as in ``repro.models.model``
-(``lax.scan`` there).
+"""Decoder-LM assembly for the dense, mixture-of-experts, RWKV6
+(``ssm``) and hybrid (hymba) families: a Python loop over layers whose
+parameters are stacked on a leading ``L`` axis, as in
+``repro.models.model`` (``lax.scan`` there).
 
 Public API (functional, on nested dicts of tensors):
   init_params(cfg, seed, device=...)          -> params
@@ -24,18 +24,24 @@ and ``"flash_jnp"`` the chunked online-softmax loop
 
 The cache dict carries "index" (B,) = tokens already in context (== next
 absolute position), plus, for the dense family, "k"/"v" of shape
-(L, B, cache_len, Hkv, D), and for RWKV6 the recurrent state "S"
+(L, B, cache_len, Hkv, D) (under a sliding window, a ring of
+``min(cache_len, window)`` slots), for RWKV6 the recurrent state "S"
 (L, B, H, D, D) fp32 and the token-shift samples "x_tm"/"x_cm"
-(L, B, 1, d).  RWKV6's full-sequence time-mix runs on the WKV6 kernel
-(``kernels.rwkv_scan``), forward-only, so ``train_loss`` refuses it
-(ROADMAP A9).  ``prefill_chunk`` (the slot planes' chunk step) and
+(L, B, 1, d), and for the hybrid family the ring "k"/"v" beside the
+selective SSM's state "h" (L, B, d_inner, N) fp32 and conv window "conv"
+(L, B, 3, d_inner).  RWKV6's full-sequence time-mix runs on the WKV6
+kernel (``kernels.rwkv_scan``), forward-only, so ``train_loss`` refuses
+it (ROADMAP A9).  ``prefill_chunk`` (the slot planes' chunk step) and
 ``decode_step_deferred`` (one cache scatter per step) run every family.
 The MoE family's MLP is ``models.moe``'s dispatch chosen by ``moe_impl``
 (``"dense"``, ``"sparse"``; ``"ep"`` is ROADMAP A13), with JAX's
 defaults: ``"sparse"`` in the model functions, ``"dense"`` in the
-engine.  MoE serves but does not train yet (ROADMAP A7-ii).
-Sliding-window/hybrid and the VLM/audio frontends raise ``ValueError``
-naming the ROADMAP item that ports them.
+engine.  MoE serves but does not train yet (ROADMAP A7-ii).  The
+hybrid family's layer runs windowed attention and the selective SSM
+(``models.ssm``, plain torch as in JAX) side by side on the same input
+and adds the mean of their normalized outputs; it serves but does not
+train yet (ROADMAP A8-ii).  The VLM/audio frontends raise ``ValueError``
+naming the ROADMAP item that ports them (A10).
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Params, embed_init, gated_mlp,
                                        gated_mlp_init, rms_norm,
                                        softmax_cross_entropy)
@@ -60,14 +67,16 @@ def check_supported(cfg: ModelConfig, *, train: bool = False) -> None:
     if cfg.num_experts and train:
         raise ValueError(f"{cfg.name}: training mixture-of-experts layers "
                          "is not ported yet (ROADMAP A7-ii)")
-    if cfg.window or cfg.family == "hybrid":
-        raise ValueError(f"{cfg.name}: sliding-window/hybrid attention is "
-                         "not ported yet (ROADMAP A8)")
+    if cfg.family == "hybrid" and train:
+        raise ValueError(f"{cfg.name}: training the hybrid family (autograd "
+                         "through the selective-SSM scan) is not ported yet "
+                         "(ROADMAP A8-ii)")
     if cfg.family == "ssm" and train:
         raise ValueError(f"{cfg.name}: training RWKV6 needs a backward "
                          "through the forward-only WKV6 kernel, which "
                          "neither package has (ROADMAP A9)")
-    if cfg.family not in ("dense", "moe", "ssm") or cfg.frontend != "none":
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
+            or cfg.frontend != "none":
         raise ValueError(f"{cfg.name}: the {cfg.family!r} family/frontends "
                          "are not ported yet (ROADMAP A10)")
 
@@ -101,6 +110,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
         layers.update(rwkv_mod.init_rwkv_layer(gen, cfg, dtype, lead))
     else:
         layers["attn"] = attn.init_attention(gen, cfg, dtype, lead)
+        if cfg.family == "hybrid":
+            layers["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype, lead)
+            layers["ln_attn"] = zeros(*lead, d)
+            layers["ln_ssm"] = zeros(*lead, d)
         if cfg.num_experts:
             layers["moe"] = moe_mod.init_moe(gen, cfg, dtype, lead)
         else:
@@ -175,6 +188,8 @@ def _logits(cfg: ModelConfig, params: Params,
 
 #: the recurrent-state leaves of an RWKV6 cache, each stacked on L
 SSM_LEAVES = ("S", "x_tm", "x_cm")
+#: the leaves of a hybrid cache: the attention ring and the SSM state
+HYBRID_LEAVES = ("k", "v", "h", "conv")
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
@@ -188,11 +203,17 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                       for k in SSM_LEAVES})
         return cache
     dtype = dtype or _dtype(cfg)
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
-             cfg.head_dim_)
-    return {"index": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    L = cfg.num_layers
+    eff_len = min(cache_len, cfg.window) if cfg.window else cache_len
+    shape = (L, batch, eff_len, cfg.num_kv_heads, cfg.head_dim_)
+    cache = {"index": torch.zeros((batch,), dtype=torch.int32,
+                                  device=device),
+             "k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family == "hybrid":
+        st = ssm_mod.init_ssm_state(cfg, batch, device=device)
+        cache.update({k: torch.stack([v] * L) for k, v in st.items()})
+    return cache
 
 
 def _rwkv_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
@@ -221,22 +242,44 @@ def _mlp_or_moe(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     return gated_mlp(lp["mlp"], x)
 
 
+def _hybrid_mix(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The hybrid layer's residual: the mean of the normalized attention
+    and SSM branch outputs."""
+    return x + 0.5 * (rms_norm(a, lp["ln_attn"], cfg.norm_eps)
+                      + rms_norm(s, lp["ln_ssm"], cfg.norm_eps))
+
+
+def _mlp_residual(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                  moe_impl: str) -> torch.Tensor:
+    return x + _mlp_or_moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                           moe_impl)
+
+
 def _block_full(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                 positions: torch.Tensor, impl: str, moe_impl: str,
                 cache_len: int) -> Tuple[torch.Tensor, Dict]:
     """One full-sequence block: (x, layer cache or {}); an RWKV6 block
-    starts from a zero state and always returns its state.  No prefix-LM
-    here: the frontends that make one are not ported (A10)."""
+    starts from a zero state and always returns its state, a hybrid one
+    (with a cache) returns its ring cropped to the window and its SSM
+    state.  No prefix-LM here: the frontends that make one are not
+    ported (A10)."""
     if cfg.family == "ssm":
         state = rwkv_mod.init_rwkv_state(cfg, x.shape[0], device=x.device)
         return _rwkv_block(cfg, lp, x, state)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, kv = attn.attention_full(lp["attn"], cfg, h, positions, impl=impl,
-                                cache_len=cache_len)
-    x = x + a
-    x = x + _mlp_or_moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
-                        moe_impl)
-    return x, (kv if cache_len else {})
+    if cfg.family == "hybrid":
+        a, kv = attn.attention_full(
+            lp["attn"], cfg, h, positions, impl=impl,
+            cache_len=min(cache_len, cfg.window) if cache_len else 0)
+        s, sst = ssm_mod.apply_ssm_full(lp["ssm"], cfg, h)
+        x = _hybrid_mix(cfg, lp, x, a, s)
+        lc = {**(kv or {}), **sst}
+    else:
+        a, lc = attn.attention_full(lp["attn"], cfg, h, positions,
+                                    impl=impl, cache_len=cache_len)
+        x = x + a
+    return _mlp_residual(cfg, lp, x, moe_impl), (lc if cache_len else {})
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -315,17 +358,48 @@ def _block_chunk(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     if cfg.family == "ssm":
         return _rwkv_block(cfg, lp, x, layer_cache, length)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, kv = attn.attention_chunk(lp["attn"], cfg, h, layer_cache, start,
-                                 impl=impl, length=length)
-    x = x + a
-    x = x + _mlp_or_moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
-                        moe_impl)
-    return x, kv
+    kv = {"k": layer_cache["k"], "v": layer_cache["v"]}
+    a, lc = attn.attention_chunk(lp["attn"], cfg, h, kv, start, impl=impl,
+                                 length=length)
+    if cfg.family == "hybrid":
+        s, sst = ssm_mod.apply_ssm_full(
+            lp["ssm"], cfg, h, length=length,
+            state={"h": layer_cache["h"], "conv": layer_cache["conv"]})
+        x = _hybrid_mix(cfg, lp, x, a, s)
+        lc.update(sst)
+    else:
+        x = x + a
+    return _mlp_residual(cfg, lp, x, moe_impl), lc
+
+
+def _block_decode(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                  layer_cache: Dict[str, torch.Tensor],
+                  index: torch.Tensor, impl: str, moe_impl: str,
+                  deferred: bool = False
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode block of the attention families: (x, the layer's new
+    cache), or with ``deferred`` (x, its delta: the new token's
+    ``k_new``/``v_new``, and a hybrid layer's whole new SSM state)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    kv = {"k": layer_cache["k"], "v": layer_cache["v"]}
+    fn = (attn.attention_decode_deferred if deferred
+          else attn.attention_decode)
+    a, lc = fn(lp["attn"], cfg, h, kv, index, impl=impl)
+    if cfg.family == "hybrid":
+        s, sst = ssm_mod.apply_ssm_decode(
+            lp["ssm"], cfg, h,
+            {"h": layer_cache["h"], "conv": layer_cache["conv"]})
+        x = _hybrid_mix(cfg, lp, x, a, s)
+        lc.update(sst)
+    else:
+        x = x + a
+    return _mlp_residual(cfg, lp, x, moe_impl), lc
 
 
 def _cache_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
     """The cache leaves stacked on L (every leaf but ``index``)."""
-    return SSM_LEAVES if cfg.family == "ssm" else ("k", "v")
+    return {"ssm": SSM_LEAVES, "hybrid": HYBRID_LEAVES}.get(cfg.family,
+                                                           ("k", "v"))
 
 
 def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -387,22 +461,17 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = _embed(cfg, params, tokens)
     if cfg.family == "ssm":
         return _decode_rwkv(cfg, params, x, cache)
-    ks, vs = [], []
+    layer_caches = []
     for l, lp in enumerate(unstack_layers(params)):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, kv = attn.attention_decode(lp["attn"], cfg, h,
-                                      {"k": cache["k"][l],
-                                       "v": cache["v"][l]}, index,
-                                      impl=impl)
-        x = x + a
-        x = x + _mlp_or_moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
-                            moe_impl)
-        ks.append(kv["k"])
-        vs.append(kv["v"])
+        x, lc = _block_decode(cfg, lp, x,
+                              {k: cache[k][l] for k in _cache_leaves(cfg)},
+                              index, impl, moe_impl)
+        layer_caches.append(lc)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _logits(cfg, params, x[:, 0])
-    return logits, {"index": index + 1, "k": torch.stack(ks),
-                    "v": torch.stack(vs)}
+    out = {"index": index + 1}
+    out.update(_stack(layer_caches))
+    return logits, out
 
 
 def decode_step_deferred(cfg: ModelConfig, params: Params,
@@ -415,9 +484,11 @@ def decode_step_deferred(cfg: ModelConfig, params: Params,
     (``attention_decode_deferred``) and returns its new token's K/V, and
     ONE scatter over (L, rows, slot) writes them all after the layer loop
     instead of one cache write per layer.  Equal to ``decode_step`` up to
-    the fp32 merge of the new token's softmax group.  RWKV6's states are
-    the delta: its step is ``decode_step``'s.  Returns (logits (B, Vpad),
-    a new cache with index + 1); the input cache is not modified."""
+    the fp32 merge of the new token's softmax group.  Under a window the
+    scatter writes ring slot ``index mod Smax``; a hybrid layer's new SSM
+    state is its delta, stacked as it is.  RWKV6's states are the delta:
+    its step is ``decode_step``'s.  Returns (logits (B, Vpad), a new
+    cache with index + 1); the input cache is not modified."""
     check_supported(cfg)
     if tokens.ndim == 1:
         tokens = tokens[:, None]
@@ -425,26 +496,25 @@ def decode_step_deferred(cfg: ModelConfig, params: Params,
     x = _embed(cfg, params, tokens)
     if cfg.family == "ssm":
         return _decode_rwkv(cfg, params, x, cache)
-    ks, vs = [], []
+    deltas = []
     for l, lp in enumerate(unstack_layers(params)):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, delta = attn.attention_decode_deferred(
-            lp["attn"], cfg, h, {"k": cache["k"][l], "v": cache["v"][l]},
-            index, impl=impl)
-        x = x + a
-        x = x + _mlp_or_moe(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
-                            moe_impl)
-        ks.append(delta["k_new"])
-        vs.append(delta["v_new"])
+        x, delta = _block_decode(cfg, lp, x,
+                                 {k: cache[k][l] for k in _cache_leaves(cfg)},
+                                 index, impl, moe_impl, deferred=True)
+        deltas.append(delta)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _logits(cfg, params, x[:, 0])
+    deltas = _stack(deltas)
     B, Smax = tokens.shape[0], cache["k"].shape[2]
     rows = torch.arange(B, device=tokens.device)
-    slot = torch.clamp(index, max=Smax - 1)
+    slot = (index % Smax if cfg.window
+            else torch.clamp(index, max=Smax - 1))
     new_k, new_v = cache["k"].clone(), cache["v"].clone()
-    new_k[:, rows, slot] = torch.stack(ks)          # (L, B, Hkv, D)
-    new_v[:, rows, slot] = torch.stack(vs)
-    return logits, {"index": index + 1, "k": new_k, "v": new_v}
+    new_k[:, rows, slot] = deltas.pop("k_new")      # (L, B, Hkv, D)
+    new_v[:, rows, slot] = deltas.pop("v_new")
+    out = {"index": index + 1, "k": new_k, "v": new_v}
+    out.update(deltas)                              # hybrid: h, conv
+    return logits, out
 
 
 def _decode_rwkv(cfg: ModelConfig, params: Params, x: torch.Tensor,

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine on PyTorch — the paper's deployment
 path (Fig. 1) with the paged data plane on hand-written CUDA kernels, the
-slot-resident planes for the dense family and RWKV6, and the legacy
-plane.
+slot-resident planes for the dense family, RWKV6 and the hybrid family,
+and the legacy plane.
 
 The engine drives the unified ``Scheduler`` (Algorithm 1) against the
 real model.  Memory accounting (the scheduler's M) is backed by a
@@ -35,10 +35,14 @@ the paged flash-decoding kernel.  On top of the pooled pages:
   into the decode graph's own input buffer: nothing is uploaded.
 
 The slot-resident plane (``plane="batched"``, and ``plane="paged"`` on a
-family whose state is not worth paging: RWKV6's is O(1) per request, as
-in the JAX engine): every slot's state -- the dense family's contiguous
-K/V rows (``index``, ``k``, ``v``), RWKV6's recurrent state -- lives in
-one cache of ``models.model.init_cache(cfg, nslots, cache_len)``.  A
+family whose state is not worth paging, as in the JAX engine: RWKV6's is
+O(1) per request, and so is a sliding window's, whose ring holds at most
+``window`` K/V): every slot's state -- the dense family's contiguous K/V
+rows (``index``, ``k``, ``v``), RWKV6's recurrent state, the hybrid
+family's K/V ring beside its SSM state (``h`` fp32, ``conv``) -- lives
+in one cache of ``models.model.init_cache(cfg, nslots, cache_len)``.
+Under a window the engine clamps ``chunk`` to it on its own copy of the
+``EngineConfig``, as JAX does (a chunk may not lap its own ring).  A
 prefill round is ONE ``prefill_chunk`` call over ``(nslots, bucket)``
 tokens and ``(nslots,)`` lengths (the WKV6 kernel runs once per layer on
 RWKV6), a decode step one decode over all slots; each merges its new
@@ -119,9 +123,9 @@ Differences from the JAX engine (``repro.serving.engine``):
   legacy plane's prefill is the exception: it runs eagerly, as its exact
   shapes (one JAX compile per tail length) are the point of the plane,
   and only its decode step is a graph.
-* Settings this port does not run yet (sliding windows A8, other
-  families A10, ``impl="seqsharded"`` and ``moe_impl="ep"`` A13) raise
-  ``ValueError`` naming the ROADMAP item that will port them.
+* Settings this port does not run yet (other families A10,
+  ``impl="seqsharded"`` and ``moe_impl="ep"`` A13) raise ``ValueError``
+  naming the ROADMAP item that will port them.
   ``EngineConfig`` has no ``share_jits``: a step graph belongs to the
   engine that captured it.
 
@@ -273,7 +277,7 @@ def _validate(cfg: ModelConfig, ecfg: EngineConfig,
         raise ValueError(f"unknown plane {ecfg.plane!r}")
     if ecfg.decode_append not in ("inline", "deferred"):
         raise ValueError(f"unknown decode_append {ecfg.decode_append!r}")
-    M.check_supported(cfg)         # dense, MoE and RWKV6 (A8, A10)
+    M.check_supported(cfg)         # dense, MoE, RWKV6, hybrid (A10)
     if ecfg.moe_impl not in moe_mod.DISPATCH:
         raise ValueError(f"unknown moe_impl {ecfg.moe_impl!r}")
     if ecfg.moe_impl == "ep" and cfg.num_experts:
@@ -299,8 +303,10 @@ class Engine:
                  cost_model: Optional[CostModel] = None, *,
                  device: str = "cuda"):
         # copy the config: a shared default (or caller-reused) instance
-        # must not be mutated
+        # must not be mutated by the per-model chunk clamp below
         ecfg = replace(ecfg) if ecfg is not None else EngineConfig()
+        if cfg.window:
+            ecfg.chunk = min(ecfg.chunk, cfg.window)
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = torch.device(device)
@@ -566,8 +572,9 @@ class Engine:
             raise ValueError(
                 f"request {r.rid}: prompt length {len(r.prompt)} != "
                 f"input_len {r.input_len}")
-        # RWKV6 holds O(1) state; dense caches must fit
-        if self.cfg.family != "ssm" and r.peak_kv > self.ecfg.cache_len:
+        # window/ssm archs hold bounded state; dense caches must fit
+        if not (self.cfg.window or self.cfg.family == "ssm"
+                or r.peak_kv <= self.ecfg.cache_len):
             raise ValueError(
                 f"request {r.rid} peak KV {r.peak_kv} > cache_len")
         self.token_ids[r.rid] = list(r.prompt)
@@ -1408,8 +1415,9 @@ class Engine:
         """Every prompt token a slot plane writes lies inside the dense
         cache: ``submit`` refuses a request whose peak KV exceeds
         ``cache_len``, so the chunk step's wrap (``attention_chunk``;
-        JAX clamps such a token to the last slot instead) is never hit."""
-        invariant(self.cfg.family == "ssm" or all(
+        JAX clamps such a token to the last slot instead) is never hit.
+        A sliding window's ring wraps by design."""
+        invariant(self.cfg.family == "ssm" or self.cfg.window or all(
             r.m + c <= self.ecfg.cache_len for r, c in prefill_items),
             [(r.rid, r.m, c) for r, c in prefill_items])
 

@@ -271,7 +271,9 @@ def test_unported_settings_raise(models, ekw, skw, item):
     # the MoE family serves; its expert-parallel dispatch is A13
     (dict(family="moe", num_experts=4, experts_per_token=2, moe_d_ff=32),
      dict(moe_impl="ep"), "A13"),
-    (dict(window=32), {}, "A8"),
+    # the hybrid family and sliding windows serve
+    # (tests/test_torch_hybrid_engine.py); the frontends are A10
+    (dict(family="vlm"), {}, "A10"),
 ])
 def test_non_dense_family_raises(models, over, ekw, item):
     _, tcfg, _, tp = models

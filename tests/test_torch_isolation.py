@@ -15,12 +15,14 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 JAXPKG = REPO / "src" / "repro"
 
-#: modules the port keeps word for word (ROADMAP A1-A4, A5a, A5b, A6, A7)
+#: modules the port keeps word for word (ROADMAP A1-A4, A5a, A5b, A6, A7,
+#: A8)
 COPIES = [
     "configs/base.py", "configs/tinyllama_1_1b.py", "configs/llama2_7b.py",
     "configs/llama3_8b.py", "configs/qwen3_4b.py", "configs/smollm_360m.py",
     "configs/starcoder2_3b.py", "configs/rwkv6_7b.py",
     "configs/qwen2_moe_a2_7b.py", "configs/qwen3_moe_30b_a3b.py",
+    "configs/hymba_1_5b.py",
     "core/csp.py", "core/slo.py", "core/invariants.py", "core/stat_keys.py", "core/histogram.py",
     "core/request.py", "core/policies.py", "core/kvcache.py",
     "core/cost_model.py", "core/scheduler.py", "core/five_minute_rule.py",

@@ -164,12 +164,13 @@ def test_init_cache_matches(models):
 
 @pytest.mark.parametrize("over,item", [
     (dict(num_experts=4, experts_per_token=2, moe_d_ff=32), "A7"),
-    (dict(window=32), "A8"),
+    (dict(family="hybrid", window=32, ssm_state=4, ssm_heads=4), "A8-ii"),
     (dict(family="ssm"), "A9"),
     (dict(family="vlm"), "A10"),
 ])
 def test_unported_families_raise(over, item):
-    """RWKV6 (``ssm``) serves but does not train: A9 is its training."""
+    """RWKV6 (``ssm``) serves but does not train: A9 is its training; the
+    hybrid family too: A8-ii (``tests/test_torch_hybrid.py`` serves it)."""
     _, tcfg = reduced_pair()
     with pytest.raises(ValueError, match=item):
         TM.check_supported(dataclasses.replace(tcfg, **over), train=True)
@@ -267,11 +268,11 @@ def test_causal_mask_options_match_jax(kw):
 @pytest.mark.parametrize("fn,over,item", [
     ("decode_step", {}, "A13"),
     ("decode_step_deferred", {}, "A13"),
-    ("decode_step", dict(window=4), "A8"),
+    ("decode_step", dict(window=8), "A13"),
 ])
 def test_unported_decode_impls_raise(models, fn, over, item):
     """``impl="seqsharded"`` (a sequence-sharded cache) is A13 on both
-    decode paths; a sliding window is A8."""
+    decode paths, over a sliding window's ring too (the window serves)."""
     _, tcfg, _, tp = models
     cache = TM.init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(ValueError, match=item):
@@ -281,14 +282,26 @@ def test_unported_decode_impls_raise(models, fn, over, item):
 
 
 def test_attention_full_refuses_window_and_short_cache(models):
-    _, tcfg, _, tp = models
+    """A sliding window serves: the windowed attention and its cropped
+    ring against JAX's; full attention still refuses a cache shorter
+    than the prompt (JAX would crop it silently)."""
+    jcfg, tcfg, jp, tp = models
     lp = TM.unstack_layers(tp)[0]["attn"]
-    x = torch.zeros((1, 6, tcfg.d_model))
-    pos = torch.arange(6)[None]
-    with pytest.raises(ValueError, match="A8"):
-        TA.attention_full(lp, dataclasses.replace(tcfg, window=4), x, pos)
+    jl = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
+    x = np.random.RandomState(30).randn(1, 6, tcfg.d_model) \
+        .astype(np.float32)
+    pos = np.arange(6, dtype=np.int32)[None]
+    jw, tw = (dataclasses.replace(c, window=4) for c in (jcfg, tcfg))
+    jo, jc = JA.attention_full(jl, jw, jnp.asarray(x), jnp.asarray(pos),
+                               cache_len=4)
+    to, tc = TA.attention_full(lp, tw, torch.from_numpy(x),
+                               torch.from_numpy(pos).long(), cache_len=4)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]), **TOL)
     with pytest.raises(ValueError, match="cache_len 4 < prompt length 6"):
-        TA.attention_full(lp, tcfg, x, pos, cache_len=4)
+        TA.attention_full(lp, tcfg, torch.from_numpy(x),
+                          torch.from_numpy(pos).long(), cache_len=4)
 
 
 def test_serve_step_builders(models):

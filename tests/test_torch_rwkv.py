@@ -286,11 +286,13 @@ def test_train_loss_on_rwkv_raises_naming_a9(models):
 
 def test_prefill_chunk_on_the_dense_family_raises_naming_a5():
     """The dense family's chunk step is ported (ROADMAP A5d,
-    ``tests/test_torch_planes.py``); on a dense config it still refuses
-    a sliding window (A8), as training RWKV6 is refused (A9)."""
+    ``tests/test_torch_planes.py``), under a sliding window too (A8,
+    ``tests/test_torch_hybrid.py``), where, as in JAX, it refuses a ring
+    that is not exactly window-sized; training RWKV6 is refused (A9)."""
     _, tcfg = reduced_pair()
-    with pytest.raises(ValueError, match="A8"):
-        TM.prefill_chunk(dataclasses.replace(tcfg, window=4), {},
+    tp = TM.init_params(tcfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="exactly window-sized"):
+        TM.prefill_chunk(dataclasses.replace(tcfg, window=4), tp,
                          torch.zeros((1, 4), dtype=torch.long),
                          TM.init_cache(tcfg, 1, 8, device="cpu"))
     with pytest.raises(ValueError, match="A9"):
