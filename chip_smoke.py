@@ -271,11 +271,47 @@ Phases — each raises on failure, so any failure exits non-zero:
    decode-only batch, the decode graph's replay time against the step's
    byte bound, and the phase's peak device memory.
 
+24. The VLM and audio families at their published widths and depths
+   (random weights from seed 0), after every earlier phase's engines and
+   weights are freed.  (a) B1, B2 and B3 at head dim 256 with
+   PaliGemma-3B's 8 query heads over 1 (fp32 2e-5, bf16 2e-2 against
+   the plain versions, each case one launch of its dtype's variant): B1
+   at the serving shapes (shared prefix pages, a repeated call bit-equal),
+   on, before and past its split edges with ctx = 1, and at ctx 2048; B2
+   at the serving shapes and ``PREFILL_256`` (pages 8 and 64, starts off
+   the 64-key tile, padded and length-0 rows, the pool bytes outside the
+   written slots bit for bit); B3 over ``FLASH_256`` (S ragged,
+   ``prefix_len`` 0, 100 and 256); and B1/B2 at MusicGen-medium's serving
+   shapes (24 over 24 heads of 64).  (b) Each timed with phase 4's method
+   beside its plain version, SDPA and its bound.  (c) PaliGemma-3B (18
+   layers, d=2048, 8 / 1 heads x 256, d_ff 16384, vocab 257216) on
+   ``smoke_server``'s engine and workload (text-only requests over its
+   vocabulary) in fp32 (every request's tokens equal to
+   ``generate_reference``, B1 / B2 = layers x decode steps / prefill
+   rounds through the CUDA-core variants), again on ``batched`` with
+   ``impl="paged"`` (B1 on the dense view at D = 256; replays within
+   ``TOL`` of eager calls), and in bf16 (replays bit-equal, tokens/s, the
+   decode graph's device time against its byte bound).  (d) Its
+   image-prefix prefill, B = 2 rows of 256 patch embeddings + 256 text
+   tokens, ``prefill(impl="flash")`` (B3 with ``prefix_len`` 256, one
+   launch per layer) against ``impl="reference"``: fp32 within
+   ``PREFILL_TOL``, bf16 within ``BF16_PREFILL_RATIO`` of the bf16
+   reference's distance from fp32.  (e) MusicGen-medium (48 layers,
+   d=1536, 24 / 24 heads x 64, vocab 2048) on ``audio_smoke_server`` (8
+   prompts of 500-1500 codec tokens, 128 outputs, 2 recompute
+   preemptions) in fp32 (tokens equal to ``generate_reference`` under
+   phase 10's tie rule) and bf16 (as (c)).  (f) ``launch/train.py``'s
+   loop for 8 bf16 steps on PaliGemma-3B (8 of 18 layers: AdamW's state,
+   old and new, would be 85 GB at full depth; B = 4, 256 patches + 256
+   text) and MusicGen-medium (48 layers, B = 4, S = 512): loss and grad
+   norm finite, the loss falling, the patch embeddings reaching
+   ``train_loss`` as float32.
+
 Each phase prints the seconds since the start when it is done; phase
 20's three engines run after phase 18's fp32 and bf16 serves and phase
 15's bf16 one, on their weights; phase 21's TinyLlama runs after phase
 20's fp32 and bf16 engines, its RWKV6-7B runs after phase 19; phase 23
-runs last.
+runs after phase 22, and phase 24 last.
 
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
@@ -284,8 +320,10 @@ entry per kernel and variant: ``paged_decode`` is B1's bf16
 ``paged_decode_dense`` B1 on the dense view of the slot cache,
 ``paged_decode_moe`` / ``paged_prefill_moe`` B1 / B2 at qwen2-moe's
 serving shapes, ``paged_decode_hymba`` / ``flash_attention_hymba`` B1 on
-hymba's ring and B3 with its window, ``wkv6`` B4's column-split
-``colsplit`` kernel) and ``{"ok": true, "device": {...}}``.
+hymba's ring and B3 with its window, ``..._d256`` B1-B3 at PaliGemma's
+head dim 256, ``..._musicgen`` B1 / B2 at MusicGen's shapes, ``wkv6``
+B4's column-split ``colsplit`` kernel) and ``{"ok": true, "device":
+{...}}``.
 ``--report PATH`` also writes every measurement as JSON.  Without a CUDA
 device, or outside a checkout of the repository, the script exits with
 code 1 and prints no result.
@@ -423,6 +461,8 @@ def prefill_case(torch, inp, B, c, H, Hkv, D, page, maxp, dtype, starts,
 
 #: the kernel each dtype selects in B2 and B3 (the C entries' choice)
 VARIANT = {"float32": "simt", "bfloat16": "wgmma"}
+#: the dtype's short name in report keys
+TAG = {"float32": "fp32", "bfloat16": "bf16"}
 #: ... and in B1
 DECODE_VARIANT = {"float32": "split_simt", "bfloat16": "split_mma"}
 
@@ -512,10 +552,13 @@ def check_prefill(torch, pa, ref, case, dtype, what) -> float:
     return err
 
 
-#: (H, Hkv, D) of the smoke models: TinyLlama-1.1B, and the MoE family's
-#: qwen2-moe (G = 1) and qwen3-moe (G = 8), both at head dim 128
+#: (H, Hkv, D) of the smoke models: TinyLlama-1.1B, the MoE family's
+#: qwen2-moe (G = 1) and qwen3-moe (G = 8), both at head dim 128,
+#: PaliGemma-3B's Gemma backbone (G = 8 at head dim 256) and
+#: MusicGen-medium (G = 1 at 64)
 HEADS = {"tinyllama": (32, 4, 64), "qwen2_moe": (16, 16, 128),
-         "qwen3_moe": (32, 4, 128)}
+         "qwen3_moe": (32, 4, 128), "paligemma": (8, 1, 256),
+         "musicgen": (24, 24, 64)}
 
 
 def main_path_decode(torch, inp, dtype, P, ecfg, heads=HEADS["tinyllama"]):
@@ -1314,30 +1357,31 @@ def phase_train(torch):
 # phase 8: timing the flash-attention kernel
 # --------------------------------------------------------------------- #
 
-def time_flash(torch, fa, fref, case, dtype, window=0):
-    """B3 on ``case``, causal (with a sliding ``window``, SDPA given the
-    window's boolean mask), beside its plain version, SDPA and its bound
-    (the pairs the mask keeps)."""
+def time_flash(torch, fa, fref, case, dtype, window=0, prefix_len=0):
+    """B3 on ``case``, causal (with a sliding ``window`` or a
+    bidirectional ``prefix_len``, SDPA given the boolean mask), beside its
+    plain version, SDPA and its bound (the pairs the mask keeps)."""
     import torch.nn.functional as F
     q, k, v = case
     B, S, H, D = q.shape
     es = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * es
-    mask = fref.visible(S, window=window, device=DEVICE)
+    opt = dict(window=window, prefix_len=prefix_len)
+    mask = fref.visible(S, device=DEVICE, **opt)
     ops = 4 * D * int(mask.sum()) * B * H
     b_ms, b_by = bound(nbytes, ops, dtype)
-    ms = time_ms(torch, lambda: fa.flash_attention_cuda(*case,
-                                                        window=window))
-    plain = time_ms(torch, lambda: fref.attention_reference(*case,
-                                                            window=window))
+    ms = time_ms(torch, lambda: fa.flash_attention_cuda(*case, **opt))
+    plain = time_ms(torch, lambda: fref.attention_reference(*case, **opt))
     qt, kt, vt = (t.transpose(1, 2) for t in case)      # views, no copy
-    kw = dict(attn_mask=mask) if window else dict(is_causal=True)
+    kw = (dict(attn_mask=mask) if window or prefix_len
+          else dict(is_causal=True))
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, enable_gqa=True, **kw)
     lib_ms = time_ms(torch, lib)
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, bytes=nbytes, ops=ops, shape=list(q.shape),
-                kv_heads=k.shape[2], dtype=dtype, window=window)
+                kv_heads=k.shape[2], dtype=dtype, window=window,
+                prefix_len=prefix_len)
 
 
 # --------------------------------------------------------------------- #
@@ -3080,6 +3124,467 @@ def phase_hybrid(torch, pa, fa, fref, ref, pa_ops, M, get_config):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 24: the VLM and audio families (paligemma-3b, musicgen-medium)
+# --------------------------------------------------------------------- #
+
+#: B2 at D = 256 beyond the serving shapes: (B, c, page, maxp, starts,
+#: lengths) -- page 8 with starts off the 64-key tile, a padded row and a
+#: length-0 row; page 64 with a start one past a page
+PREFILL_256 = {"page8": (4, 96, 8, 40, [0, 37, 100, 200], [96, 50, 0, 80]),
+               "page64": (3, 128, 64, 5, [0, 70, 129], [128, 3, 100])}
+#: B3 at PaliGemma's heads: (B, S, prefix_len) -- the image-prefix
+#: prefill (256 patches + 256 text tokens), a ragged S with a prefix
+#: inside one 64-row tile pair, and two without a prefix
+FLASH_256 = {"S512_prefix256": (2, 512, 256), "S197_prefix100": (2, 197, 100),
+             "S300": (1, 300, 0), "S77": (1, 77, 0)}
+
+
+def audio_decode_case(torch, inp, dtype):
+    """B1 at the audio smoke engine's shapes: its 8 slots mid-generation
+    (each prompt + 64 tokens, 564-1564), pages of 16 under 2048-token
+    tables, MusicGen's 24 over 24 heads of 64."""
+    from repro_torch.launch.serve import (SMOKE_AUDIO_ENGINE as E,
+                                          SMOKE_AUDIO_SECONDS)
+    ctx = [round(sec * 200) + 64 for sec in SMOKE_AUDIO_SECONDS]
+    return decode_case(torch, inp, E.nslots, *HEADS["musicgen"],
+                       E.page_size, E.cache_len // E.page_size, dtype, ctx)
+
+
+def audio_prefill_case(torch, inp, dtype):
+    """B2 at a full prefill round of the audio smoke engine: 8 rows of
+    256-token chunks at starts 0-1280 (the longest prompts' later
+    chunks)."""
+    from repro_torch.launch.serve import SMOKE_AUDIO_ENGINE as E
+    starts = [0, 256, 512, 768, 1024, 1280, 0, 256]
+    return prefill_case(torch, inp, E.nslots, E.chunk, *HEADS["musicgen"],
+                        E.page_size, E.cache_len // E.page_size, dtype,
+                        starts, [E.chunk] * E.nslots)
+
+
+def phase_frontend_kernels(torch, pa, ref, fa, fref, P_main, ecfg):
+    """Phase 24 (a): B1, B2 and B3 at head dim 256 (PaliGemma's 8 over 1
+    heads) against their plain versions in both dtypes, each case one
+    launch of its dtype's variant within ``TOL``: B1 at the serving
+    shapes (shared prefix pages, repeated bit for bit), on, before and
+    past its split edges with ctx = 1, and at ctx 2048; B2 at the serving
+    shapes and ``PREFILL_256`` (pool bytes outside the written slots kept
+    bit for bit, padded rows zero); B3 over ``FLASH_256``.  Then B1 and B2
+    at MusicGen's serving shapes (``audio_decode_case``,
+    ``audio_prefill_case``: 24 over 24 heads of 64)."""
+    inp = Inputs(torch, 47)
+    H, Hkv, D = HEADS["paligemma"]
+    errs = {"paged_decode": {}, "paged_prefill": {}, "flash_attention": {}}
+    page, npages = ecfg.page_size, ecfg.cache_len // ecfg.page_size
+    for dtype in ("float32", "bfloat16"):
+        e = errs["paged_decode"]
+        e[f"main_{dtype}"] = check_decode(
+            torch, pa, ref, main_path_decode(torch, inp, dtype, P_main, ecfg,
+                                             HEADS["paligemma"]),
+            dtype, f"B1 D256 serving shapes {dtype}", repeat=True)
+        width = page * npages
+        ctx, span = split_edges(pa, 10, Hkv, width)
+        ctx = sorted(set(ctx) | {1, span - 1, span, span + 1, width})
+        e[f"edges_{dtype}"] = check_decode(
+            torch, pa, ref, decode_case(torch, inp, len(ctx), H, Hkv, D,
+                                        page, npages, dtype, ctx),
+            dtype, f"B1 D256 span {span} ctx {ctx} {dtype}")
+        e[f"ctx2048_{dtype}"] = check_decode(
+            torch, pa, ref, decode_case(torch, inp, 1, H, Hkv, D, page, 128,
+                                        dtype, [2048]),
+            dtype, f"B1 D256 ctx 2048 {dtype}")
+        e = errs["paged_prefill"]
+        e[f"main_{dtype}"] = check_prefill(
+            torch, pa, ref, main_path_prefill(torch, inp, dtype, P_main,
+                                              ecfg, HEADS["paligemma"]),
+            dtype, f"B2 D256 serving shapes {dtype}")
+        for name, (B, c, pg, maxp, st, ln) in PREFILL_256.items():
+            e[f"{name}_{dtype}"] = check_prefill(
+                torch, pa, ref, prefill_case(torch, inp, B, c, H, Hkv, D, pg,
+                                             maxp, dtype, st, ln),
+                dtype, f"B2 D256 {name} starts {st} lengths {ln} {dtype}")
+        for name, (B, S, pre) in FLASH_256.items():
+            errs["flash_attention"][f"{name}_{dtype}"] = check_flash(
+                torch, fa, fref, flash_case(inp, B, S, H, Hkv, D, dtype),
+                dtype, f"B3 D256 {name} {dtype}", prefix_len=pre)
+        errs["flash_attention"][f"main_{dtype}"] = \
+            errs["flash_attention"][f"S512_prefix256_{dtype}"]
+        errs["paged_decode"][f"musicgen_{dtype}"] = check_decode(
+            torch, pa, ref, audio_decode_case(torch, inp, dtype),
+            dtype, f"B1 musicgen serving shapes {dtype}")
+        errs["paged_prefill"][f"musicgen_{dtype}"] = check_prefill(
+            torch, pa, ref, audio_prefill_case(torch, inp, dtype),
+            dtype, f"B2 musicgen serving shapes {dtype}")
+    print(f"head dim 256 kernels (PaliGemma H{H} Hkv{Hkv}) and MusicGen's "
+          f"heads, fp32 and bf16, each one launch of its variant, within "
+          f"tolerance of the plain versions: max abs err {errs}")
+    return errs
+
+
+def time_frontend_kernels(torch, pa, ref, fa, fref, P_main, ecfg):
+    """Phase 24 (b): B1 and B2 at PaliGemma's serving shapes and B3 at its
+    image-prefix prefill (B = 2, 256 patches + 256 text, ``prefix_len``
+    256), and B1 and B2 at MusicGen's, both variants, with phase 4's
+    method (``time_decode``, ``time_prefill``, ``time_flash``)."""
+    inp, times = Inputs(torch, 53), {}
+    B, S, pre = FLASH_256["S512_prefix256"]
+    for dtype, sfx in (("bfloat16", ""), ("float32", "_simt")):
+        times["paged_decode_d256" + sfx] = time_decode(
+            torch, pa, ref, main_path_decode(torch, inp, dtype, P_main, ecfg,
+                                             HEADS["paligemma"]), dtype)
+        times["paged_prefill_d256" + sfx] = time_prefill(
+            torch, pa, ref, main_path_prefill(torch, inp, dtype, P_main,
+                                              ecfg, HEADS["paligemma"]),
+            dtype)
+        times["flash_attention_d256" + sfx] = time_flash(
+            torch, fa, fref, flash_case(inp, B, S, *HEADS["paligemma"],
+                                        dtype), dtype, prefix_len=pre)
+        times["paged_decode_musicgen" + sfx] = time_decode(
+            torch, pa, ref, audio_decode_case(torch, inp, dtype), dtype)
+        times["paged_prefill_musicgen" + sfx] = time_prefill(
+            torch, pa, ref, audio_prefill_case(torch, inp, dtype), dtype)
+    return times
+
+
+def decode_graph_time(torch, eng, cfg, params, ctx):
+    """The decode graph's replay (device time, CUDA events) with every
+    slot active at contexts ``ctx``, beside the step's byte bound: the
+    params but the embedding table, and the K/V of those contexts, over
+    3.35 TB/s.  After the run: the tables name freed pages, which are
+    read, and the replays advance ``ctx`` by 12 and write into them."""
+    g = eng._decode_graph()
+    cohort = g.inputs[0]
+    cohort.copy_(torch.tensor([[0] * len(ctx), ctx, [1] * len(ctx)],
+                              dtype=torch.int32, device=DEVICE))
+    ms = event_ms(torch, g)
+    kv = (sum(ctx) * cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim_
+          * eng.k_pools.element_size())
+    wb = param_bytes(params)
+    return {"decode_graph_ms": ms, "weight_bytes": wb, "kv_bytes": kv,
+            "decode_bound_ms": (wb + kv) / HBM_BYTES_PER_S * 1e3,
+            "ctx": list(ctx)}
+
+
+def frontend_serve(torch, pa, M, cfg, params, label, server, refs,
+                   replays=False, ctx=None, **kw):
+    """Phase 24 (c)/(e): one serve of ``server``'s workload through the
+    step graphs (``check_graph_run``; with ``replays``, every replay first
+    held bit-equal to its eager call on cloned random state), the kernel
+    counters zeroed just before it: on the pooled plane B2 = layers x
+    prefill rounds and B1 = layers x decode steps, on ``batched`` with
+    ``impl="paged"`` B1 = layers x decode steps and no B2, all through
+    the dtype's variants.  With ``refs`` (fp32), every request's tokens
+    must equal them (``generate_reference``, filled in where missing),
+    but for a token flipped at a reference top-2 gap below ``TIE_GAP``,
+    which is reported.  With ``ctx``, the decode graph's device time
+    against its byte bound (``decode_graph_time``).  Replays on the slot
+    plane are held within ``TOL`` (cuBLAS may pick another algorithm
+    under capture, as in phase 21), on the pooled plane bit for bit."""
+    dtype, L = cfg.dtype, cfg.num_layers
+    eng, reqs = server(cfg, params, device=DEVICE, **kw)
+    pooled = eng.k_pools is not None
+    cmp = replay_vs_eager(torch, eng, seed=59, device=DEVICE) \
+        if replays else {}
+    for what, c in cmp.items():
+        check(c["bit_equal"] if pooled else c["close"],
+              f"{label} {what}: the replay differs from the eager call on "
+              f"cloned state: {c}")
+    torch.cuda.synchronize()
+    zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
+    before = graph_counts(eng)
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    graphs = check_graph_run(eng, before, label)
+    b1 = dict(pa.paged_decode_cuda.launches_by_variant)
+    b2 = dict(pa.paged_prefill_cuda.launches_by_variant)
+    want1 = L * eng.decode_steps
+    want2 = L * eng.prefill_rounds if pooled else 0
+    check(b1 == {**dict.fromkeys(b1, 0), DECODE_VARIANT[dtype]: want1}
+          and b2 == {**dict.fromkeys(b2, 0), VARIANT[dtype]: want2}
+          and want1 > 0 and (want2 > 0 or not pooled),
+          f"{label}: launches by variant B1 {b1}, B2 {b2}; expected "
+          f"{L} x {eng.decode_steps} {DECODE_VARIANT[dtype]} and {want2} "
+          f"{VARIANT[dtype]}")
+    check(all(r.finished for r in reqs), f"{label}: unfinished requests")
+    tokens = sum(len(o) for o in res.outputs.values())
+    out = {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
+           "prefill_rounds": eng.prefill_rounds,
+           "decode_steps": eng.decode_steps, "graphs": graphs,
+           "replay_vs_eager": cmp, "decode_variants": b1,
+           "prefill_variants": b2,
+           "preemptions": res.metrics.num_preemptions,
+           "trie_hits": res.swap_stats["trie_hits"],
+           "decode_step_ms": decode_step_ms(res),
+           "outputs": res.outputs}
+    if ctx is not None:
+        out.update(decode_graph_time(torch, eng, cfg, params, ctx))
+    cache_len = eng.ecfg.cache_len
+    del eng
+    same, diverged = None, {}
+    if refs is not None:
+        from repro_torch.serving import generate_reference
+        for r in reqs:
+            if r.rid not in refs:
+                refs[r.rid] = generate_reference(
+                    cfg, params, r.prompt, r.output_len,
+                    cache_len=cache_len, device=DEVICE)
+        same = sum(res.outputs[r.rid] == refs[r.rid] for r in reqs)
+        diverged = divergences(torch, M, cfg, params, reqs, res.outputs,
+                               refs, cache_len=cache_len)
+        check(all(gap < TIE_GAP for _, gap in diverged.values()),
+              f"{label}: tokens differ from generate_reference beyond a "
+              f"tie: {diverged}")
+    out.update(same_tokens=same, diverged=diverged)
+    print(f"{label}: {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} "
+          f"tok/s; {out['prefill_rounds']} prefill rounds, "
+          f"{out['decode_steps']} decode steps, "
+          f"{graphs['replays']} replays of {graphs['graphs']} graphs, "
+          f"preemptions {out['preemptions']}, prefix hits "
+          f"{out['trie_hits']}; wall of a decode-only batch "
+          f"{out['decode_step_ms']:.3f} ms; launches B1 {b1}, B2 {b2}"
+          + ("" if same is None else
+             f"; {same}/{len(reqs)} requests token-identical to "
+             "generate_reference")
+          + (f" (divergences (position, reference top-2 gap) {diverged})"
+             if diverged else "")
+          + (f"; {len(cmp)} replays "
+             f"{'bit-equal to' if pooled else 'within TOL of'} their eager "
+             "calls on cloned random state" if cmp else "")
+          + (f"; decode graph replay {out['decode_graph_ms']:.3f} ms of "
+             f"device time against the byte bound "
+             f"{out['decode_bound_ms']:.3f} ms (weights "
+             f"{out['weight_bytes'] / 1e9:.2f} GB, K/V "
+             f"{out['kv_bytes'] / 1e9:.3f} GB at contexts {ctx})"
+             if ctx is not None else ""))
+    return out
+
+
+def vlm_prefill_batch(torch, cfg):
+    """PaliGemma's image-prefix prefill input: B = 2 rows of
+    ``num_patches`` (256) precomputed patch embeddings (fp32, N(0, 1) as
+    ``data.batch_with_frontend`` makes them) and 256 text tokens."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(61)
+    B, S = 2, 256
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device=DEVICE),
+            "patch_embeds": torch.randn((B, cfg.num_patches, cfg.d_model),
+                                        generator=gen, device=DEVICE)}
+
+
+def vlm_prefill(torch, fa, M, cfg, params):
+    """Phase 24 (d): ``prefill(impl="flash")`` with the image prefix on
+    B3 (``prefix_len`` = 256, one launch per layer through the dtype's
+    variant).  fp32: logits and cache within ``PREFILL_TOL`` of
+    ``impl="reference"``, the index 512; bf16: flash's and the bf16
+    reference's relative L2 from the fp32 reference on the same weights,
+    flash at most ``BF16_PREFILL_RATIO`` times the bf16 reference's."""
+    batch = vlm_prefill_batch(torch, cfg)
+    B, S = batch["tokens"].shape
+    Sx = S + cfg.num_patches
+    torch.cuda.synchronize()
+    zero_counts(fa.flash_attention_cuda)
+    t0 = time.perf_counter()
+    fl, fl_cache = M.prefill(cfg, params, batch, cache_len=Sx, impl="flash")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    variants = dict(fa.flash_attention_cuda.launches_by_variant)
+    L = cfg.num_layers
+    check(variants == {**dict.fromkeys(variants, 0), VARIANT[cfg.dtype]: L},
+          f"VLM prefill {cfg.dtype}: flash_attention launches by variant "
+          f"{variants}, expected {L} {VARIANT[cfg.dtype]}")
+    check(fl_cache["index"].tolist() == [Sx] * B,
+          f"VLM prefill: cache index {fl_cache['index'].tolist()}")
+    rf, rf_cache = M.prefill(cfg, params, batch, cache_len=Sx)
+    out = {"launches": L, "variants": variants, "wall_s": wall,
+           "shape": [B, cfg.num_patches, S]}
+    if cfg.dtype == "float32":
+        err = {}
+        for name, got, want in [("logits", fl, rf),
+                                ("k", fl_cache["k"], rf_cache["k"]),
+                                ("v", fl_cache["v"], rf_cache["v"])]:
+            d = (got - want).abs()
+            bad = d > PREFILL_TOL["atol"] + PREFILL_TOL["rtol"] * want.abs()
+            check(bool(torch.isfinite(got).all()) and not bool(bad.any()),
+                  f"VLM prefill {name}: flash vs reference max abs err "
+                  f"{d.max().item():.3g}")
+            err[name] = d.max().item()
+        check(torch.equal(torch.argmax(fl, -1), torch.argmax(rf, -1)),
+              "VLM prefill argmax differs between flash and reference")
+        out["max_abs_err"] = err
+        print(f"VLM prefill (PaliGemma-3B fp32, B={B}, {cfg.num_patches} "
+              f"patches + {S} text tokens, prefix_len {cfg.num_patches}): "
+              f"flash vs reference max abs err "
+              + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+              + f" (rtol=atol 1e-3); flash_attention {variants}; "
+              f"{wall:.2f} s")
+        return out
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    truth, truth_cache = M.prefill(cfg32, _tree_to(params, torch.float32),
+                                   batch, cache_len=Sx)
+    err = {}
+    for name in ("logits", "k", "v"):
+        got, want, tr = ((fl, rf, truth) if name == "logits" else
+                         (fl_cache[name], rf_cache[name], truth_cache[name]))
+        check(bool(torch.isfinite(got.float()).all()),
+              f"bf16 VLM prefill {name}: non-finite")
+        err[name] = (rel_l2(torch, got, tr), rel_l2(torch, want, tr))
+    print(f"VLM prefill (PaliGemma-3B bf16, B={B}, {cfg.num_patches} "
+          f"patches + {S} text tokens): rel L2 to the fp32 reference, "
+          f"flash / bf16 reference: "
+          + ", ".join(f"{n} {a:.4g} / {b:.4g}" for n, (a, b) in err.items())
+          + f" (flash may be {BF16_PREFILL_RATIO}x); flash_attention "
+          f"{variants}; {wall:.2f} s")
+    for name, (a, b) in err.items():
+        check(a <= BF16_PREFILL_RATIO * b,
+              f"bf16 VLM prefill {name}: flash {a:.4g} from the fp32 "
+              f"reference, beyond {BF16_PREFILL_RATIO} x the bf16 "
+              f"reference's {b:.4g}")
+    out["rel_l2_to_fp32"] = err
+    return out
+
+
+#: the trainer's runs: arch -> ``launch/train.py`` arguments; PaliGemma
+#: at 8 of its 18 layers (AdamW's fp32 master weights and moments, old
+#: and new while a step runs, are 14 B a parameter twice: 85 GB at full
+#: depth), 256 patch embeddings in front of 256 text tokens.  Adam's
+#: first steps move every weight by about lr, which a layer of fan-in n
+#: adds up to ~lr * n in its output: SmolLM's 1e-3 (d_ff 2560) made these
+#: losses climb (d_ff 16384 and 6144), so the rates are lower
+FRONTEND_TRAIN_STEPS = 8
+FRONTEND_TRAIN = {
+    "paligemma-3b": ["--layers", "8", "--batch", "4", "--seq", "256",
+                     "--lr", "3e-5"],
+    "musicgen-medium": ["--batch", "4", "--seq", "512", "--lr", "5e-5"]}
+
+
+def frontend_train(torch):
+    """Phase 24 (f): a few bf16 steps of ``launch/train.py``'s own loop on
+    each of ``FRONTEND_TRAIN`` at full width (fp32 AdamW state): loss and
+    grad norm finite at every step, the loss falling; the batch reaches
+    ``train_loss`` as ``batch_with_frontend`` made it (tokens int64, the
+    patch embeddings float32)."""
+    import gc
+    import logging
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_with_frontend
+    from repro_torch.launch import train as T
+    logging.getLogger("repro_torch.train").setLevel(logging.WARNING)
+    out = {}
+    for arch, extra in FRONTEND_TRAIN.items():
+        args = T.parse_args(["--full", "--arch", arch, "--steps",
+                             str(FRONTEND_TRAIN_STEPS), "--device", DEVICE]
+                            + extra)
+        cfg = get_config(arch)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                          global_batch=args.batch)
+        dev = T.batch_at(cfg, dcfg, 0, DEVICE)
+        for k, v in batch_with_frontend(cfg, dcfg, 0).items():
+            want = torch.from_numpy(v).to(DEVICE)
+            check(dev[k].dtype == (torch.long if k != "patch_embeds"
+                                   else torch.float32)
+                  and torch.equal(dev[k], want.to(dev[k].dtype)),
+                  f"{arch}: batch_at's {k} is {dev[k].dtype}, not "
+                  "batch_with_frontend's")
+        torch.cuda.reset_peak_memory_stats()
+        with torch.enable_grad():
+            hist = T.train(args)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in hist]
+        for h in hist:
+            check(all(math.isfinite(h[k]) for k in ("loss", "grad_norm")),
+                  f"{arch}: non-finite training step: {h}")
+        check(losses[-1] < losses[0], f"{arch}: loss did not fall: {losses}")
+        steady = sorted(h["seconds"] for h in hist[1:])
+        step_s = steady[len(steady) // 2]
+        tok_s = args.batch * args.seq / step_s
+        layers = args.layers or cfg.num_layers
+        print(f"train ({arch} bf16 at {layers} layers, fp32 AdamW, lr "
+              f"{args.lr:g}, B={args.batch}, S={args.seq}"
+              + (f" + {cfg.num_patches} patches" if cfg.num_patches else "")
+              + f"): losses {[round(x, 4) for x in losses]}, grad norms "
+              f"{[round(h['grad_norm'], 3) for h in hist]}; median step "
+              f"{step_s:.3f} s after the first = {tok_s:.0f} text tokens/s; "
+              f"peak {peak / 2**30:.2f} GiB")
+        out[arch] = {"layers": layers, "losses": losses,
+                     "grad_norms": [h["grad_norm"] for h in hist],
+                     "step_s": [h["seconds"] for h in hist],
+                     "tok_per_s": tok_s, "max_memory_allocated": peak}
+        del dev
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_frontends(torch, pa, ref, fa, fref, M, get_config, P_main, ecfg):
+    """Phase 24: the VLM and audio families at full width, after every
+    earlier phase's engines and weights are freed.  (a) B1-B3 at head dim
+    256 and B1/B2 at MusicGen's shapes against their plain versions; (b)
+    their times; (c) PaliGemma-3B (18 layers) on ``smoke_server``'s
+    engine and workload in fp32 (and on ``batched`` with
+    ``impl="paged"``) and bf16; (d) its image-prefix prefill on B3 in
+    fp32 and bf16; (e) MusicGen-medium (48 layers) on
+    ``audio_smoke_server`` in fp32 and bf16; (f) both trainers."""
+    import gc
+    from repro_torch.launch.serve import (SMOKE_AUDIO_ARCH,
+                                          SMOKE_AUDIO_SECONDS,
+                                          SMOKE_VLM_ARCH, SMOKE_WORKLOAD,
+                                          audio_smoke_server,
+                                          smoke_plane_server, smoke_server)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"errors": phase_frontend_kernels(torch, pa, ref, fa, fref, P_main,
+                                            ecfg),
+           "times": time_frontend_kernels(torch, pa, ref, fa, fref, P_main,
+                                          ecfg)}
+    # mid-decode contexts of the two workloads, for the decode bound
+    vlm_ctx = [SMOKE_WORKLOAD["input_len"] + 24] * ecfg.nslots
+    audio_ctx = [round(sec * 200) + 64 for sec in SMOKE_AUDIO_SECONDS]
+    for arch, runs in (
+            (SMOKE_VLM_ARCH, [("paged", smoke_server, {}, vlm_ctx),
+                              ("batched_paged", smoke_plane_server,
+                               dict(plane="batched", impl="paged"), None)]),
+            (SMOKE_AUDIO_ARCH, [("paged", audio_smoke_server, {},
+                                 audio_ctx)])):
+        key = "vlm" if arch == SMOKE_VLM_ARCH else "audio"
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        params = M.init_params(cfg, seed=0, device=DEVICE)
+        refs = {}
+        for name, server, kw, ctx in runs:
+            label = f"{arch} fp32 {name} serve ({cfg.num_layers} layers)"
+            out[f"{key}_fp32_{name}"] = frontend_serve(
+                torch, pa, M, cfg, params, label, server, refs,
+                replays=name != "paged", **kw)
+        if key == "vlm":
+            out["vlm_prefill_fp32"] = vlm_prefill(torch, fa, M, cfg, params)
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+        params16 = _tree_to(params, torch.bfloat16)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if key == "vlm":
+            out["vlm_prefill_bf16"] = vlm_prefill(torch, fa, M, cfg16,
+                                                  params16)
+        name, server, kw, ctx = runs[0]
+        out[f"{key}_bf16_{name}"] = frontend_serve(
+            torch, pa, M, cfg16, params16,
+            f"{arch} bf16 {name} serve ({cfg.num_layers} layers)", server,
+            None, replays=True, ctx=ctx, **kw)
+        del params16
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["serve_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["train"] = frontend_train(torch)
+    print(f"phase 24 peak device memory allocated: serves "
+          f"{out['serve_max_memory_allocated'] / 2**30:.2f} GiB, trainers "
+          + ", ".join(f"{a} {t['max_memory_allocated'] / 2**30:.2f} GiB"
+                      for a, t in out["train"].items()))
+    return out
+
+
 def ptxas_report(log: str):
     """(kernel, "N registers, S bytes spill stores, ...") per entry
     function of an ``nvcc -Xptxas -v`` log; the kernel named by its
@@ -3319,6 +3824,10 @@ def main(argv=None) -> int:
         flash_more.update({k: v for k, v in hybrid["times"].items()
                            if "_S2048" in k})
         lap("hymba kernels and serve")
+        fe = phase_frontends(torch, pa, ref, fa, fref, M, get_config, P_main,
+                             ecfg)
+        times.update(fe["times"])
+        lap("VLM and audio kernels, serves, prefill and trainers")
     # each entry: its launches on its main path (counts zeroed just before
     # that run), its comparison with the plain version at the main shapes,
     # and its times at those shapes
@@ -3391,6 +3900,34 @@ def main(argv=None) -> int:
          hybrid["errors"]["flash_attention"]["main_float32"],
          "hymba prefill S3100 H25 Hkv5 window 2048"),
     ]
+    # B1-B3 at head dim 256 (PaliGemma) and B1/B2 at MusicGen's shapes
+    # (phase 24): B1/B2's launches from the paged serves, B3's from the
+    # image-prefix prefill
+    for dtype, sfx in (("bfloat16", ""), ("float32", "_simt")):
+        tag, dv, pv = TAG[dtype], DECODE_VARIANT[dtype], VARIANT[dtype]
+        vlm, audio = fe[f"vlm_{tag}_paged"], fe[f"audio_{tag}_paged"]
+        e = fe["errors"]
+        entries += [
+            ("paged_decode_d256" + sfx, "paged_decode", dv, dtype,
+             vlm["decode_variants"][dv], e["paged_decode"][f"main_{dtype}"],
+             "PaliGemma serving shapes H8 Hkv1 D256"),
+            ("paged_prefill_d256" + sfx, "paged_prefill", pv, dtype,
+             vlm["prefill_variants"][pv],
+             e["paged_prefill"][f"main_{dtype}"],
+             "PaliGemma serving shapes H8 Hkv1 D256"),
+            ("flash_attention_d256" + sfx, "flash_attention", pv, dtype,
+             fe[f"vlm_prefill_{tag}"]["launches"],
+             e["flash_attention"][f"main_{dtype}"],
+             "PaliGemma image-prefix prefill B2 S512 H8 Hkv1 D256 prefix "
+             "256"),
+            ("paged_decode_musicgen" + sfx, "paged_decode", dv, dtype,
+             audio["decode_variants"][dv],
+             e["paged_decode"][f"musicgen_{dtype}"],
+             "MusicGen serving shapes H24 Hkv24 D64, ctx 564-1564"),
+            ("paged_prefill_musicgen" + sfx, "paged_prefill", pv, dtype,
+             audio["prefill_variants"][pv],
+             e["paged_prefill"][f"musicgen_{dtype}"],
+             "MusicGen prefill round 8 x 256 H24 Hkv24 D64")]
     kernels = []
     for entry, name, var, dtype, launches, err, shape in entries:
         t = times[entry]
@@ -3448,6 +3985,7 @@ def main(argv=None) -> int:
                   rwkv_faulted_serve_fp32=rwkv32_faulted, graphs=graphs,
                   planes_fp32=planes32, planes_bf16=planes16,
                   rwkv_planes_fp32=rwkv_planes, moe=moe, hybrid=hybrid,
+                  frontends=fe,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

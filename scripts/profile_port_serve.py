@@ -2,7 +2,8 @@
 """Where the time of the port's served run goes, on one NVIDIA card.
 
     python3 scripts/profile_port_serve.py [--arch tinyllama-1.1b|rwkv6-7b|
-                                           qwen2-moe-a2.7b|hymba-1.5b]
+                                           qwen2-moe-a2.7b|hymba-1.5b|
+                                           paligemma-3b|musicgen-medium]
                                           [--workload smoke|swap]
                                           [--plane paged|batched|legacy]
                                           [--impl reference|paged|flash_jnp]
@@ -19,8 +20,12 @@ planes, ``--impl`` and ``--decode-append`` picking their decode), with
 swap, tail sheds and the host demotion tier; the swap walls are printed
 too), or with ``--arch rwkv6-7b`` that of ``rwkv_smoke_server`` (full-width
 RWKV6-7B, the slot-resident plane, the WKV6 kernel), or with ``--arch
-qwen2-moe-a2.7b`` ``smoke_server``'s engine and workload on the MoE
-model (full width, the dense expert dispatch), or with ``--arch
+qwen2-moe-a2.7b`` or ``paligemma-3b`` ``smoke_server``'s engine and
+workload on the MoE model (full width, the dense expert dispatch) or the
+VLM's Gemma backbone (head dim 256; ``--plane`` as for TinyLlama), or
+with ``--arch musicgen-medium`` that of ``audio_smoke_server`` (full-width
+MusicGen-medium on the paged plane, or ``--plane`` and its options), or
+with ``--arch
 hymba-1.5b`` that of ``hybrid_smoke_server`` (full-width hymba-1.5B on
 the slot planes: ``--plane``, ``--impl paged`` for B1 on the ring, and
 ``--decode-append``), twice: once plainly, for the wall time per step, and once with engine
@@ -119,13 +124,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     choices=["tinyllama-1.1b", "rwkv6-7b", "qwen2-moe-a2.7b",
-                             "hymba-1.5b"])
+                             "hymba-1.5b", "paligemma-3b",
+                             "musicgen-medium"])
     ap.add_argument("--workload", default="smoke", choices=["smoke", "swap"],
                     help="TinyLlama only: smoke_server or smoke_swap_server")
     ap.add_argument("--plane", default="paged",
                     choices=["paged", "batched", "legacy"],
-                    help="TinyLlama smoke: smoke_plane_server's plane; "
-                    "hymba-1.5b: hybrid_smoke_server's")
+                    help="smoke_plane_server's plane (TinyLlama, MoE, "
+                    "PaliGemma); hymba-1.5b: hybrid_smoke_server's; "
+                    "musicgen-medium: audio_smoke_server's")
     ap.add_argument("--impl", default="reference",
                     choices=["reference", "paged", "flash_jnp"])
     ap.add_argument("--decode-append", default="inline",
@@ -151,10 +158,13 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
-    from repro_torch.launch.serve import (SMOKE_ARCH, SMOKE_HYBRID_ARCH,
+    from repro_torch.launch.serve import (SMOKE_ARCH, SMOKE_AUDIO_ARCH,
+                                          SMOKE_HYBRID_ARCH,
                                           SMOKE_RWKV_ARCH,
+                                          audio_smoke_server,
                                           hybrid_smoke_server,
                                           rwkv_smoke_server, smoke_server,
+                                          smoke_plane_server,
                                           smoke_swap_server)
     from repro_torch.models import model as M
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -168,18 +178,19 @@ def main(argv=None) -> int:
         server = functools.partial(
             hybrid_smoke_server, plane=args.plane, impl=args.impl,
             decode_append=args.decode_append)
-    elif args.arch != SMOKE_ARCH:          # the MoE smoke model
-        assert args.workload == "smoke" and args.plane == "paged"
+    elif args.arch == SMOKE_AUDIO_ARCH:
+        assert args.workload == "smoke"
         pa.build_all()
-        server = smoke_server
-    else:
-        assert args.arch == SMOKE_ARCH
+        server = functools.partial(
+            audio_smoke_server, plane=args.plane, impl=args.impl,
+            decode_append=args.decode_append)
+    else:              # TinyLlama, and the MoE and VLM smoke models
+        assert args.arch == SMOKE_ARCH or args.workload == "smoke"
         pa.build_all()
         server = smoke_swap_server if args.workload == "swap" \
             else smoke_server
         if args.plane != "paged":
             assert args.workload == "smoke", "--plane serves the smoke one"
-            from repro_torch.launch.serve import smoke_plane_server
             server = functools.partial(
                 smoke_plane_server, plane=args.plane, impl=args.impl,
                 decode_append=args.decode_append)

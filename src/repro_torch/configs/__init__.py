@@ -1,7 +1,4 @@
-"""Config registry: importing this package registers the architectures
-this port serves: the dense family, the mixture-of-experts family,
-RWKV6 (``family="ssm"``) and the hybrid family (hymba: sliding-window
-attention beside a selective SSM)."""
+"""Config registry: importing this package registers all architectures."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ModelConfig,
@@ -16,10 +13,25 @@ from repro_torch.configs import (  # noqa: F401
     smollm_360m,
     tinyllama_1_1b,
     qwen3_4b,
-    llama2_7b,
-    llama3_8b,
     qwen3_moe_30b_a3b,
     qwen2_moe_a2_7b,
-    rwkv6_7b,
     hymba_1_5b,
+    paligemma_3b,
+    rwkv6_7b,
+    musicgen_medium,
+    llama2_7b,
+    llama3_8b,
+)
+
+ASSIGNED_ARCHS = (
+    "starcoder2-3b",
+    "smollm-360m",
+    "tinyllama-1.1b",
+    "qwen3-4b",
+    "qwen3-moe-30b-a3b",
+    "qwen2-moe-a2.7b",
+    "hymba-1.5b",
+    "paligemma-3b",
+    "rwkv6-7b",
+    "musicgen-medium",
 )

@@ -36,7 +36,12 @@
 //           stay in full fp32 (67 TFLOP/s) so the fp32 path keeps its exact
 //           agreement with the reference; TF32 wgmma would keep ~3 digits.
 // Both share the grid, the query-vector numbering, the masks and the tile
-// skipping described next.
+// skipping described next.  Head dims 64, 128 and 256 (PaliGemma's Gemma
+// backbone).  At D = 256 the wgmma kernel's O tile is one m64n256k16
+// accumulator, 128 fp32 registers a thread beside the 32 of S (ptxas:
+// 247 in all, no spills), and its shared memory 1 KB + 5 x 32 KB =
+// 164,864 bytes (one CTA per SM); the fp32 kernel's 4 x 32 accumulators
+// (248 registers, no spills) and 141,312 bytes.
 //
 // Design.  The TPU grid's sequential kv axis (scratch carried from one grid
 // step to the next) becomes a loop inside the block.  Grid = (query tiles,
@@ -427,6 +432,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                             prefix_len, st);
   if (dtype == 1 && D == 128)
     return launch_wgmma<128>(q, k, v, out, B, S, Hkv, G, causal, window,
+                             prefix_len, st);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, out, B, S, Hkv, G, causal, window,
+                              prefix_len, st);
+  if (dtype == 1 && D == 256)
+    return launch_wgmma<256>(q, k, v, out, B, S, Hkv, G, causal, window,
                              prefix_len, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,7 +31,7 @@ from repro_torch.kernels.cuda_build import check_tensor
 
 SRC = Path(__file__).parent / "csrc" / "flash_attention.cu"
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel each dtype runs, as the C entry chooses it
 _VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}

@@ -76,11 +76,14 @@
 // Shared memory per block (dynamic): the per-warp rings (4 warps x 2
 // stages x 16 keys x (K, V) padded rows), 448 bytes of merge scratch
 // and, for fp32, the staged queries and p: 37,312 bytes (bf16, D = 64),
-// 70,080 (bf16, 128), 74,304 (fp32, 64), 141,888 (fp32, 128).  Each
-// warp's (m, l, acc) overlays its own ring once its loads are drained.
+// 70,080 (bf16, 128), 135,616 (bf16, 256), 74,304 (fp32, 64), 141,888
+// (fp32, 128) and, with a one-stage ring (two would need 266,240 bytes),
+// 143,936 (fp32, 256: PaliGemma's head).  Each warp's (m, l, acc)
+// overlays its own ring once its loads are drained.
 // The merge kernel: 2,048 bytes of static shared memory.
-// Registers (ptxas, sm_90a): 72 (bf16, D = 64), 128 (bf16, 128), 80
-// (fp32, 64), 99 (fp32, 128); the merge 32; no spills.
+// Registers (ptxas, sm_90a): 72 (bf16, D = 64), 128 (bf16, 128), 164
+// (bf16, 256), 80 (fp32, 64), 99 (fp32, 128), 128 (fp32, 256); the merge
+// 32; no spills.
 //
 // Launch contract: launches on the given stream, allocates nothing (the
 // wrapper passes the workspace), never synchronises; returns
@@ -93,7 +96,6 @@ namespace paged {
 namespace split {
 
 constexpr int kChunk = 16;          // keys per warp step (the mma's M)
-constexpr int kStages = 2;          // per-warp cp.async ring depth
 constexpr int kSpanMin = 64;        // keys per block: one chunk per warp
 constexpr int kMaxSplits = 64;      // two per lane in the merge
 constexpr int kTargetBlocks = 1024; // ~2 waves of 4 blocks on 132 SMs
@@ -101,6 +103,9 @@ constexpr int kTargetBlocks = 1024; // ~2 waves of 4 blocks on 132 SMs
 template <typename T, int D>
 struct Layout {
   static constexpr bool kMma = sizeof(T) == 2;
+  // per-warp cp.async ring depth: 2, but 1 for fp32 at D = 256, whose two
+  // stages would need 266,240 bytes
+  static constexpr int kStages = (!kMma && D == 256) ? 1 : 2;
   static constexpr int kRow = D * (int)sizeof(T) + 16;   // padded key row
   static constexpr int kVecs = D * (int)sizeof(T) / 16;  // per key row
   static constexpr int kStage = 2 * kChunk * kRow;       // K then V
@@ -469,9 +474,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kStride = kChunk * kWarps;
   const int k0 = split * a.span, kbw = k0 + kChunk * w;
   const int* btrow = a.bt + (size_t)b * a.npages;
-  int first[kStages];
+  int first[L::kStages];
 #pragma unroll
-  for (int st = 0; st < kStages; ++st)
+  for (int st = 0; st < L::kStages; ++st)
     first[st] = chunk_page(a, btrow, kbw + st * kStride, lane);
   const int nkeys = max(0, min(a.ctx[b], a.npages << a.logpage));
   const int nlive = max(1, (nkeys + a.span - 1) / a.span);
@@ -493,7 +498,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t ring =
       (uint32_t)__cvta_generic_to_shared(smem) + w * L::kWarpRing;
 #pragma unroll
-  for (int st = 0; st < kStages; ++st) {
+  for (int st = 0; st < L::kStages; ++st) {
     if (st < nc)
       load_chunk<T, D>(a, ring + st * L::kStage, first[st], h,
                        kbw + st * kStride, nkeys, lane);
@@ -505,13 +510,13 @@ __global__ void __launch_bounds__(kThreads)
     MmaWarp<D> st;
     st.init(qrow, G, lane);
     for (int c = 0; c < nc; ++c) {
-      cp_async_wait<kStages - 1>();
+      cp_async_wait<L::kStages - 1>();
       __syncwarp();
-      const uint32_t sk = ring + (c % kStages) * L::kStage;
+      const uint32_t sk = ring + (c % L::kStages) * L::kStage;
       st.fold(sk, kbw + c * kStride, nkeys, a.scale_log2, lane);
       __syncwarp();
-      if (c + kStages < nc) {
-        const int kb = kbw + (c + kStages) * kStride;
+      if (c + L::kStages < nc) {
+        const int kb = kbw + (c + L::kStages) * kStride;
         load_chunk<T, D>(a, sk, chunk_page(a, btrow, kb, lane), h, kb, nkeys,
                          lane);
       }
@@ -530,14 +535,14 @@ __global__ void __launch_bounds__(kThreads)
     st.init();
     float* pw = ps + w * kChunk * kMaxG;
     for (int c = 0; c < nc; ++c) {
-      cp_async_wait<kStages - 1>();
+      cp_async_wait<L::kStages - 1>();
       __syncwarp();
-      const uint32_t off = (c % kStages) * L::kStage;
+      const uint32_t off = (c % L::kStages) * L::kStage;
       st.fold(reinterpret_cast<const float*>(smem + w * L::kWarpRing + off),
               qs, pw, kbw + c * kStride, nkeys, a.scale_log2, lane);
       __syncwarp();
-      if (c + kStages < nc) {
-        const int kb = kbw + (c + kStages) * kStride;
+      if (c + L::kStages < nc) {
+        const int kb = kbw + (c + L::kStages) * kStride;
         load_chunk<T, D>(a, ring + off, chunk_page(a, btrow, kb, lane), h, kb,
                          nkeys, lane);
       }
@@ -566,7 +571,8 @@ __global__ void __launch_bounds__(kThreads)
     bL[tid] = Lsum;
   }
   __syncthreads();
-  const int logD = D == 64 ? 6 : 7;
+  constexpr int logD = D == 64 ? 6 : (D == 128 ? 7 : 8);
+  static_assert(1 << logD == D, "head dim 64, 128 or 256");
   auto block_acc = [&](int e) {
     const int g = e >> logD, d = e & (D - 1);
     float o = 0.f;
@@ -630,7 +636,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  const int logD = D == 64 ? 6 : 7;
+  constexpr int logD = D == 64 ? 6 : (D == 128 ? 7 : 8);
+  static_assert(1 << logD == D, "head dim 64, 128 or 256");
   T* orow = a.out + bh * G * D;
   for (int e = tid; e < G * D; e += kThreads) {
     const int g = e >> logD;
@@ -708,6 +715,7 @@ extern "C" int paged_decode(const void* q, const void* k_pool,
                   logpage, npages, span, ws_splits, 0.f};
     if (D == 64) return launch<float, 64>(a, B, st);
     if (D == 128) return launch<float, 128>(a, B, st);
+    if (D == 256) return launch<float, 256>(a, B, st);
   } else if (dtype == 1) {
     typedef __nv_bfloat16 T;
     Args<T> a{(const T*)q, (const T*)k_pool, (const T*)v_pool,
@@ -716,6 +724,7 @@ extern "C" int paged_decode(const void* q, const void* k_pool,
               span, ws_splits, 0.f};
     if (D == 64) return launch<T, 64>(a, B, st);
     if (D == 128) return launch<T, 128>(a, B, st);
+    if (D == 256) return launch<T, 256>(a, B, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -28,8 +28,10 @@
 // a tile of consecutive query vectors; keys below `start` come from the
 // pool through the block table, keys at or above it from the chunk
 // operands.  The fp32 kernel walks the keys in tiles of 32 positions
-// staged as fp32 in shared memory, folding each into every warp's online
-// softmax.
+// staged as fp32 in (dynamic) shared memory, folding each into every
+// warp's online softmax.  Head dims 64, 128 and 256; at D = 256 the bf16
+// kernel's O tile is one m64n256k16 accumulator (hopper_attention.cuh) in
+// 164,864 bytes of shared memory.
 //   * Exactly one block per (row, kv head), query tile 0, writes the
 //     chunk rows into the pool.  No block reads a pool position >= start,
 //     and every write lands at a position >= start, so blocks never race.
@@ -48,8 +50,12 @@ namespace paged {
 
 template <int D>
 struct PrefillTile {
-  static constexpr int kQPW = (D == 128) ? 4 : 8;  // query vectors per warp
+  static constexpr int kQPW = (D == 64) ? 8 : 4;   // query vectors per warp
   static constexpr int kQT = kQPW * kWarps;        // per block
+  // dynamic shared memory, fp32: q (kQT, D), k (kKeyTile, D + 1), v
+  // (kKeyTile, D); 24,704 bytes at D = 64, 41,088 at 128, 82,048 at 256
+  static constexpr int kBytes =
+      4 * (kQT * D + kKeyTile * (D + 1) + kKeyTile * D);
 };
 
 template <typename T, int D>
@@ -63,9 +69,11 @@ __global__ void __launch_bounds__(kThreads)
                          int c, int Hkv, int G, int P, int page, int maxp) {
   constexpr int kQPW = PrefillTile<D>::kQPW;
   constexpr int kQT = PrefillTile<D>::kQT;
-  __shared__ float qs[kQT][D];
-  __shared__ float ks[kKeyTile][D + 1];
-  __shared__ float vs[kKeyTile][D];
+  extern __shared__ float smem_f[];
+  float(*qs)[D] = reinterpret_cast<float(*)[D]>(smem_f);
+  float(*ks)[D + 1] = reinterpret_cast<float(*)[D + 1]>(smem_f + kQT * D);
+  float(*vs)[D] = reinterpret_cast<float(*)[D]>(smem_f + kQT * D +
+                                                kKeyTile * (D + 1));
 
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & (kWarp - 1), w = tid / kWarp;
@@ -152,16 +160,22 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* kc, const void* vc, void* kp, void* vp,
-            const void* bt, const void* starts, const void* lengths, void* out,
-            int B, int c, int Hkv, int G, int P, int page, int maxp,
-            cudaStream_t stream) {
+int launch(const void* q, const void* kc, const void* vc, void* kp, void* vp,
+           const void* bt, const void* starts, const void* lengths, void* out,
+           int B, int c, int Hkv, int G, int P, int page, int maxp,
+           cudaStream_t stream) {
   constexpr int kQT = PrefillTile<D>::kQT;
+  constexpr int bytes = PrefillTile<D>::kBytes;
+  auto kern = paged_prefill_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((c * G + kQT - 1) / kQT, Hkv, B);
-  paged_prefill_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  kern<<<grid, kThreads, bytes, stream>>>(
       (const T*)q, (const T*)kc, (const T*)vc, (T*)kp, (T*)vp, (const int*)bt,
       (const int*)starts, (const int*)lengths, (T*)out, c, Hkv, G, P, page,
       maxp);
+  return (int)cudaGetLastError();
 }
 
 // ---- bf16: tensor cores ---------------------------------------------------
@@ -302,18 +316,22 @@ extern "C" int paged_prefill(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
-    launch<float, 64>(q, k, v, k_pool, v_pool, block_tables, starts, lengths,
-                      out, B, c, Hkv, G, P, page, maxp, st);
-  else if (dtype == 0 && D == 128)
-    launch<float, 128>(q, k, v, k_pool, v_pool, block_tables, starts, lengths,
-                       out, B, c, Hkv, G, P, page, maxp, st);
-  else if (dtype == 1 && D == 64)
+    return launch<float, 64>(q, k, v, k_pool, v_pool, block_tables, starts,
+                             lengths, out, B, c, Hkv, G, P, page, maxp, st);
+  if (dtype == 0 && D == 128)
+    return launch<float, 128>(q, k, v, k_pool, v_pool, block_tables, starts,
+                              lengths, out, B, c, Hkv, G, P, page, maxp, st);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, k_pool, v_pool, block_tables, starts,
+                              lengths, out, B, c, Hkv, G, P, page, maxp, st);
+  if (dtype == 1 && D == 64)
     return launch_wgmma<64>(q, k, v, k_pool, v_pool, block_tables, starts,
                             lengths, out, B, c, Hkv, G, P, page, maxp, st);
-  else if (dtype == 1 && D == 128)
+  if (dtype == 1 && D == 128)
     return launch_wgmma<128>(q, k, v, k_pool, v_pool, block_tables, starts,
                              lengths, out, B, c, Hkv, G, P, page, maxp, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == 1 && D == 256)
+    return launch_wgmma<256>(q, k, v, k_pool, v_pool, block_tables, starts,
+                             lengths, out, B, c, Hkv, G, P, page, maxp, st);
+  return (int)cudaErrorInvalidValue;
 }

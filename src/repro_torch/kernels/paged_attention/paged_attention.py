@@ -47,7 +47,7 @@ CSRC = Path(__file__).parent / "csrc"
 DECODE_SRC = CSRC / "paged_decode.cu"
 PREFILL_SRC = CSRC / "paged_prefill.cu"
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 PAGE_SIZES = (8, 16, 32, 64)
 MAX_GROUPS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

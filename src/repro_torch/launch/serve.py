@@ -2,7 +2,8 @@
 
 Runs the continuous-batching engine on a workload with the selected
 scheduling / cache-replacement policy (the paper's deployment path) and
-prints the §5.1 metrics.  A dense or MoE ``--arch`` runs on the paged
+prints the §5.1 metrics.  A dense, MoE, VLM (``paligemma-3b``: text-only
+requests) or audio (``musicgen-medium``) ``--arch`` runs on the paged
 plane (the hand-written paged-attention kernels; MoE layers in the
 engine's default dense dispatch); ``--arch rwkv6-7b`` on the
 slot-resident plane (the hand-written WKV6 kernel), and so does ``--arch
@@ -28,7 +29,10 @@ tier); ``hybrid_smoke_server`` the hymba-1.5B one (8 requests of 127-3100
 prompt tokens on 4 slots of a 2048-token sliding-window ring, which
 prompts of 2030 tokens and more wrap in decode and the 3100-token one
 in prefill, with recompute or, given ``preempt_mode``, swap preemptions;
-``plane``, ``decode_append`` and the decode ``impl`` as above).
+``plane``, ``decode_append`` and the decode ``impl`` as above);
+``audio_smoke_server`` the MusicGen-medium one (8 music prompts of
+500-1500 codec tokens continued by 128, on 8 slots of the paged plane,
+with recompute preemptions).
 """
 from __future__ import annotations
 
@@ -73,7 +77,8 @@ def smoke_server(cfg, params, device: str = "cuda"):
     """A warmed ``Engine`` (vLLM scheduler, SRF replacement) and fresh
     requests of the smoke workload, for ``cfg``/``params`` of
     ``SMOKE_ARCH`` in any dtype, or of another model on the paged plane
-    (``SMOKE_MOE_ARCH``: prompt ids drawn over its own vocabulary)."""
+    (``SMOKE_MOE_ARCH``, ``SMOKE_VLM_ARCH``: prompt ids drawn over its own
+    vocabulary)."""
     sched = make_scheduler("vllm", SMOKE_M, S=SMOKE_ENGINE.cache_len,
                            replacement="srf")
     eng = Engine(cfg, params, sched, SMOKE_ENGINE,
@@ -88,7 +93,8 @@ def smoke_plane_server(cfg, params, device: str = "cuda",
     """``smoke_server``'s engine settings, scheduler and workload on the
     data plane ``plane`` (``"batched"``: the slot-resident cache with the
     decode attention ``impl`` and ``decode_append``; ``"legacy"``: the
-    per-request exact-shape prefill), warmed."""
+    per-request exact-shape prefill), warmed; prompt ids over the model's
+    vocabulary."""
     sched = make_scheduler("vllm", SMOKE_M, S=SMOKE_ENGINE.cache_len,
                            replacement="srf")
     eng = Engine(cfg, params, sched,
@@ -96,7 +102,7 @@ def smoke_plane_server(cfg, params, device: str = "cuda",
                          decode_append=decode_append),
                  cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
                  device=device).warmup()
-    return eng, shared_prefix(**SMOKE_WORKLOAD)
+    return eng, shared_prefix(**dict(SMOKE_WORKLOAD, vocab=cfg.vocab_size))
 
 
 # the MoE smoke model: qwen2-moe (60 routed experts padded to 64, top-4,
@@ -105,6 +111,11 @@ def smoke_plane_server(cfg, params, device: str = "cuda",
 # experts, top-8, 32 q over 4 kv heads, qk-norm) is its second family
 SMOKE_MOE_ARCH = "qwen2-moe-a2.7b"
 SMOKE_MOE3_ARCH = "qwen3-moe-30b-a3b"
+
+# the VLM smoke model: PaliGemma-3B's Gemma backbone (8 q / 1 kv heads of
+# 256, a GELU MLP, sqrt(d)-scaled embeddings) served by ``smoke_server``'s
+# engine and workload: text-only requests, as the JAX engine takes them
+SMOKE_VLM_ARCH = "paligemma-3b"
 
 
 # the RWKV6 smoke workload: 8 requests (one prompt of prime length, 127)
@@ -188,6 +199,39 @@ def hybrid_smoke_server(cfg, params, device: str = "cuda",
                  cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
                  device=device).warmup()
     return eng, hybrid_smoke_requests(cfg.vocab_size)
+
+
+# the audio smoke workload: MusicGen-medium (24 q / 24 kv heads of 64,
+# sinusoidal positions) continuing 8 music prompts of 2.5-7.5 s of
+# 4-codebook EnCodec codes at 50 Hz, flattened (200 tokens a second: 500-
+# 1500 tokens), by 128 codes each (0.64 s), on 8 slots of the paged plane
+# (page 16) over a KV budget that forces recompute preemptions (2 on this
+# schedule); the scheduler's batch budget S holds the longest prompt whole
+SMOKE_AUDIO_ARCH = "musicgen-medium"
+SMOKE_AUDIO_M = 8192
+SMOKE_AUDIO_S = 2048
+SMOKE_AUDIO_ENGINE = EngineConfig(nslots=8, cache_len=2048, chunk=256,
+                                  page_size=16, plane="paged")
+SMOKE_AUDIO_SECONDS = (2.5, 7.5, 4.0, 6.0, 3.0, 5.5, 7.0, 4.5)
+SMOKE_AUDIO_OUTPUT = 128
+
+
+def audio_smoke_requests(vocab: int, seed: int = 0):
+    return _fixed_requests([round(s * 200) for s in SMOKE_AUDIO_SECONDS],
+                           SMOKE_AUDIO_OUTPUT, vocab, seed)
+
+
+def audio_smoke_server(cfg, params, device: str = "cuda", **ekw):
+    """A warmed paged-plane ``Engine`` (vLLM scheduler, SRF replacement)
+    and fresh requests of the audio smoke workload, for ``cfg``/``params``
+    of ``SMOKE_AUDIO_ARCH`` in any dtype (or depth); ``ekw`` overrides
+    ``SMOKE_AUDIO_ENGINE``'s fields (``plane``, ``impl``, ...)."""
+    sched = make_scheduler("vllm", SMOKE_AUDIO_M, S=SMOKE_AUDIO_S,
+                           replacement="srf")
+    eng = Engine(cfg, params, sched, replace(SMOKE_AUDIO_ENGINE, **ekw),
+                 cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
+                 device=device).warmup()
+    return eng, audio_smoke_requests(cfg.vocab_size)
 
 
 # the swap smoke workload: 32 requests on 8 Zipf-hot prompt templates

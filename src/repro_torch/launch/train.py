@@ -1,7 +1,10 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch smollm-360m``.
 
 The reduced config by default; ``--full`` trains the published widths
-(SmolLM-360M: 32 layers, d=960, 15 query heads over 5 kv heads).  Runs
+(SmolLM-360M: 32 layers, d=960, 15 query heads over 5 kv heads).  Every
+family but MoE, hybrid and RWKV6 trains (``--arch paligemma-3b`` with its
+stub patch embeddings in front of the text, ``--arch musicgen-medium``
+over codec tokens with sinusoidal positions).  Runs
 on ``--device cuda`` (the default) or ``--device cpu``.  Exercised end
 to end: bf16 compute params with fp32 AdamW state, microbatched grad
 accumulation, per-layer remat, the deterministic data pipeline, periodic
@@ -15,6 +18,7 @@ from __future__ import annotations
 import argparse
 import logging
 import time
+from dataclasses import replace
 from typing import Dict, List
 
 import torch
@@ -49,6 +53,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="full (non-reduced) config — real-hardware scale")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep only the first N layers (0: all)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
@@ -59,6 +65,8 @@ def build(args: argparse.Namespace):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = replace(cfg, num_layers=args.layers)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(1, args.steps // 20))
     params = M.init_params(cfg, seed=0, device=args.device)
@@ -70,8 +78,11 @@ def build(args: argparse.Namespace):
 
 def batch_at(cfg, dcfg: DataConfig, step: int, device: str
              ) -> Dict[str, torch.Tensor]:
-    """The step's synthetic batch as int64 tensors on ``device``."""
-    return {k: torch.from_numpy(v).to(device, torch.long)
+    """The step's synthetic batch on ``device``: the token leaves
+    (``tokens``, ``labels``) as int64, a ``patch`` model's float32
+    ``patch_embeds`` as they are."""
+    return {k: torch.from_numpy(v).to(device, torch.long
+                                      if v.dtype.kind in "iu" else None)
             for k, v in batch_with_frontend(cfg, dcfg, step).items()}
 
 

@@ -68,6 +68,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_pos_emb(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """positions (B, S) -> (B, S, dim) float32 sinusoidal embedding: the
+    sines of ``dim // 2`` frequencies, then their cosines."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def gated_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
                    dtype: torch.dtype, lead: Tuple[int, ...] = ()) -> Params:
     return {"wi_gate": dense_init(gen, d_model, d_ff, dtype, lead),

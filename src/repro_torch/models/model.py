@@ -1,7 +1,7 @@
-"""Decoder-LM assembly for the dense, mixture-of-experts, RWKV6
-(``ssm``) and hybrid (hymba) families: a Python loop over layers whose
-parameters are stacked on a leading ``L`` axis, as in
-``repro.models.model`` (``lax.scan`` there).
+"""Decoder-LM assembly for every family of ``repro.models.model``: dense,
+mixture-of-experts, RWKV6 (``ssm``), hybrid (hymba), ``vlm`` (PaliGemma)
+and ``audio`` (MusicGen); a Python loop over layers whose parameters are
+stacked on a leading ``L`` axis (``lax.scan`` there).
 
 Public API (functional, on nested dicts of tensors):
   init_params(cfg, seed, device=...)          -> params
@@ -40,11 +40,23 @@ engine.  MoE serves but does not train yet (ROADMAP A7-ii).  The
 hybrid family's layer runs windowed attention and the selective SSM
 (``models.ssm``, plain torch as in JAX) side by side on the same input
 and adds the mean of their normalized outputs; it serves but does not
-train yet (ROADMAP A8-ii).  The VLM/audio frontends raise ``ValueError``
-naming the ROADMAP item that ports them (A10).
+train yet (ROADMAP A8-ii).
+
+The frontends (``_embed``) are JAX's stubs.  A ``vlm`` model scales its
+token embeddings by ``sqrt(d_model)`` (rounded to the params' dtype, as
+JAX casts it) and runs a GELU MLP; given ``batch["patch_embeds"]`` (B, P,
+d), ``prefill`` and ``train_loss`` project them with ``patch_proj`` and
+put them in front of the text as a bidirectional prefix (prefix-LM: every
+query sees the P patch positions), the cache and ``index`` count them,
+and ``train_loss`` crops them before the head.  An ``audio`` model adds a
+sinusoidal position embedding (``common.sinusoidal_pos_emb``, fp32, cast
+to the params' dtype) at every absolute position: the prompt's, a
+chunk's ``start + j`` and a decode row's ``index``.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -58,7 +70,13 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Params, embed_init, gated_mlp,
                                        gated_mlp_init, rms_norm,
+                                       sinusoidal_pos_emb,
                                        softmax_cross_entropy)
+
+
+#: the families and stub frontends of ``repro.configs``
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+FRONTENDS = ("none", "patch", "frames")
 
 
 def check_supported(cfg: ModelConfig, *, train: bool = False) -> None:
@@ -75,10 +93,9 @@ def check_supported(cfg: ModelConfig, *, train: bool = False) -> None:
         raise ValueError(f"{cfg.name}: training RWKV6 needs a backward "
                          "through the forward-only WKV6 kernel, which "
                          "neither package has (ROADMAP A9)")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
-            or cfg.frontend != "none":
-        raise ValueError(f"{cfg.name}: the {cfg.family!r} family/frontends "
-                         "are not ported yet (ROADMAP A10)")
+    if cfg.family not in FAMILIES or cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} or "
+                         f"frontend {cfg.frontend!r}")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -122,6 +139,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                       "ln_f": zeros(d), "layers": layers}
     if not cfg.tie_embeddings:
         params["head"] = embed_init(gen, cfg.padded_vocab, d, dtype)
+    if cfg.frontend == "patch":
+        # the stub projection of the precomputed patch embeddings
+        params["patch_proj"] = embed_init(gen, d, d, dtype)
     return params
 
 
@@ -169,10 +189,35 @@ def unstack_layers(params: Params) -> List[Params]:
 # --------------------------------------------------------------------- #
 
 
-def _embed(cfg: ModelConfig, params: Params,
-           tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding (dense family: no scaling, no frontend)."""
-    return params["embed"][tokens]
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           positions: torch.Tensor,
+           patch_embeds: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, int]:
+    """(x (B, S', d), prefix_len): the token embeddings of ``tokens`` (B,
+    S) at absolute ``positions`` (B, S), through the family's frontend
+    (module docstring); ``S' = P + S`` and ``prefix_len = P`` when a
+    ``patch`` model is given ``patch_embeds`` (B, P, d), else S and 0."""
+    x = params["embed"][tokens]
+    prefix_len = 0
+    if cfg.family == "vlm":
+        x = x * _vlm_scale(cfg.d_model, x.dtype)
+    if cfg.frontend == "patch" and patch_embeds is not None:
+        pe = patch_embeds.to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([pe, x], dim=1)
+        prefix_len = patch_embeds.shape[1]
+    if cfg.family == "audio":
+        pos = positions if prefix_len == 0 else \
+            torch.arange(x.shape[1], device=x.device)[None, :]
+        x = x + sinusoidal_pos_emb(pos, cfg.d_model).to(x.dtype)
+    return x, prefix_len
+
+
+@functools.lru_cache(maxsize=None)
+def _vlm_scale(d_model: int, dtype: torch.dtype) -> float:
+    """``sqrt(d_model)`` in fp32 rounded to ``dtype``, as JAX casts it
+    before the product (a host scalar: no device tensor is made)."""
+    return torch.tensor(math.sqrt(d_model), dtype=torch.float32) \
+        .to(dtype).item()
 
 
 def _logits(cfg: ModelConfig, params: Params,
@@ -239,7 +284,8 @@ def _mlp_or_moe(cfg: ModelConfig, lp: Params, x: torch.Tensor,
         if moe_impl not in moe_mod.DISPATCH:
             raise ValueError(f"unknown moe_impl {moe_impl!r}")
         return moe_mod.DISPATCH[moe_impl](lp["moe"], cfg, x)
-    return gated_mlp(lp["mlp"], x)
+    return gated_mlp(lp["mlp"], x, act="gelu" if cfg.family == "vlm"
+                     else "silu")
 
 
 def _hybrid_mix(cfg: ModelConfig, lp: Params, x: torch.Tensor,
@@ -257,55 +303,62 @@ def _mlp_residual(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 
 def _block_full(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                positions: torch.Tensor, impl: str, moe_impl: str,
-                cache_len: int) -> Tuple[torch.Tensor, Dict]:
+                positions: torch.Tensor, prefix_len: int, impl: str,
+                moe_impl: str, cache_len: int
+                ) -> Tuple[torch.Tensor, Dict]:
     """One full-sequence block: (x, layer cache or {}); an RWKV6 block
     starts from a zero state and always returns its state, a hybrid one
     (with a cache) returns its ring cropped to the window and its SSM
-    state.  No prefix-LM here: the frontends that make one are not
-    ported (A10)."""
+    state.  The first ``prefix_len`` positions are a bidirectional
+    prefix (prefix-LM) of the attention."""
     if cfg.family == "ssm":
         state = rwkv_mod.init_rwkv_state(cfg, x.shape[0], device=x.device)
         return _rwkv_block(cfg, lp, x, state)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "hybrid":
         a, kv = attn.attention_full(
-            lp["attn"], cfg, h, positions, impl=impl,
+            lp["attn"], cfg, h, positions, prefix_len=prefix_len, impl=impl,
             cache_len=min(cache_len, cfg.window) if cache_len else 0)
         s, sst = ssm_mod.apply_ssm_full(lp["ssm"], cfg, h)
         x = _hybrid_mix(cfg, lp, x, a, s)
         lc = {**(kv or {}), **sst}
     else:
         a, lc = attn.attention_full(lp["attn"], cfg, h, positions,
-                                    impl=impl, cache_len=cache_len)
+                                    prefix_len=prefix_len, impl=impl,
+                                    cache_len=cache_len)
         x = x + a
     return _mlp_residual(cfg, lp, x, moe_impl), (lc if cache_len else {})
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    B, S = tokens.shape
-    return torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device)[None, :].expand(B, S)
 
 
 def train_loss(cfg: ModelConfig, params: Params,
                batch: Dict[str, torch.Tensor], *, impl: str = "reference",
                moe_impl: str = "sparse", remat: bool = True) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S)
-    against ``batch["labels"]`` (labels < 0 masked).  ``remat`` keeps
-    only each layer's input for the backward and recomputes the layer
-    (``jax.checkpoint`` of the layer body in the JAX package)."""
+    against ``batch["labels"]`` (labels < 0 masked); a ``patch`` model's
+    ``batch["patch_embeds"]`` go in front as the prefix and are cropped
+    before the head.  ``remat`` keeps only each layer's input for the
+    backward and recomputes the layer (``jax.checkpoint`` of the layer
+    body in the JAX package)."""
     check_supported(cfg, train=True)
     tokens, labels = batch["tokens"], batch["labels"]
-    positions = _positions(tokens)
-    x = _embed(cfg, params, tokens)
+    B, S = tokens.shape
+    x, prefix_len = _embed(cfg, params, tokens,
+                           _positions(B, S, tokens.device),
+                           batch.get("patch_embeds"))
+    pos_x = _positions(B, x.shape[1], tokens.device)
 
     def body(xc, lp):
-        return _block_full(cfg, lp, xc, positions, impl, moe_impl, 0)[0]
+        return _block_full(cfg, lp, xc, pos_x, prefix_len, impl, moe_impl,
+                           0)[0]
 
     for lp in unstack_layers(params):
         x = (checkpoint(body, x, lp, use_reentrant=False) if remat
              else body(x, lp))
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)[:, prefix_len:]
     return softmax_cross_entropy(_logits(cfg, params, x), labels,
                                  cfg.vocab_size)
 
@@ -314,25 +367,30 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             cache_len: int, *, impl: str = "reference",
             moe_impl: str = "sparse"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Process the whole prompt ``batch["tokens"]`` (B, S); returns
-    (last-token logits (B, Vpad), cache padded to ``cache_len``).  An
-    optional ``batch["length"]`` (B,) sets the cache's ``index`` (the
-    logits stay the last position's, as in JAX)."""
+    """Process the whole prompt ``batch["tokens"]`` (B, S), behind a
+    ``patch`` model's ``batch["patch_embeds"]`` (B, P, d) if given;
+    returns (last-token logits (B, Vpad), cache of the P + S positions
+    padded to ``cache_len``).  An optional ``batch["length"]`` (B,) sets
+    the cache's ``index`` to ``length + P`` (the logits stay the last
+    position's, as in JAX)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    positions = _positions(tokens)
-    x = _embed(cfg, params, tokens)
+    x, prefix_len = _embed(cfg, params, tokens,
+                           _positions(B, S, tokens.device),
+                           batch.get("patch_embeds"))
+    Sx = x.shape[1]
+    pos_x = _positions(B, Sx, tokens.device)
     layer_caches = []
     for lp in unstack_layers(params):
-        x, lc = _block_full(cfg, lp, x, positions, impl, moe_impl,
+        x, lc = _block_full(cfg, lp, x, pos_x, prefix_len, impl, moe_impl,
                             cache_len)
         layer_caches.append(lc)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _logits(cfg, params, x[:, -1])
     length = batch.get("length")
-    index = (torch.full((B,), S, dtype=torch.int32, device=tokens.device)
-             if length is None else length.to(torch.int32))
+    index = (torch.full((B,), Sx, dtype=torch.int32, device=tokens.device)
+             if length is None else (length + prefix_len).to(torch.int32))
     cache: Dict[str, torch.Tensor] = {"index": index}
     cache.update(_stack(layer_caches))
     return logits, cache
@@ -424,7 +482,8 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     check_supported(cfg)
     B, c = tokens.shape
     start = cache["index"]
-    x = _embed(cfg, params, tokens)
+    positions = start[:, None] + torch.arange(c, device=tokens.device)
+    x, _ = _embed(cfg, params, tokens, positions)
     layer_caches = []
     for l, lp in enumerate(unstack_layers(params)):
         x, lc = _block_chunk(cfg, lp, x,
@@ -458,7 +517,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     if tokens.ndim == 1:
         tokens = tokens[:, None]
     index = cache["index"]
-    x = _embed(cfg, params, tokens)
+    x, _ = _embed(cfg, params, tokens, index[:, None])
     if cfg.family == "ssm":
         return _decode_rwkv(cfg, params, x, cache)
     layer_caches = []
@@ -493,7 +552,7 @@ def decode_step_deferred(cfg: ModelConfig, params: Params,
     if tokens.ndim == 1:
         tokens = tokens[:, None]
     index = cache["index"]
-    x = _embed(cfg, params, tokens)
+    x, _ = _embed(cfg, params, tokens, index[:, None])
     if cfg.family == "ssm":
         return _decode_rwkv(cfg, params, x, cache)
     deltas = []

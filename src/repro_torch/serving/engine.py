@@ -1,7 +1,7 @@
 """Continuous-batching serving engine on PyTorch — the paper's deployment
 path (Fig. 1) with the paged data plane on hand-written CUDA kernels, the
-slot-resident planes for the dense family, RWKV6 and the hybrid family,
-and the legacy plane.
+slot-resident planes for every family (dense, MoE, the VLM and audio
+families, RWKV6 and the hybrid family), and the legacy plane.
 
 The engine drives the unified ``Scheduler`` (Algorithm 1) against the
 real model.  Memory accounting (the scheduler's M) is backed by a
@@ -10,7 +10,10 @@ page-rounded occupancy against the allocator's page-rounded capacity
 (``ceil(M/page_size)`` pages), so a schedule the control plane admits is
 allocator-feasible by construction.
 
-Data planes.  ``plane="paged"`` on the dense family (the pooled plane):
+Data planes.  ``plane="paged"`` on the families with unbounded dense
+attention (dense, MoE, ``vlm`` and ``audio``: the pooled plane; their
+requests are text or codec tokens alone, with no image prefix, as in the
+JAX engine):
 attention KV lives in shared per-layer page pools (``serving.paged_plane``);
 prefill writes K/V through the block table into owned pages with the
 fused paged-prefill kernel, and decode appends one row per slot and runs
@@ -123,8 +126,8 @@ Differences from the JAX engine (``repro.serving.engine``):
   legacy plane's prefill is the exception: it runs eagerly, as its exact
   shapes (one JAX compile per tail length) are the point of the plane,
   and only its decode step is a graph.
-* Settings this port does not run yet (other families A10,
-  ``impl="seqsharded"`` and ``moe_impl="ep"`` A13) raise ``ValueError``
+* Settings this port does not run yet (``impl="seqsharded"`` and
+  ``moe_impl="ep"``, A13) raise ``ValueError``
   naming the ROADMAP item that will port them.
   ``EngineConfig`` has no ``share_jits``: a step graph belongs to the
   engine that captured it.
@@ -277,7 +280,7 @@ def _validate(cfg: ModelConfig, ecfg: EngineConfig,
         raise ValueError(f"unknown plane {ecfg.plane!r}")
     if ecfg.decode_append not in ("inline", "deferred"):
         raise ValueError(f"unknown decode_append {ecfg.decode_append!r}")
-    M.check_supported(cfg)         # dense, MoE, RWKV6, hybrid (A10)
+    M.check_supported(cfg)
     if ecfg.moe_impl not in moe_mod.DISPATCH:
         raise ValueError(f"unknown moe_impl {ecfg.moe_impl!r}")
     if ecfg.moe_impl == "ep" and cfg.num_experts:

@@ -101,7 +101,7 @@ def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense"
         lengths = lengths.contiguous()
         positions = starts[:, None] + torch.arange(c, device=tokens.device,
                                                    dtype=torch.int32)
-        x = M._embed(cfg, params, tokens.long())
+        x, _ = M._embed(cfg, params, tokens.long(), positions)
         for l, lp in enumerate(M.unstack_layers(params)):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = attn._project_qkv(lp["attn"], cfg, h, positions)
@@ -129,7 +129,7 @@ def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense"
                            (P1 - sentinel_pages(B, pg)) * pg + rows)
         # write-then-attend: context_lens = ctx + 1 includes the new token
         ctx_lens = (ctx + 1).to(torch.int32)
-        x = M._embed(cfg, params, tokens.long()[:, None])
+        x, _ = M._embed(cfg, params, tokens.long()[:, None], ctx[:, None])
         for l, lp in enumerate(M.unstack_layers(params)):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = attn._project_qkv(lp["attn"], cfg, h, ctx[:, None])

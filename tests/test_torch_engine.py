@@ -272,15 +272,23 @@ def test_unported_settings_raise(models, ekw, skw, item):
     (dict(family="moe", num_experts=4, experts_per_token=2, moe_d_ff=32),
      dict(moe_impl="ep"), "A13"),
     # the hybrid family and sliding windows serve
-    # (tests/test_torch_hybrid_engine.py); the frontends are A10
+    # (tests/test_torch_hybrid_engine.py); the VLM and audio families
+    # (A10, ported) serve on every plane (tests/test_torch_vlm_engine.py,
+    # tests/test_torch_audio_engine.py): accepted here
     (dict(family="vlm"), {}, "A10"),
+    (dict(family="audio", frontend="frames"), dict(plane="paged",
+                                                   page_size=8), "A10"),
 ])
 def test_non_dense_family_raises(models, over, ekw, item):
     _, tcfg, _, tp = models
     sched = t_sched("vllm", 64, S=128)
+    cfg = dataclasses.replace(tcfg, **over)
+    if item == "A10":
+        eng = TEngine(cfg, tp, sched, TEngineConfig(**ekw), device="cpu")
+        assert eng.cfg.family == over["family"]
+        return
     with pytest.raises(ValueError, match=item):
-        TEngine(dataclasses.replace(tcfg, **over), tp, sched,
-                TEngineConfig(**ekw), device="cpu")
+        TEngine(cfg, tp, sched, TEngineConfig(**ekw), device="cpu")
 
 
 def test_warmup_leaves_allocator_pages_untouched(models):

@@ -22,7 +22,8 @@ COPIES = [
     "configs/llama3_8b.py", "configs/qwen3_4b.py", "configs/smollm_360m.py",
     "configs/starcoder2_3b.py", "configs/rwkv6_7b.py",
     "configs/qwen2_moe_a2_7b.py", "configs/qwen3_moe_30b_a3b.py",
-    "configs/hymba_1_5b.py",
+    "configs/hymba_1_5b.py", "configs/paligemma_3b.py",
+    "configs/musicgen_medium.py", "configs/__init__.py",
     "core/csp.py", "core/slo.py", "core/invariants.py", "core/stat_keys.py", "core/histogram.py",
     "core/request.py", "core/policies.py", "core/kvcache.py",
     "core/cost_model.py", "core/scheduler.py", "core/five_minute_rule.py",
