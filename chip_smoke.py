@@ -307,11 +307,30 @@ Phases — each raises on failure, so any failure exits non-zero:
    norm finite, the loss falling, the patch embeddings reaching
    ``train_loss`` as float32.
 
+25. The MoE, hybrid and RWKV6 families train (after phase 24; the card's
+   name and power limit head the phase's lines).  (a) ``train_loss``'s
+   fp32 loss and gradients on the card against the port's on the CPU
+   (which the tests hold against JAX) for the reduced qwen2-moe and
+   qwen3-moe (the sparse and the dense dispatch each), hymba and RWKV6,
+   B = 2, S = 16: every gradient element within ``GRAD_TOL`` (the tests'
+   fp32 tolerance), the worst leaf printed; B4 never launched.  (b) The
+   hybrid scan's autograd function (``models.ssm.ChunkScan``) alone at
+   hymba's full width, (B, Q, d_inner, N) = ``SCAN_FULL`` in fp32: its
+   values and both gradients on the card against the CPU, and its
+   forward + backward timed.  (c) ``launch/train.py``'s loop for 8 bf16
+   steps at full width (fp32 AdamW, B = 4, S = 512) on ``FAMILY_TRAIN``:
+   qwen2-moe at 2 of 24 layers, qwen3-moe at 2 of 48, hymba at all 32 and
+   RWKV6 at 6 of 32 (about 2 B parameters each: AdamW's state, old and
+   new, at ~28 B a parameter); loss and grad norm finite, the loss
+   falling; tokens/s per step and ``torch.cuda.max_memory_allocated``
+   printed.  (d) B4 launched 0 times by the RWKV6 training steps and once
+   a layer by a no-grad prefill at the same depth.
+
 Each phase prints the seconds since the start when it is done; phase
 20's three engines run after phase 18's fp32 and bf16 serves and phase
 15's bf16 one, on their weights; phase 21's TinyLlama runs after phase
 20's fp32 and bf16 engines, its RWKV6-7B runs after phase 19; phase 23
-runs after phase 22, and phase 24 last.
+runs after phase 22, then phase 24, and phase 25 last.
 
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
@@ -3453,30 +3472,32 @@ def vlm_prefill(torch, fa, M, cfg, params):
 #: first steps move every weight by about lr, which a layer of fan-in n
 #: adds up to ~lr * n in its output: SmolLM's 1e-3 (d_ff 2560) made these
 #: losses climb (d_ff 16384 and 6144), so the rates are lower
-FRONTEND_TRAIN_STEPS = 8
+TRAIN_STEPS = 8
 FRONTEND_TRAIN = {
     "paligemma-3b": ["--layers", "8", "--batch", "4", "--seq", "256",
                      "--lr", "3e-5"],
     "musicgen-medium": ["--batch", "4", "--seq", "512", "--lr", "5e-5"]}
 
 
-def frontend_train(torch):
-    """Phase 24 (f): a few bf16 steps of ``launch/train.py``'s own loop on
-    each of ``FRONTEND_TRAIN`` at full width (fp32 AdamW state): loss and
-    grad norm finite at every step, the loss falling; the batch reaches
-    ``train_loss`` as ``batch_with_frontend`` made it (tokens int64, the
-    patch embeddings float32)."""
+def trainer_runs(torch, runs, phase: str):
+    """``launch/train.py``'s own loop for ``TRAIN_STEPS`` bf16 steps on
+    each of ``runs`` (arch -> extra arguments) at full width (fp32 AdamW
+    state): loss and grad norm finite at every step, the loss falling;
+    the batch reaches ``train_loss`` as ``batch_with_frontend`` made it
+    (tokens int64, a patch model's embeddings float32).  Returns, per
+    arch, the losses, grad norms, step seconds, tokens/s, peak memory
+    and B4's launches over the steps."""
     import gc
     import logging
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, batch_with_frontend
+    from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
     from repro_torch.launch import train as T
     logging.getLogger("repro_torch.train").setLevel(logging.WARNING)
     out = {}
-    for arch, extra in FRONTEND_TRAIN.items():
+    for arch, extra in runs.items():
         args = T.parse_args(["--full", "--arch", arch, "--steps",
-                             str(FRONTEND_TRAIN_STEPS), "--device", DEVICE]
-                            + extra)
+                             str(TRAIN_STEPS), "--device", DEVICE] + extra)
         cfg = get_config(arch)
         dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch)
@@ -3489,9 +3510,11 @@ def frontend_train(torch):
                   f"{arch}: batch_at's {k} is {dev[k].dtype}, not "
                   "batch_with_frontend's")
         torch.cuda.reset_peak_memory_stats()
+        wkv.wkv6_cuda.launches = 0
         with torch.enable_grad():
             hist = T.train(args)
         peak = torch.cuda.max_memory_allocated()
+        b4 = wkv.wkv6_cuda.launches
         losses = [h["loss"] for h in hist]
         for h in hist:
             check(all(math.isfinite(h[k]) for k in ("loss", "grad_norm")),
@@ -3501,17 +3524,21 @@ def frontend_train(torch):
         step_s = steady[len(steady) // 2]
         tok_s = args.batch * args.seq / step_s
         layers = args.layers or cfg.num_layers
-        print(f"train ({arch} bf16 at {layers} layers, fp32 AdamW, lr "
-              f"{args.lr:g}, B={args.batch}, S={args.seq}"
+        print(f"{phase} train ({arch} bf16 at {layers} of {cfg.num_layers} "
+              f"layers, fp32 AdamW, lr {args.lr:g}, B={args.batch}, "
+              f"S={args.seq}"
               + (f" + {cfg.num_patches} patches" if cfg.num_patches else "")
               + f"): losses {[round(x, 4) for x in losses]}, grad norms "
-              f"{[round(h['grad_norm'], 3) for h in hist]}; median step "
+              f"{[round(h['grad_norm'], 3) for h in hist]}; step seconds "
+              f"{[round(h['seconds'], 3) for h in hist]}; median step "
               f"{step_s:.3f} s after the first = {tok_s:.0f} text tokens/s; "
-              f"peak {peak / 2**30:.2f} GiB")
+              f"max_memory_allocated {peak / 2**30:.2f} GiB; B4 launches "
+              f"{b4}")
         out[arch] = {"layers": layers, "losses": losses,
                      "grad_norms": [h["grad_norm"] for h in hist],
                      "step_s": [h["seconds"] for h in hist],
-                     "tok_per_s": tok_s, "max_memory_allocated": peak}
+                     "tok_per_s": tok_s, "max_memory_allocated": peak,
+                     "wkv6_launches": b4}
         del dev
         gc.collect()
         torch.cuda.empty_cache()
@@ -3577,9 +3604,183 @@ def phase_frontends(torch, pa, ref, fa, fref, M, get_config, P_main, ecfg):
         gc.collect()
         torch.cuda.empty_cache()
     out["serve_max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    out["train"] = frontend_train(torch)
+    out["train"] = trainer_runs(torch, FRONTEND_TRAIN, "phase 24")
     print(f"phase 24 peak device memory allocated: serves "
           f"{out['serve_max_memory_allocated'] / 2**30:.2f} GiB, trainers "
+          + ", ".join(f"{a} {t['max_memory_allocated'] / 2**30:.2f} GiB"
+                      for a, t in out["train"].items()))
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phase 25: every served family trains (MoE, hybrid, RWKV6)
+# --------------------------------------------------------------------- #
+
+#: the fp32 gradient tolerance of ``tests/test_torch_train_families.py``
+#: (there the CPU is held against JAX; here the card against the CPU)
+GRAD_TOL = dict(rtol=5e-4, atol=5e-6)
+#: (a): (arch, moe_impl), each reduced in fp32, weights from seed 0
+GRAD_CASES = [("qwen2-moe-a2.7b", "sparse"), ("qwen2-moe-a2.7b", "dense"),
+              ("qwen3-moe-30b-a3b", "sparse"), ("qwen3-moe-30b-a3b", "dense"),
+              ("hymba-1.5b", "sparse"), ("rwkv6-7b", "sparse")]
+#: (b): one SSM chunk of hymba-1.5b at full width, (B, Q, d_inner, N)
+SCAN_FULL = (2, 128, 3200, 16)
+#: (c): full width at the depths whose ~2 B parameters fit AdamW's fp32
+#: state, old and new (~28 B a parameter), on one 80 GB card: qwen2-moe
+#: 2 of 24 layers (1.83 B), qwen3-moe 2 of 48 (1.87 B), hymba all 32
+#: (1.97 B), RWKV6 6 of 32 (1.85 B); the rates scaled down with the
+#: widest fan-in, as phase 24's
+FAMILY_TRAIN = {
+    "qwen2-moe-a2.7b": ["--layers", "2", "--batch", "4", "--seq", "512",
+                        "--lr", "1e-4"],
+    "qwen3-moe-30b-a3b": ["--layers", "2", "--batch", "4", "--seq", "512",
+                          "--lr", "1e-4"],
+    "hymba-1.5b": ["--batch", "4", "--seq", "512", "--lr", "5e-5"],
+    "rwkv6-7b": ["--layers", "6", "--batch", "4", "--seq", "512",
+                 "--lr", "3e-5"]}
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], prefix + k + "/")
+        else:
+            yield prefix + k, tree[k]
+
+
+def family_grads_vs_cpu(torch, cases=GRAD_CASES):
+    """Phase 25 (a): ``train_loss``'s fp32 loss and gradients on the card
+    against the port's on the CPU (which the tests hold against JAX), for
+    each of ``cases`` (B = 2, S = 16, remat): every gradient element
+    within ``GRAD_TOL``, the loss within 1e-5; B4 never launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
+    from repro_torch.models import model as M
+    from repro_torch.training import make_loss_fn, value_and_grad
+    out = {}
+    for arch, moe_impl in cases:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        params = M.init_params(cfg, seed=0, device="cpu")
+        toks = torch.randint(cfg.vocab_size, (2, 17),
+                             generator=torch.Generator().manual_seed(3))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        fn = value_and_grad(make_loss_fn(cfg, moe_impl=moe_impl))
+        loss_c, grads_c = fn(params, batch)
+        wkv.wkv6_cuda.launches = 0
+        loss_d, grads_d = fn(_tree_to(params, DEVICE),
+                             {k: v.to(DEVICE) for k, v in batch.items()})
+        check(wkv.wkv6_cuda.launches == 0,
+              f"{arch}: train_loss launched B4 {wkv.wkv6_cuda.launches} times")
+        worst = (0.0, "", 0.0)
+        dev = dict(_leaves(grads_d))
+        for name, gc_ in _leaves(grads_c):
+            gd = dev[name].cpu()
+            diff = (gd - gc_).abs()
+            ratio = float((diff / (GRAD_TOL["atol"] + GRAD_TOL["rtol"]
+                                   * gc_.abs())).max())
+            rel = float(diff.max() / gc_.abs().max().clamp_min(1e-30))
+            if ratio >= worst[0]:
+                worst = (ratio, name, rel)
+        dloss = abs(float(loss_d) - float(loss_c))
+        label = f"{arch} {moe_impl}" if cfg.num_experts else arch
+        print(f"phase 25 (a) {label} reduced fp32 grads, card against CPU: "
+              f"loss {float(loss_d):.6f} (|diff| {dloss:.2e}); worst leaf "
+              f"{worst[1]}: {worst[0]:.3f} of GRAD_TOL, max |diff| / max "
+              f"|grad| {worst[2]:.2e}")
+        check(math.isfinite(float(loss_d))
+              and dloss <= 1e-5 * abs(float(loss_c)),
+              f"{label}: loss {float(loss_d)} on the card, {float(loss_c)} "
+              "on the CPU")
+        check(worst[0] <= 1.0, f"{label}: gradient {worst[1]} outside "
+              f"GRAD_TOL ({worst[0]:.3f} of it)")
+        out[label] = {"loss": float(loss_d), "loss_diff": dloss,
+                      "worst_leaf": worst[1], "worst_of_tol": worst[0],
+                      "worst_rel": worst[2]}
+    return out
+
+
+def scan_full_width(torch):
+    """Phase 25 (b): ``ssm.ChunkScan`` alone at hymba's full width
+    (``SCAN_FULL``, fp32): h, dL/da and dL/db on the card against the CPU
+    within ``TOL["float32"]``, and its forward + backward timed."""
+    from repro_torch.models import ssm
+    B, Q, di, N = SCAN_FULL
+    g = torch.Generator().manual_seed(25)
+    # a = exp(dt * A): decays from ~1 down to e^-4, as dt * A spans
+    a = torch.exp(-4.0 * torch.rand((B, Q, di, N), generator=g))
+    b = torch.randn((B, Q, di, N), generator=g)
+    w = torch.randn((B, Q, di, N), generator=g)
+
+    def run(a, b, w):
+        a, b = a.requires_grad_(True), b.requires_grad_(True)
+        with torch.enable_grad():
+            h = ssm.chunk_scan(a, b)
+            da, db = torch.autograd.grad(h, (a, b), grad_outputs=w)
+        return h.detach(), da, db
+
+    want = run(a, b, w)
+    on_card = [t.to(DEVICE) for t in (a, b, w)]
+    errs = {}
+    for what, x, y in zip(("h", "da", "db"), run(*on_card), want):
+        errs[what] = compare(torch, x, y.to(DEVICE), "float32",
+                             f"ChunkScan {what} at {SCAN_FULL}")
+    ms = event_ms(torch, lambda: run(*on_card), iters=5, warm=1)
+    nbytes = 4 * B * Q * di * N
+    print(f"phase 25 (b) ChunkScan (B, Q, d_inner, N) = {SCAN_FULL} fp32, "
+          f"card against CPU: max abs err h {errs['h']:.2e}, da "
+          f"{errs['da']:.2e}, db {errs['db']:.2e}; forward + backward "
+          f"{ms:.3f} ms; saved for the backward: a and h, "
+          f"{2 * nbytes / 1e6:.0f} MB")
+    return {"max_abs_err": errs, "fwd_bwd_ms": ms,
+            "saved_bytes": 2 * nbytes}
+
+
+def rwkv_serve_launches(torch, layers: int) -> int:
+    """Phase 25 (d): a no-grad prefill of RWKV6-7B at ``layers`` layers
+    (bf16, one row of 64 tokens) still runs B4, once a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=layers,
+                              dtype="bfloat16")
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    toks = torch.randint(cfg.vocab_size, (1, 64), device=DEVICE,
+                         generator=torch.Generator(DEVICE).manual_seed(4))
+    wkv.wkv6_cuda.launches = 0
+    with torch.no_grad():
+        logits, _ = M.prefill(cfg, params, {"tokens": toks}, 64)
+    n = wkv.wkv6_cuda.launches
+    check(bool(torch.isfinite(logits.float()).all()),
+          "RWKV6 prefill: non-finite logits")
+    check(n == layers, f"RWKV6 prefill launched B4 {n} times, not {layers}")
+    return n
+
+
+def phase_train_families(torch, card: str):
+    """Phase 25: the MoE, hybrid and RWKV6 families train.  (a) reduced
+    fp32 gradients on the card against the CPU; (b) the hybrid scan's
+    autograd function at full width; (c) ``launch/train.py``'s loop for
+    ``TRAIN_STEPS`` bf16 steps on each of ``FAMILY_TRAIN``; (d) B4 never
+    launched by the RWKV6 training steps, and still once a layer by a
+    prefill."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 25 on {card}")
+    out = {"grads": family_grads_vs_cpu(torch),
+           "scan": scan_full_width(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = trainer_runs(torch, FAMILY_TRAIN, "phase 25 (c)")
+    rwkv = out["train"]["rwkv6-7b"]
+    check(rwkv["wkv6_launches"] == 0,
+          f"RWKV6 training launched B4 {rwkv['wkv6_launches']} times")
+    out["rwkv_prefill_wkv6_launches"] = rwkv_serve_launches(
+        torch, rwkv["layers"])
+    print(f"phase 25 (d) B4 launches: {rwkv['wkv6_launches']} over "
+          f"{TRAIN_STEPS} RWKV6 training steps, "
+          f"{out['rwkv_prefill_wkv6_launches']} in a {rwkv['layers']}-layer "
+          f"prefill; peak memory "
           + ", ".join(f"{a} {t['max_memory_allocated'] / 2**30:.2f} GiB"
                       for a, t in out["train"].items()))
     return out
@@ -3828,6 +4029,8 @@ def main(argv=None) -> int:
                              ecfg)
         times.update(fe["times"])
         lap("VLM and audio kernels, serves, prefill and trainers")
+        families = phase_train_families(torch, card)
+        lap("MoE, hybrid and RWKV6 trainers")
     # each entry: its launches on its main path (counts zeroed just before
     # that run), its comparison with the plain version at the main shapes,
     # and its times at those shapes
@@ -3985,7 +4188,7 @@ def main(argv=None) -> int:
                   rwkv_faulted_serve_fp32=rwkv32_faulted, graphs=graphs,
                   planes_fp32=planes32, planes_bf16=planes16,
                   rwkv_planes_fp32=rwkv_planes, moe=moe, hybrid=hybrid,
-                  frontends=fe,
+                  frontends=fe, train_families=families,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

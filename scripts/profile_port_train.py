@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one NVIDIA card.
 
-    python3 scripts/profile_port_train.py [--report PATH]
+    python3 scripts/profile_port_train.py [--report PATH] [--arch A]
+        [--layers N] [any other argument of launch/train.py]
 
 Trains the smoke run of ``repro_torch.launch.train`` (``SMOKE_ARGS``:
-full-width SmolLM-360M, bf16 params, fp32 AdamW, B=8, S=512, remat)
-through the trainer's own step: 2 warm-up steps, then 4 steps timed with
+full-width SmolLM-360M, bf16 params, fp32 AdamW, B=8, S=512, remat), or
+that run with the trainer arguments given here in place of the smoke
+run's (``--arch hymba-1.5b --batch 4``, ``--arch qwen2-moe-a2.7b
+--layers 2``), through the trainer's own step: 2 warm-up steps, then 4 steps timed with
 a device sync after each, then 3 steps under ``torch.profiler`` (CPU +
 CUDA activities) for the kernel count and the device time by kernel
 name.  The device's busy share is that device time per step over the
-timed steps' mean wall.  Also times the host's cost of enqueuing one
+timed steps' mean wall.  The step's two halves are then timed alone with
+CUDA events on the same inputs: the loss and its gradients, and the
+AdamW update.  Also times the host's cost of enqueuing one
 tiny eager op.  Prints a table of the top kernels and one JSON summary
 line; ``--report`` writes the summary as a file.  Exits 1 without a CUDA
 device.
@@ -26,10 +31,34 @@ ROOT = Path(__file__).resolve().parent.parent
 WARM, TIMED, ACTIVE = 2, 4, 3      # steps: warm-up, timed, profiled
 
 
+def step_halves_ms(torch, targs, cfg, params, state, batch, iters=3):
+    """(ms of ``value_and_grad`` of the loss, ms of ``adamw_update``),
+    each the mean of ``iters`` calls after one warm-up, from CUDA events."""
+    from repro_torch.training import (AdamWConfig, adamw_update,
+                                      make_loss_fn, value_and_grad)
+    grad_fn = value_and_grad(make_loss_fn(cfg))
+    opt_cfg = AdamWConfig(lr=targs.lr, total_steps=targs.steps,
+                          warmup_steps=max(1, targs.steps // 20))
+    _, grads = grad_fn(params, batch)
+
+    def ms(fn):
+        fn()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / iters
+
+    return (ms(lambda: grad_fn(params, batch)),
+            ms(lambda: adamw_update(opt_cfg, grads, state, params)))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report")
-    args = ap.parse_args(argv)
+    args, train_argv = ap.parse_known_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("profile_port_train: no CUDA device", file=sys.stderr)
@@ -40,10 +69,10 @@ def main(argv=None) -> int:
     from repro_torch.launch import train as T
     from torch.profiler import ProfilerActivity, profile
 
-    targs = T.parse_args(T.SMOKE_ARGS + ["--device", "cuda"])
+    targs = T.parse_args(T.SMOKE_ARGS + train_argv + ["--device", "cuda"])
     cfg, params, state, step_fn, dcfg = T.build(targs)
     out = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
-           "batch": targs.batch, "seq": targs.seq,
+           "layers": cfg.num_layers, "batch": targs.batch, "seq": targs.seq,
            "host_us_per_tiny_op": host_us_per_tiny_op(torch)}
     step = 0
 
@@ -67,6 +96,8 @@ def main(argv=None) -> int:
                              ProfilerActivity.CUDA]) as prof:
         run(ACTIVE)
     by_kernel, launches = kernel_summary(prof)
+    grad_ms, adamw_ms = step_halves_ms(torch, targs, cfg, params, state,
+                                       T.batch_at(cfg, dcfg, step, "cuda"))
     n_kernels = sum(c for c, _ in by_kernel.values())
     device_s = sum(t for _, t in by_kernel.values()) / 1e6 / ACTIVE
     out.update(step_walls_s=walls, wall_ms_per_step=wall_s * 1e3,
@@ -76,8 +107,10 @@ def main(argv=None) -> int:
                device_ms_per_step=device_s * 1e3,
                device_busy_share=device_s / wall_s,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               loss_and_grad_ms=grad_ms, adamw_ms=adamw_ms,
                top_kernels=top_kernels(by_kernel))
-    print(f"{out['card']}: {cfg.name} train step B={targs.batch} "
+    print(f"{out['card']}: {cfg.name} ({cfg.num_layers} layers) train "
+          f"step B={targs.batch} "
           f"S={targs.seq}: {out['wall_ms_per_step']:.1f} ms "
           f"({out['tokens_per_s']:.0f} tokens/s; walls "
           f"{[round(w, 4) for w in walls]}); host enqueue of a tiny op "
@@ -87,6 +120,8 @@ def main(argv=None) -> int:
           f"device busy {out['device_ms_per_step']:.2f} ms/step = "
           f"{out['device_busy_share']:.1%} of the unprofiled step wall; "
           f"peak memory {out['peak_mem_gb']:.2f} GB")
+    print(f"alone: loss and gradients {grad_ms:.2f} ms, AdamW update "
+          f"{adamw_ms:.2f} ms (CUDA events)")
     for k in out["top_kernels"]:
         print(f"  {k['ms']:10.2f} ms  {k['count']:7d}  {k['name']}")
     print(json.dumps(out))

@@ -7,9 +7,11 @@ tensors -- only because the tensors lie on the CPU.  On any other device
 the kernel wrapper's checks raise; nothing falls back.
 
 It is forward-only: the JAX package has no backward for its TPU kernel
-(``wkv6_chunked``), and trains RWKV through a ``jnp`` scan instead.  A
-backward through this function raises ``NoBackwardError``; no gradient
-is computed in some other way (training RWKV6 in the port is ROADMAP A9).
+(``wkv6_chunked``), and trains RWKV through a ``jnp`` scan instead.  So
+does the port: ``train_loss`` asks ``models.rwkv`` for
+``scan="chunked"``, ``ref.wkv6_chunked_ref`` under autograd, and never
+reaches this function.  A backward through it raises
+``NoBackwardError``; no gradient is computed in some other way.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ class _ForwardOnly(torch.autograd.Function):
     def backward(ctx, grad_y, grad_s):
         raise NoBackwardError(
             "wkv6 is forward-only: the JAX package has no backward for its "
-            "TPU kernel either (wkv6_chunked); training RWKV6 is ROADMAP A9")
+            "TPU kernel either (wkv6_chunked); training runs the chunked "
+            "form (models.rwkv scan='chunked')")
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -16,7 +16,13 @@ per (batch, head), with a D x D fp32 state S.
       S_Q = diag(W_Q) S_0 + sum_s diag(W_Q/W_s) k_s^T v_s
   with the same log/cumsum/exp, einsums, strict-lower mask and carry, so
   its rounding stays close to the JAX model's.  It is what
-  ``ops.wkv6`` runs for CPU tensors.
+  ``ops.wkv6`` runs for CPU tensors.  With ``log_quotients`` (training:
+  ``models.rwkv`` ``scan="chunked"``) it takes its two quotients by the
+  cumulative decay in log space, ``k_s / W_s`` as ``k_s exp(-log W_s)``
+  and ``W_Q / W_s`` as ``exp(log W_Q - log W_s)``: the same values to
+  rounding, but a backward with no ``W_s ** 2``, which underflows fp32
+  once a channel decays below ~1e-19 within a chunk and turns the direct
+  form's gradients (and JAX's) to inf and NaN.
 
 Both are what ``chip_smoke.py`` and the CUDA tests hold the kernel
 against on the card.
@@ -49,11 +55,13 @@ def wkv6_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      w: torch.Tensor, u: torch.Tensor,
-                     s0: Optional[torch.Tensor], chunk: int
+                     s0: Optional[torch.Tensor], chunk: int,
+                     log_quotients: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The closed chunked form over chunks of ``chunk`` steps (it must
     divide S; the model takes ``models.ssm.pick_chunk(S, 64)``).  Same
-    arguments and results as ``wkv6_reference``."""
+    arguments and results as ``wkv6_reference``; ``log_quotients`` (the
+    differentiable training form) is in the module docstring."""
     B, S, H, D = r.shape
     Q = chunk
     if Q < 1 or S % Q:
@@ -74,17 +82,23 @@ def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         Wm1 = torch.exp(logW - torch.log(wq))           # W_{t-1} = W_t / w_t
         # inter-chunk: y_inter[t] = (r_t . W_{t-1}) @ S0
         y_inter = torch.einsum("bhqd,bhde->bhqe", rq * Wm1, S0)
+        WQ = W[:, :, -1]                                # (B,H,D)
+        if log_quotients:
+            k_over_W = kq * torch.exp(-logW)
+            WQ_over_W = torch.exp(logW[:, :, -1:] - logW)
+        else:
+            k_over_W = kq / W
+            WQ_over_W = WQ[:, :, None, :] / W
         # intra-chunk, strictly lower triangular
-        att = torch.einsum("bhqd,bhsd->bhqs", rq * Wm1, kq / W)
+        att = torch.einsum("bhqd,bhsd->bhqs", rq * Wm1, k_over_W)
         att = torch.where(tri[None, None], att, 0.0)
         y_intra = torch.einsum("bhqs,bhse->bhqe", att, vq)
         # current-token bonus
         y_diag = torch.einsum("bhqd,bhqd->bhq", rq * u[None, :, None, :],
                               kq)[..., None] * vq
         # carry: S_Q = diag(W_Q) S0 + sum_s diag(W_Q/W_s) k_s^T v_s
-        WQ = W[:, :, -1]                                # (B,H,D)
         S0 = WQ[..., None] * S0 + torch.einsum(
-            "bhsd,bhse->bhde", kq * (WQ[:, :, None, :] / W), vq)
+            "bhsd,bhse->bhde", kq * WQ_over_W, vq)
         ys.append(y_inter + y_intra + y_diag)
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, S, H, D)
     return y, S0

@@ -2,9 +2,11 @@
 
 The reduced config by default; ``--full`` trains the published widths
 (SmolLM-360M: 32 layers, d=960, 15 query heads over 5 kv heads).  Every
-family but MoE, hybrid and RWKV6 trains (``--arch paligemma-3b`` with its
-stub patch embeddings in front of the text, ``--arch musicgen-medium``
-over codec tokens with sinusoidal positions).  Runs
+family trains: ``--arch paligemma-3b`` with its stub patch embeddings in
+front of the text, ``--arch musicgen-medium`` over codec tokens with
+sinusoidal positions, the MoE family on the sparse dispatch (JAX's
+trainer's), hymba through the SSM scan's autograd function and RWKV6
+through the closed chunked form of its time-mix.  Runs
 on ``--device cuda`` (the default) or ``--device cpu``.  Exercised end
 to end: bf16 compute params with fp32 AdamW state, microbatched grad
 accumulation, per-layer remat, the deterministic data pipeline, periodic

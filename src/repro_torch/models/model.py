@@ -30,17 +30,18 @@ absolute position), plus, for the dense family, "k"/"v" of shape
 (L, B, 1, d), and for the hybrid family the ring "k"/"v" beside the
 selective SSM's state "h" (L, B, d_inner, N) fp32 and conv window "conv"
 (L, B, 3, d_inner).  RWKV6's full-sequence time-mix runs on the WKV6
-kernel (``kernels.rwkv_scan``), forward-only, so ``train_loss`` refuses
-it (ROADMAP A9).  ``prefill_chunk`` (the slot planes' chunk step) and
-``decode_step_deferred`` (one cache scatter per step) run every family.
-The MoE family's MLP is ``models.moe``'s dispatch chosen by ``moe_impl``
-(``"dense"``, ``"sparse"``; ``"ep"`` is ROADMAP A13), with JAX's
-defaults: ``"sparse"`` in the model functions, ``"dense"`` in the
-engine.  MoE serves but does not train yet (ROADMAP A7-ii).  The
-hybrid family's layer runs windowed attention and the selective SSM
-(``models.ssm``, plain torch as in JAX) side by side on the same input
-and adds the mean of their normalized outputs; it serves but does not
-train yet (ROADMAP A8-ii).
+kernel (``kernels.rwkv_scan``), forward-only as JAX's is; ``train_loss``
+runs it on the closed chunked form under autograd instead, the
+arithmetic the JAX model trains through.  ``prefill_chunk`` (the slot
+planes' chunk step) and ``decode_step_deferred`` (one cache scatter per
+step) run every family.  The MoE family's MLP is ``models.moe``'s
+dispatch chosen by ``moe_impl`` (``"dense"``, ``"sparse"``; ``"ep"`` is
+ROADMAP A13), with JAX's defaults: ``"sparse"`` in the model functions,
+``"dense"`` in the engine; both dispatches train.  The hybrid family's
+layer runs windowed attention and the selective SSM (``models.ssm``,
+plain torch as in JAX; its scan differentiated by ``ssm.ChunkScan``)
+side by side on the same input and adds the mean of their normalized
+outputs.  Every family trains through ``train_loss``.
 
 The frontends (``_embed``) are JAX's stubs.  A ``vlm`` model scales its
 token embeddings by ``sqrt(d_model)`` (rounded to the params' dtype, as
@@ -80,19 +81,8 @@ FRONTENDS = ("none", "patch", "frames")
 
 
 def check_supported(cfg: ModelConfig, *, train: bool = False) -> None:
-    """Raise ``ValueError`` unless ``cfg`` is a family this port runs
-    (``train``: one it trains)."""
-    if cfg.num_experts and train:
-        raise ValueError(f"{cfg.name}: training mixture-of-experts layers "
-                         "is not ported yet (ROADMAP A7-ii)")
-    if cfg.family == "hybrid" and train:
-        raise ValueError(f"{cfg.name}: training the hybrid family (autograd "
-                         "through the selective-SSM scan) is not ported yet "
-                         "(ROADMAP A8-ii)")
-    if cfg.family == "ssm" and train:
-        raise ValueError(f"{cfg.name}: training RWKV6 needs a backward "
-                         "through the forward-only WKV6 kernel, which "
-                         "neither package has (ROADMAP A9)")
+    """Raise ``ValueError`` unless ``cfg`` is a family this port runs;
+    every family it runs, it also trains (``train``)."""
     if cfg.family not in FAMILIES or cfg.frontend not in FRONTENDS:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} or "
                          f"frontend {cfg.frontend!r}")
@@ -263,12 +253,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
 
 def _rwkv_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                 state: Dict[str, torch.Tensor],
-                length: Optional[torch.Tensor] = None
+                length: Optional[torch.Tensor] = None, scan: str = "kernel"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One RWKV6 block (time-mix + channel-mix) continuing from the
-    layer's ``state``; ``length`` (B,) marks each row's real prefix."""
+    layer's ``state``; ``length`` (B,) marks each row's real prefix;
+    ``scan`` is the time-mix's (``rwkv.rwkv_time_mix_full``)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, st = rwkv_mod.rwkv_time_mix_full(lp, cfg, h, state, length=length)
+    y, st = rwkv_mod.rwkv_time_mix_full(lp, cfg, h, state, length=length,
+                                        scan=scan)
     x = x + y
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     cm, st["x_cm"] = rwkv_mod.rwkv_channel_mix(lp, cfg, h2, state["x_cm"],
@@ -304,16 +296,19 @@ def _mlp_residual(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 def _block_full(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                 positions: torch.Tensor, prefix_len: int, impl: str,
-                moe_impl: str, cache_len: int
+                moe_impl: str, cache_len: int, train: bool = False
                 ) -> Tuple[torch.Tensor, Dict]:
     """One full-sequence block: (x, layer cache or {}); an RWKV6 block
     starts from a zero state and always returns its state, a hybrid one
     (with a cache) returns its ring cropped to the window and its SSM
     state.  The first ``prefix_len`` positions are a bidirectional
-    prefix (prefix-LM) of the attention."""
+    prefix (prefix-LM) of the attention.  ``train`` runs RWKV6's time-mix
+    on the differentiable chunked form, as the JAX model trains it,
+    instead of the forward-only WKV6 kernel."""
     if cfg.family == "ssm":
         state = rwkv_mod.init_rwkv_state(cfg, x.shape[0], device=x.device)
-        return _rwkv_block(cfg, lp, x, state)
+        return _rwkv_block(cfg, lp, x, state,
+                           scan="chunked" if train else "kernel")
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "hybrid":
         a, kv = attn.attention_full(
@@ -353,7 +348,7 @@ def train_loss(cfg: ModelConfig, params: Params,
 
     def body(xc, lp):
         return _block_full(cfg, lp, xc, pos_x, prefix_len, impl, moe_impl,
-                           0)[0]
+                           0, train=True)[0]
 
     for lp in unstack_layers(params):
         x = (checkpoint(body, x, lp, use_reentrant=False) if remat

@@ -8,7 +8,13 @@ Recurrence per head (state S in R^{D x D}):
 The full-sequence time-mix (prefill, and the serving engine's chunk
 rounds, continuing from ``state["S"]``) runs the recurrence through
 ``kernels.rwkv_scan.ops.wkv6``: the hand-written CUDA kernel on the card,
-the JAX model's closed chunked form on the CPU.  Decode is the O(1)
+the JAX model's closed chunked form on the CPU.  That kernel is
+forward-only, as JAX's is; training asks for ``scan="chunked"``, the
+closed chunked form that the JAX model trains through
+(``ref.wkv6_chunked_ref``) under autograd on every device, with its two
+quotients by the cumulative decay taken in log space so that the
+backward stays finite where JAX's underflows (ROADMAP §C, the
+reference's divergences).  Decode is the O(1)
 recurrence in plain torch, as in JAX (which has no kernel there).
 Data-dependent decay w_t and token-shift mixes follow the Finch low-rank
 parameterization (simplified: a single LoRA, for the decay).
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv_scan import ops as wkv_ops
+from repro_torch.kernels.rwkv_scan.ref import wkv6_chunked_ref
 from repro_torch.models.common import Params, dense_init
 from repro_torch.models.ssm import pick_chunk
 
@@ -120,13 +127,16 @@ def _out_norm(params: Params, cfg: ModelConfig, y: torch.Tensor,
 
 def rwkv_time_mix_full(params: Params, cfg: ModelConfig, x: torch.Tensor,
                        state: Dict[str, torch.Tensor], chunk: int = 64,
-                       length: Optional[torch.Tensor] = None
+                       length: Optional[torch.Tensor] = None,
+                       scan: str = "kernel"
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``length`` (B,) marks only the first ``length[b]`` steps of row b
     as real.  Padded steps are forced to the recurrence identity
     (w = 1, k = 0, so S_t = S_{t-1}) and the carried token-shift sample
     is the last *valid* token (length 0 = untouched row).  The recurrence
-    continues from ``state["S"]``."""
+    continues from ``state["S"]``.  ``scan`` picks its arithmetic:
+    ``"kernel"`` the forward-only ``wkv_ops.wkv6``, ``"chunked"`` the
+    closed chunked form in plain torch, differentiable (training)."""
     B, S, d = x.shape
     H, D = cfg.ssm_heads, cfg.ssm_state
     shifted = _token_shift(x, state["x_tm"])
@@ -137,8 +147,15 @@ def rwkv_time_mix_full(params: Params, cfg: ModelConfig, x: torch.Tensor,
         w = torch.where(valid, w, 1.0)
         k = torch.where(valid, k, torch.zeros_like(k))
     u = torch.exp(params["bonus"]).reshape(H, D)
-    y, S_last = wkv_ops.wkv6(r, k, v, w, u, s0=state["S"],
-                             chunk=pick_chunk(S, chunk))
+    if scan == "kernel":
+        y, S_last = wkv_ops.wkv6(r, k, v, w, u, s0=state["S"],
+                                 chunk=pick_chunk(S, chunk))
+    elif scan == "chunked":
+        y, S_last = wkv6_chunked_ref(r.float(), k.float(), v.float(), w, u,
+                                     state["S"], pick_chunk(S, chunk),
+                                     log_quotients=True)
+    else:
+        raise ValueError(f"unknown scan {scan!r}")
     out = _out_norm(params, cfg, y, g, x.dtype)
     x_tm = _last_valid(x, length, state["x_tm"])
     return out, {"S": S_last, "x_tm": x_tm, "x_cm": state["x_cm"]}

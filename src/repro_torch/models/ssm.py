@@ -12,7 +12,11 @@ no ``associative_scan``, so ``_ssm_core_scan`` is the doubling
 a_r * b_l + b_r)`` over the whole chunk, where a loop of Q steps would
 put Q x a few nodes per layer into a prefill round's step graph.  The
 JAX package runs this scan outside any Pallas kernel, and so does the
-port: it is plain torch on every device.  Decode is the O(1) state
+port: it is plain torch on every device.  The scan writes its operands
+in place, so where a gradient is needed ``chunk_scan`` runs it through
+``ChunkScan``, an autograd function that scans private copies, keeps
+only ``a`` and the output, and differentiates by the same doubling scan
+run backward in time.  Decode is the O(1) state
 update.  A short causal depthwise conv (kernel 4) precedes the SSM as
 in Mamba; its 3-sample state is carried in the cache for decode.  h
 stays fp32 and the conv window in the model dtype, as in JAX.
@@ -97,6 +101,46 @@ def _ssm_core_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+class ChunkScan(torch.autograd.Function):
+    """``_ssm_core_scan`` under autograd: h_t = a_t * h_{t-1} + b_t over
+    dim 1 with h_{-1} = 0 (a chunk's carry is already in b_0).
+
+    The forward scans private copies, so its values are bit-equal to the
+    in-place scan, and keeps ``a`` and ``h`` for the backward.  With
+    g_t = dL/dh_t, the adjoint lam_t = g_t + a_{t+1} * lam_{t+1} (lam_{Q-1}
+    = g_{Q-1}) is the same recurrence on reversed time, so the backward
+    is the doubling scan on the flipped tensors; then dL/db_t = lam_t and
+    dL/da_t = lam_t * h_{t-1}, which is 0 at t = 0."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _ssm_core_scan(a.clone(), b.clone())
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        # reversed step r = Q-1-t takes a_{t+1}; step 0's factor meets
+        # the zero state and is never read into the sums
+        a_rev = torch.empty_like(a)
+        a_rev[:, 0] = 0.0
+        a_rev[:, 1:] = a[:, 1:].flip(1)
+        lam = _ssm_core_scan(a_rev, g.flip(1)).flip(1)
+        da = torch.zeros_like(a)
+        torch.mul(lam[:, 1:], h[:, :-1], out=da[:, 1:])
+        return da, lam
+
+
+def chunk_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Every h_t of one chunk: ``ChunkScan`` where autograd records the
+    call, else the in-place ``_ssm_core_scan`` on the caller's fresh
+    ``a`` and ``b`` (serving: no copies, the values bit-equal)."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return ChunkScan.apply(a, b)
+    return _ssm_core_scan(a, b)
+
+
 def apply_ssm_full(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    chunk: int = 128,
                    state: Optional[Dict[str, torch.Tensor]] = None,
@@ -155,8 +199,10 @@ def apply_ssm_full(params: Params, cfg: ModelConfig, x: torch.Tensor,
         dt_q = dt[:, sl]
         a = torch.exp(dt_q[..., None] * A)                   # (B, Q, di, N)
         b = (dt_q * xf[:, sl])[..., None] * Bt[:, sl, None, :]
-        b[:, 0] += a[:, 0] * h                               # inject carry
-        hs = _ssm_core_scan(a, b)
+        # inject the carry (b is a product's output, which autograd does
+        # not save; a stays as exp saved it: chunk_scan copies it)
+        b[:, 0] += a[:, 0] * h
+        hs = chunk_scan(a, b)
         ys.append(torch.einsum("bqdn,bqn->bqd", hs, Ct[:, sl]))
         h = hs[:, -1]
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]

@@ -25,9 +25,10 @@ from repro_torch.training.optimizer import (AdamWConfig, AdamWState, Tree,
 
 
 def make_loss_fn(cfg: ModelConfig, *, impl: str = "reference",
-                 remat: bool = True) -> Callable:
+                 moe_impl: str = "sparse", remat: bool = True) -> Callable:
     def loss_fn(params, batch):
-        return M.train_loss(cfg, params, batch, impl=impl, remat=remat)
+        return M.train_loss(cfg, params, batch, impl=impl,
+                            moe_impl=moe_impl, remat=remat)
     return loss_fn
 
 
@@ -53,8 +54,9 @@ def _unflatten(tree: Tree, it) -> Tree:
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     microbatches: int = 1, impl: str = "reference",
-                    remat: bool = True) -> Callable:
-    grad_fn = value_and_grad(make_loss_fn(cfg, impl=impl, remat=remat))
+                    moe_impl: str = "sparse", remat: bool = True) -> Callable:
+    grad_fn = value_and_grad(make_loss_fn(cfg, impl=impl, moe_impl=moe_impl,
+                                          remat=remat))
 
     def train_step(params: Tree, opt_state: AdamWState,
                    batch: Dict[str, torch.Tensor]

@@ -32,6 +32,7 @@ from repro.models import ssm as JS
 from repro_torch.models import attention as TA
 from repro_torch.models import model as TM
 from repro_torch.models import ssm as TS
+from repro_torch.training import make_loss_fn, value_and_grad
 
 from _torch_parity import np_of, params_pair, reduced_pair, to_torch
 
@@ -114,13 +115,22 @@ def test_init_cache_matches(models):
 
 
 def test_check_supported_serves_and_refuses_training(models):
-    _, tcfg, _, tp = models
+    """The hybrid family serves and, since A8-ii, trains: the loss and the
+    SSM's gradients (through ``ssm.ChunkScan``) against JAX's
+    ``train_loss``, with the layer recomputed (remat) and without."""
+    jcfg, tcfg, jp, tp = models
     TM.check_supported(tcfg)
-    with pytest.raises(ValueError, match="A8-ii"):
-        TM.check_supported(tcfg, train=True)
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(ValueError, match="A8-ii"):
-        TM.train_loss(tcfg, tp, {"tokens": toks, "labels": toks})
+    TM.check_supported(tcfg, train=True)
+    toks = _toks(jcfg, 2, 12, seed=26)
+    batch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+    jl, jg = jax.value_and_grad(lambda p: JM.train_loss(jcfg, p, batch))(jp)
+    t = torch.from_numpy(toks).long()
+    for remat in (True, False):
+        tl, tg = value_and_grad(make_loss_fn(tcfg, remat=remat))(
+            tp, {"tokens": t, "labels": t})
+        np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+        for k in ("A_log", "bc_proj", "dt_proj", "dt_bias", "in_proj"):
+            _close(tg["layers"]["ssm"][k], jg["layers"]["ssm"][k])
 
 
 # --------------------------------------------------------------------- #
@@ -556,9 +566,9 @@ def test_prefill_and_decode_with_the_flash_impl_match_jax(models):
 
 
 def test_a_windowed_dense_config_trains_like_jax():
-    """A sliding window on the dense family trains (only the hybrid
-    family's SSM waits for A8-ii): the loss and a weight's gradient
-    against JAX's ``train_loss``."""
+    """A sliding window on the dense family trains (the hybrid family
+    trains too: ``test_check_supported_serves_and_refuses_training``):
+    the loss and a weight's gradient against JAX's ``train_loss``."""
     jcfg, tcfg = reduced_pair("tinyllama-1.1b", window=8)
     jp, tp = params_pair(jcfg)
     toks = _toks(jcfg, 2, 24, seed=25)

@@ -163,7 +163,7 @@ def test_init_cache_matches(models):
 
 
 #: the ROADMAP items of this list that are ported: their families train
-PORTED = ("A10",)
+PORTED = ("A7", "A8-ii", "A9", "A10")
 
 
 @pytest.mark.parametrize("over,item", [
@@ -174,10 +174,9 @@ PORTED = ("A10",)
     (dict(family="audio", frontend="frames"), "A10"),
 ])
 def test_unported_families_raise(over, item):
-    """RWKV6 (``ssm``) serves but does not train: A9 is its training; the
-    hybrid family too: A8-ii (``tests/test_torch_hybrid.py`` serves it).
-    A10 is ported: the VLM and audio families train
-    (``tests/test_torch_frontends.py``)."""
+    """Every item is ported: MoE (A7), the hybrid family (A8-ii), RWKV6
+    (A9) and the VLM and audio families (A10) all train
+    (``tests/test_torch_train_families.py`` holds them against JAX)."""
     _, tcfg = reduced_pair()
     cfg = dataclasses.replace(tcfg, **over)
     if item in PORTED:

@@ -15,6 +15,7 @@ from repro.models import rwkv as JR
 from repro_torch.models import model as TM
 from repro_torch.models import rwkv as TR
 from repro_torch.serving import serve_step as SS
+from repro_torch.training import make_loss_fn, value_and_grad
 
 from _torch_parity import np_of, params_pair, reduced_pair, to_torch
 
@@ -278,23 +279,33 @@ def test_padded_prefill_chunk_matches(models):
 
 
 def test_train_loss_on_rwkv_raises_naming_a9(models):
-    _, tcfg, _, tp = models
-    toks = to_torch(_tokens(11, 1, 8, tcfg.vocab_size)).long()
-    with pytest.raises(ValueError, match="A9"):
-        TM.train_loss(tcfg, tp, {"tokens": toks, "labels": toks})
+    """A9 is ported: RWKV6 trains through the closed chunked form (JAX's
+    training arithmetic), and the loss and every gradient leaf equal
+    JAX's ``train_loss``'s (fp32, leaf-relative 1e-4)."""
+    jcfg, tcfg, jp, tp = models
+    toks = _tokens(11, 2, 16, tcfg.vocab_size)
+    jl, jg = jax.value_and_grad(lambda p: JM.train_loss(
+        jcfg, p, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}))(
+        jp)
+    t = to_torch(toks).long()
+    tl, tg = value_and_grad(make_loss_fn(tcfg))(tp, {"tokens": t,
+                                                     "labels": t})
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    jleaves = dict(_leaves(jax.tree.map(np.asarray, jg)))
+    for name, g in _leaves(tg):
+        want = jleaves[name]
+        assert np.abs(np_of(g) - want).max() <= 1e-4 * np.abs(want).max(), \
+            name
 
 
 def test_prefill_chunk_on_the_dense_family_raises_naming_a5():
     """The dense family's chunk step is ported (ROADMAP A5d,
     ``tests/test_torch_planes.py``), under a sliding window too (A8,
     ``tests/test_torch_hybrid.py``), where, as in JAX, it refuses a ring
-    that is not exactly window-sized; training RWKV6 is refused (A9)."""
+    that is not exactly window-sized."""
     _, tcfg = reduced_pair()
     tp = TM.init_params(tcfg, 0, device="cpu")
     with pytest.raises(ValueError, match="exactly window-sized"):
         TM.prefill_chunk(dataclasses.replace(tcfg, window=4), tp,
                          torch.zeros((1, 4), dtype=torch.long),
                          TM.init_cache(tcfg, 1, 8, device="cpu"))
-    with pytest.raises(ValueError, match="A9"):
-        TM.check_supported(dataclasses.replace(tcfg, family="ssm"),
-                           train=True)
