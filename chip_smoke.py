@@ -326,11 +326,41 @@ Phases — each raises on failure, so any failure exits non-zero:
    printed.  (d) B4 launched 0 times by the RWKV6 training steps and once
    a layer by a no-grad prefill at the same depth.
 
+26. The distributed layer (``repro_torch.distributed``, ``launch.mesh``)
+   on ``DIST_RANKS`` = 4 ranks that share the one card, spawned by
+   ``launch.mesh.run_ranks``: ``gloo`` over CUDA tensors (NCCL refuses
+   two ranks on one device), with DTensor's all-gathers staged through
+   pinned host memory (``gloo``'s functional all-gather crashes on CUDA
+   tensors) and counted.  (a) ``make_seqsharded_decode_attn`` and its
+   partials variant on (1, 4) at TinyLlama's heads (32 / 4, D = 64), B =
+   8, S = 32768 (``decode_32k``'s length), ragged lengths around the
+   shard edges, in fp32 and bf16: against ``decode_attn_reference`` and
+   B1 on the whole cache at ``TOL``, the partials' max and sum-exp
+   against the single-device ones.  (b) Full-width TinyLlama
+   ``decode_step`` and ``decode_step_deferred`` with ``impl=
+   "seqsharded"`` for 16 greedy fp32 steps, the cache placed by
+   ``batch_pspecs``: tokens equal to ``impl="reference"``.  (c)
+   ``apply_moe_ep`` at full width, one layer of qwen2-moe (16 of 64
+   experts a rank) and of qwen3-moe (32 of 128), fp32, capacity 8.0, B =
+   2, S = 512: within 2e-4 of the dense dispatch, gradients finite.  (d)
+   ``make_train_step`` on full-width SmolLM-360M's DTensor params on (2,
+   2), fp32, B = 4, S = 512, two steps against the one-rank step: the
+   first step's gradients, every leaf within ``GRAD_TOL``; each step's
+   grad norm within rtol 1e-4; the loss within rtol 1e-5, every leaf
+   after the last step within rtol 1e-4 / atol 1e-5
+   (``DIST_TRAIN_EPS``).  (e) ``compressed_psum`` over ``data`` against
+   the arithmetic on the ranks' own gradients, then ``elastic_remesh``
+   from 4 ranks to 3 survivors with ``model_parallel=2`` ((1, 2)),
+   ``reshard`` and a finite ``train_loss``.  One JSON line per check
+   (its wall time, the card's name and power limit, the backend) and a
+   summary line with the host-staged collectives; these are times of
+   ranks sharing one card, not multi-card times.
+
 Each phase prints the seconds since the start when it is done; phase
 20's three engines run after phase 18's fp32 and bf16 serves and phase
 15's bf16 one, on their weights; phase 21's TinyLlama runs after phase
 20's fp32 and bf16 engines, its RWKV6-7B runs after phase 19; phase 23
-runs after phase 22, then phase 24, and phase 25 last.
+runs after phase 22, then phase 24, phase 25 and phase 26 last.
 
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
@@ -3786,6 +3816,408 @@ def phase_train_families(torch, card: str):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 26: the distributed layer on ranks that share the card
+# --------------------------------------------------------------------- #
+
+#: ranks of phase 26, all on the one card (``gloo``: NCCL refuses two
+#: ranks on one device); a time here is not a multi-card time
+DIST_RANKS = 4
+#: (a) TinyLlama's heads at ``SHAPES["decode_32k"]``'s length: K/V 268 MB
+#: in bf16, split four ways; ragged lengths on and around the shard
+#: edges (8192 per rank)
+DIST_DECODE = dict(B=8, S=32768, H=32, Hkv=4, D=64)
+DIST_LENGTHS = [1, 100, 8191, 8192, 8193, 16385, 30000, 32768]
+#: (b) full-width TinyLlama greedy decode, fp32
+DIST_GREEDY = dict(B=2, prompt=64, cache_len=256, steps=16)
+#: (c) one full-width MoE layer per arch, fp32
+DIST_MOE = dict(archs=("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"), B=2, S=512,
+                capacity_factor=8.0, tol=2e-4)
+#: (d) full-width SmolLM-360M, fp32, two AdamW steps on a (2, 2) mesh
+DIST_TRAIN = dict(arch="smollm-360m", layers=32, B=4, S=512, steps=2)
+#: the tolerances of ``tests/test_distributed.py``'s sharded train step
+DIST_TRAIN_TOL = dict(loss_rtol=1e-5, rtol=1e-4, atol=1e-5)
+#: (d)'s AdamW eps.  At the default 1e-8 an element whose gradient is
+#: itself ~1e-8 has an update ``lr * g / (|g| + eps)`` that fp32
+#: reordering of ``g`` (data-parallel sums) moves by up to ~lr: 4,580 of
+#: 361.8 M elements were past the tolerance after two steps, worst
+#: 2.9e-4; at 1e-6, 1e-5 and 1e-4 none was (H100, 700 W, torch 2.11).
+#: At 1e-6 the update is Lipschitz in ``g`` (constant ``lr / eps``).
+DIST_TRAIN_EPS = 1e-6
+
+
+def _full(x):
+    """A DTensor's global value (gathered through the staged all-gather
+    on a ``gloo`` card); a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _allclose_err(torch, got, want, rtol, atol):
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=rtol, atol=atol))
+    return err, ok
+
+
+def dist_decode(torch, rank):
+    """(a): the sequence-sharded decode and its partials on (1, 4), both
+    dtypes, against ``decode_attn_reference`` and B1 on the whole cache;
+    the partials' max and sum-exp against the single-device ones."""
+    from repro_torch.distributed.collectives import (
+        decode_attn_partials, decode_attn_reference,
+        make_seqsharded_decode_attn, make_seqsharded_decode_attn_partials)
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(1, DIST_RANKS, device=DEVICE)
+    B, S, H, Hkv, D = (DIST_DECODE[k] for k in ("B", "S", "H", "Hkv", "D"))
+    lens = torch.tensor(DIST_LENGTHS, dtype=torch.int32, device=DEVICE)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        inp = Inputs(torch, seed=26)          # the same draws on every rank
+        q = inp.randn(B, H, D, dtype=dtype)
+        k = inp.randn(B, S, Hkv, D, dtype=dtype)
+        v = inp.randn(B, S, Hkv, D, dtype=dtype)
+        got = _full(make_seqsharded_decode_attn(mesh)(q, k, v, lens))
+        o2, m2, l2 = (_full(t) for t in
+                      make_seqsharded_decode_attn_partials(mesh)(q, k, v,
+                                                                 lens))
+        ref = decode_attn_reference(q, k, v, lens)
+        b1 = pa_ops.decode_attention_dense(q, k, v, lens)
+        valid = torch.arange(S, device=DEVICE)[None, :] < lens[:, None]
+        _, m1, l1 = decode_attn_partials(q, k, v, valid)
+        tol = TOL[dtype]
+        res = {"vs_reference": _allclose_err(torch, got, ref, **tol),
+               "vs_b1": _allclose_err(torch, got, b1, **tol),
+               "partials_vs_reference": _allclose_err(torch, o2, ref, **tol),
+               "m_vs_single": _allclose_err(torch, m2, m1, **tol),
+               "l_vs_single": _allclose_err(torch, l2, l1, **tol)}
+        for what, (err, ok) in res.items():
+            check(ok, f"phase 26 (a) {dtype} {what}: max abs err {err:.3g}")
+        out[dtype] = {what: err for what, (err, _) in res.items()}
+        del q, k, v
+    return out
+
+
+def dist_greedy(torch, rank):
+    """(b): full-width TinyLlama, fp32: ``decode_step`` and
+    ``decode_step_deferred`` with ``impl="seqsharded"`` on (1, 4), the
+    cache placed by ``batch_pspecs``, for ``steps`` greedy steps; tokens
+    equal to ``impl="reference"`` on one rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.context import set_mesh
+    from repro_torch.distributed.fault_tolerance import reshard
+    from repro_torch.distributed.sharding import batch_pspecs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    mesh = make_test_mesh(1, DIST_RANKS, device=DEVICE)
+    set_mesh(mesh)
+    g = DIST_GREEDY
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), dtype="float32")
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(26)
+    prompt = torch.randint(0, cfg.vocab_size, (g["B"], g["prompt"]),
+                           generator=gen, device=DEVICE)
+    specs = batch_pspecs(cfg, ShapeConfig("greedy", g["cache_len"], g["B"],
+                                          "decode"), mesh)["cache"]
+    out = {}
+    with torch.no_grad():
+        logits0, cache0 = M.prefill(cfg, params, {"tokens": prompt},
+                                    cache_len=g["cache_len"])
+        for fn in (M.decode_step, M.decode_step_deferred):
+            runs = {}
+            for impl in ("reference", "seqsharded"):
+                cache = dict(cache0)
+                if impl == "seqsharded":
+                    cache.update(reshard({k: cache0[k] for k in ("k", "v")},
+                                         mesh, {k: specs[k]
+                                                for k in ("k", "v")}))
+                logits, toks = logits0, []
+                for _ in range(g["steps"]):
+                    nxt = _full(logits).argmax(-1)
+                    toks.append(nxt.tolist())
+                    logits, cache = fn(cfg, params, nxt, cache, impl=impl)
+                runs[impl] = (toks, _full(logits))
+            same = runs["reference"][0] == runs["seqsharded"][0]
+            err = float((runs["reference"][1]
+                         - runs["seqsharded"][1]).abs().max())
+            check(same, f"phase 26 (b) {fn.__name__}: seqsharded tokens "
+                  f"differ from the reference")
+            out[fn.__name__] = {"tokens_equal": same,
+                                "last_logits_max_abs_err": err}
+    set_mesh(None)
+    return out
+
+
+def dist_moe(torch, rank):
+    """(c): ``apply_moe_ep`` on (1, 4) at full width, one layer per arch,
+    fp32, against ``apply_moe``'s dense dispatch; gradients finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import set_mesh, spmd_scope
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as moe_mod
+    mesh = make_test_mesh(1, DIST_RANKS, device=DEVICE)
+    set_mesh(mesh)
+    c = DIST_MOE
+    out = {}
+    for arch in c["archs"]:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(0)
+        lp = moe_mod.init_moe(gen, cfg, torch.float32)
+        x = torch.randn((c["B"], c["S"], cfg.d_model), generator=gen,
+                        device=DEVICE) * 0.5
+        with torch.no_grad():
+            y = _full(moe_mod.apply_moe_ep(lp, cfg, x, c["capacity_factor"]))
+            yd = moe_mod.apply_moe(lp, cfg, x)
+        err, ok = _allclose_err(torch, y, yd, rtol=c["tol"], atol=c["tol"])
+        check(ok, f"phase 26 (c) {arch}: EP against dense {err:.3g}")
+        leaves = {k: v.requires_grad_(True) for k, v in lp.items()
+                  if not isinstance(v, dict)}
+        with spmd_scope():
+            loss = (moe_mod.apply_moe_ep(lp, cfg, x, c["capacity_factor"])
+                    ** 2).sum()
+            grads = torch.autograd.grad(_full(loss), list(leaves.values()))
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        check(finite, f"phase 26 (c) {arch}: a gradient is not finite")
+        out[arch] = {"experts_per_rank": cfg.padded_experts // DIST_RANKS,
+                     "max_abs_err": err, "grads_finite": finite}
+        del lp, x, grads
+    set_mesh(None)
+    return out
+
+
+def _worst_grad(torch, got, want):
+    """(ratio to ``GRAD_TOL``, leaf, max |diff| / max |grad|) of the leaf
+    farthest outside ``GRAD_TOL``, ``got`` on the card, ``want`` on the
+    host."""
+    worst = (0.0, "", 0.0)
+    for name, w in want.items():
+        w = w.to(got[name].device)
+        diff = (got[name] - w).abs()
+        ratio = float((diff / (GRAD_TOL["atol"] + GRAD_TOL["rtol"]
+                               * w.abs())).max())
+        rel = float(diff.max() / w.abs().max().clamp_min(1e-30))
+        if ratio >= worst[0]:
+            worst = (ratio, name, rel)
+    return worst
+
+
+def dist_train(torch, rank):
+    """(d): ``make_train_step`` on full-width SmolLM-360M's DTensor params
+    (``param_pspecs(fsdp=False)``) on (2, 2), the batch sharded on
+    ``data``, ``steps`` fp32 steps against the one-rank step: the first
+    step's gradients leaf by leaf within ``GRAD_TOL``, every step's grad
+    norm within rtol 1e-4 (``tests/test_torch_train_families.py``), the
+    loss and the params after the last step within ``DIST_TRAIN_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.fault_tolerance import reshard
+    from repro_torch.distributed.sharding import (batch_pspecs, fit_specs,
+                                                  param_pspecs)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import (AdamWConfig, init_adamw, make_loss_fn,
+                                      make_train_step, value_and_grad)
+    import torch.distributed as dist
+    t = DIST_TRAIN
+    cfg = dataclasses.replace(get_config(t["arch"]), dtype="float32",
+                              num_layers=t["layers"])
+    opt_cfg = AdamWConfig(lr=1e-3, total_steps=4, warmup_steps=1,
+                          eps=DIST_TRAIN_EPS)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(26)
+    toks = torch.randint(0, cfg.vocab_size, (t["B"], t["S"]), generator=gen,
+                         device=DEVICE)
+    batch = {"tokens": toks, "labels": toks}
+    step = make_train_step(cfg, opt_cfg)
+    grad_fn = value_and_grad(make_loss_fn(cfg))
+    want = None
+    if rank == 0:                        # the one-rank step
+        p = M.init_params(cfg, seed=0, device=DEVICE)
+        s = init_adamw(p)
+        grads = {k: v.cpu() for k, v in _leaves(grad_fn(p, batch)[1])}
+        norms = []
+        for _ in range(t["steps"]):
+            p, s, m = step(p, s, batch)
+            norms.append(float(m["grad_norm"]))
+        want = ({k: v.cpu() for k, v in _leaves(p)}, float(m["loss"]),
+                grads, norms)
+        del p, s
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_test_mesh(2, 2, device=DEVICE)
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    params = reshard(params, mesh, fit_specs(param_pspecs(cfg, params),
+                                             params, mesh))
+    bspec = batch_pspecs(cfg, ShapeConfig("train", t["S"], t["B"], "train"),
+                         mesh)
+    sbatch = reshard(batch, mesh, bspec)
+    # gathers are collectives: every rank takes part
+    grads = {k: _full(v) for k, v in _leaves(grad_fn(params, sbatch)[1])}
+    worst_g = _worst_grad(torch, grads, want[2]) if rank == 0 else None
+    del grads
+    s, norms = init_adamw(params), []
+    for _ in range(t["steps"]):
+        params, s, m = step(params, s, sbatch)
+        norms.append(float(_full(m["grad_norm"])))
+    loss = float(_full(m["loss"]))
+    got = {k: _full(v) for k, v in _leaves(params)}
+    if rank != 0:
+        return {}
+    tol = DIST_TRAIN_TOL
+    check(worst_g[0] <= 1.0, f"phase 26 (d) first-step gradient "
+          f"{worst_g[1]} outside GRAD_TOL ({worst_g[0]:.3f} of it)")
+    check(all(math.isclose(a, b, rel_tol=1e-4)
+              for a, b in zip(norms, want[3])),
+          f"phase 26 (d) grad norms {norms} against the one-rank "
+          f"{want[3]}")
+    check(math.isclose(loss, want[1], rel_tol=tol["loss_rtol"]),
+          f"phase 26 (d) loss {loss} against the one-rank {want[1]}")
+    worst = max((_allclose_err(torch, got[k].cpu(), w, rtol=tol["rtol"],
+                               atol=tol["atol"]) + (k,)
+                 for k, w in want[0].items()), key=lambda e: (not e[1], e[0]))
+    check(worst[1], f"phase 26 (d) leaf {worst[2]} off by {worst[0]:.3g}")
+    return {"layers": t["layers"],
+            "of_layers": get_config(t["arch"]).num_layers,
+            "adamw_eps": DIST_TRAIN_EPS, "loss": loss,
+            "one_rank_loss": want[1], "grad_norms": norms,
+            "one_rank_grad_norms": want[3],
+            "grad_worst_leaf": worst_g[1], "grad_worst_of_tol": worst_g[0],
+            "grad_worst_rel": worst_g[2],
+            "worst_leaf": worst[2], "worst_leaf_max_abs_err": worst[0]}
+
+
+def dist_compress_remesh(torch, rank):
+    """(e): ``compressed_psum`` over ``data`` on (2, 2) against JAX's
+    arithmetic on the ranks' own gradients; then ``elastic_remesh`` from
+    4 ranks to 3 survivors with ``model_parallel=2`` ((1, 2): ranks 2 and
+    3 wait at the barrier), ``reshard`` and a finite ``train_loss``."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed.context import axis_index, set_mesh
+    from repro_torch.distributed.fault_tolerance import (elastic_remesh,
+                                                         reshard)
+    from repro_torch.distributed.sharding import fit_specs, param_pspecs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    mesh = make_test_mesh(2, 2, device=DEVICE)
+    set_mesh(mesh)
+
+    def grads_of(d):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(100 + d)
+        return {"w": torch.randn((1024, 960), generator=gen, device=DEVICE),
+                "b": torch.randn((960,), generator=gen, device=DEVICE) * 1e-3}
+    me = axis_index("data")
+    g = grads_of(me)
+    red, err = comp.compressed_psum(g, comp.init_error_state(g), "data")
+    n = mesh.size(0)
+    out = {}
+    for name in g:
+        qs = [comp._quantize(grads_of(d)[name]) for d in range(n)]
+        want = sum(q.to(torch.int32) * s for q, s in qs) / n
+        e = float((red[name] - want).abs().max())
+        check(torch.allclose(red[name], want, rtol=1e-6, atol=1e-7),
+              f"phase 26 (e) compressed_psum {name}: {e:.3g}")
+        fb = float((g[name] - (comp._dequantize(*qs[me]) + err[name])
+                    ).abs().max())
+        check(fb < 1e-6, f"phase 26 (e) error feedback {name}: {fb:.3g}")
+        out[f"psum_{name}_max_abs_err"] = e
+    set_mesh(None)
+    mesh2 = elastic_remesh(list(range(DIST_RANKS - 1)),
+                           model_parallel=2, device=DEVICE)
+    out["remesh"] = None if mesh2 is None else dict(
+        zip(mesh2.mesh_dim_names, mesh2.shape))
+    if mesh2 is None:
+        return out
+    check(out["remesh"] == {"data": 1, "model": 2},
+          f"phase 26 (e) remesh gave {out['remesh']}")
+    t = DIST_TRAIN
+    cfg = dataclasses.replace(get_config(t["arch"]), dtype="float32",
+                              num_layers=t["layers"])
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    params = reshard(params, mesh2, fit_specs(param_pspecs(cfg, params),
+                                              params, mesh2))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(27)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen,
+                         device=DEVICE)
+    with torch.no_grad():
+        loss = float(_full(M.train_loss(cfg, params, {"tokens": toks,
+                                                      "labels": toks})))
+    check(math.isfinite(loss), f"phase 26 (e) loss {loss} after remesh")
+    out["loss_after_remesh"] = loss
+    dist.barrier()                     # release the ranks left out
+    return out
+
+
+#: phase 26's checks in order; (e) last, since it leaves ranks out
+DIST_CHECKS = (("a", dist_decode), ("b", dist_greedy), ("c", dist_moe),
+               ("d", dist_train), ("e", dist_compress_remesh))
+
+
+def dist_rank(rank: int, world: int):
+    """One rank of phase 26: every check in turn, each between barriers
+    and timed by the wall clock; returns the results, the backend and
+    this rank's host-staged collective counts."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import context
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": dist.get_backend(), "checks": {}}
+    for name, fn in DIST_CHECKS:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn(torch, rank)
+        torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+        out["checks"][name] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["host_staged"] = dict(context.HOST_STAGED)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+#: phase 26's limit on its ranks, and on each collective (~75-85 s in all)
+DIST_TIMEOUT_S = 300.0
+
+
+def phase_distributed(torch, card: str):
+    """Phase 26: ``DIST_RANKS`` ranks on the one card run ``DIST_CHECKS``
+    (``dist_rank``); one JSON line per check, with its wall time and the
+    card's name and power limit beside it."""
+    import gc
+    from repro_torch.launch.mesh import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(dist_rank, DIST_RANKS, device=DEVICE,
+                      timeout_s=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    staged = {k: sum(r["host_staged"].get(k, 0) for r in ranks)
+              for k in sorted({k for r in ranks for k in r["host_staged"]})}
+    for name, _ in DIST_CHECKS:
+        print(json.dumps({"phase": 26, "check": name, "ranks": DIST_RANKS,
+                          "card": card, "backend": r0["backend"],
+                          "shared_card": True, **r0["checks"][name]},
+                         default=float))
+    print(json.dumps({"phase": 26, "backend": r0["backend"],
+                      "host_staged_collectives": staged,
+                      "peak_gib_per_rank": [r["peak_gib"] for r in ranks],
+                      "wall_s": wall, "card": card,
+                      "note": f"{DIST_RANKS} ranks share one card: "
+                              "not a multi-card time"}))
+    return {"ranks": ranks, "wall_s": wall, "host_staged": staged}
+
+
 def ptxas_report(log: str):
     """(kernel, "N registers, S bytes spill stores, ...") per entry
     function of an ``nvcc -Xptxas -v`` log; the kernel named by its
@@ -4031,6 +4463,8 @@ def main(argv=None) -> int:
         lap("VLM and audio kernels, serves, prefill and trainers")
         families = phase_train_families(torch, card)
         lap("MoE, hybrid and RWKV6 trainers")
+    distributed = phase_distributed(torch, card)
+    lap(f"distributed layer on {DIST_RANKS} ranks")
     # each entry: its launches on its main path (counts zeroed just before
     # that run), its comparison with the plain version at the main shapes,
     # and its times at those shapes
@@ -4189,6 +4623,7 @@ def main(argv=None) -> int:
                   planes_fp32=planes32, planes_bf16=planes16,
                   rwkv_planes_fp32=rwkv_planes, moe=moe, hybrid=hybrid,
                   frontends=fe, train_families=families,
+                  distributed=distributed,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

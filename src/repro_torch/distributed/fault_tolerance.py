@@ -1,5 +1,5 @@
-"""Fault-tolerance primitives of the port: the pure-Python part of
-``repro.distributed.fault_tolerance``.
+"""Fault tolerance & elasticity primitives:
+``repro.distributed.fault_tolerance`` for the port.
 
 * ``run_with_retries`` — transient-error shield around a step function
   (a failed CUDA launch or step surfaces as ``RuntimeError``); the
@@ -11,15 +11,24 @@
   and continues (the deterministic data pipeline lets any host recompute
   any shard).
 
-``elastic_remesh`` and ``reshard`` are mesh tools and wait for the
-distributed layer (ROADMAP A13).
+* ``elastic_remesh`` — rebuild a mesh on a SHRUNKEN set of ranks after
+  node loss, keeping the model axis intact, and ``reshard`` any tree of
+  tensors onto the new mesh under partition specs.  The "devices" of
+  the JAX function are the surviving ranks here: the new mesh takes the
+  first ranks that fit, and ranks left out of it wait at a barrier.
 """
 from __future__ import annotations
 
 import logging
+import math
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.context import to_dtensor
 
 log = logging.getLogger("repro_torch.ft")
 
@@ -46,6 +55,53 @@ def run_with_retries(fn: Callable, *args, retries: int = 3,
             log.warning("step failed (%s); retry %d/%d", e, attempt + 1,
                         retries)
             sleep(backoff_s * (2 ** attempt))
+
+
+def largest_pow2_leq(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
+
+
+def elastic_remesh(devices: Sequence[int], *, model_parallel: int,
+                   multi_pod: bool = False, device: str = "cuda"):
+    """Build the biggest valid mesh from the surviving ranks ``devices``.
+
+    The ``model`` axis is preserved (TP degree is baked into the weight
+    layout); data (and pod) shrink to the largest power of two that fits.
+    Every rank of the process group calls it (building a mesh's groups
+    is collective).  A rank of the new mesh gets the mesh; any other
+    rank waits at a barrier of the whole group, which the mesh's ranks
+    reach with ``dist.barrier()`` when they are done with it, and then
+    gets ``None``.
+    """
+    n = len(devices)
+    if n < model_parallel:
+        raise ValueError(
+            f"cannot keep model={model_parallel} with {n} devices")
+    usable_dp = largest_pow2_leq(n // model_parallel)
+    if multi_pod and usable_dp >= 2:
+        pods = 2
+        dp = usable_dp // 2
+        shape, axes = (pods, dp, model_parallel), ("pod", "data", "model")
+    else:
+        shape, axes = (usable_dp, model_parallel), ("data", "model")
+    total = math.prod(shape)
+    ranks = list(devices)[:total]
+    from torch.distributed.device_mesh import DeviceMesh
+    mesh = DeviceMesh(device, torch.tensor(ranks).reshape(shape),
+                      mesh_dim_names=axes)
+    if dist.get_rank() not in ranks:
+        dist.barrier()
+        return None
+    return mesh
+
+
+def reshard(tree: Any, mesh, pspecs: Any) -> Any:
+    """Place a tree of tensors on ``mesh`` under ``pspecs`` (post-remesh):
+    a plain tensor is the global value and each rank keeps its slice; a
+    DTensor on ``mesh`` is redistributed."""
+    if isinstance(tree, dict):
+        return {k: reshard(v, mesh, pspecs[k]) for k, v in tree.items()}
+    return to_dtensor(tree, mesh, pspecs)
 
 
 @dataclass

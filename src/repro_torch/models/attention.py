@@ -18,16 +18,17 @@
   ``"paged"`` views the contiguous cache as 64-token pages and runs the
   hand-written paged decode kernel (``kernels.paged_attention.ops.
   decode_attention_dense``, B1), ``"flash_jnp"`` the chunked online-
-  softmax loop (``_sdpa_flash_decode``), anything else the reference
-  branch.  ``attention_decode_deferred`` reads a read-only cache and
-  returns the new token's K/V for the caller's one scatter per step.
+  softmax loop (``_sdpa_flash_decode``), ``"seqsharded"`` flash-decodes
+  a cache whose sequence is sharded over the ambient mesh's ``model``
+  axis (``distributed.collectives``; the new row is written by the rank
+  that owns its slot), anything else the reference branch.
+  ``attention_decode_deferred`` reads a read-only cache and returns the
+  new token's K/V for the caller's one scatter per step.
 
 These are the token oracle (``serving.engine.generate_reference``), the
 trainer's attention, the slot-resident planes' attention and the
 model-level parity surface.  The engine's pooled plane runs the paged
-kernels through ``serving.paged_plane`` instead.  The sequence-sharded
-decode backend (``impl="seqsharded"``, A13) raises ``ValueError``
-naming its item.
+kernels through ``serving.paged_plane`` instead.
 """
 from __future__ import annotations
 
@@ -37,23 +38,16 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import decode_attn_partials
+from repro_torch.distributed.collectives import (
+    decode_attn_partials, make_seqsharded_decode_attn,
+    make_seqsharded_decode_attn_partials, seqsharded_write)
+from repro_torch.distributed.context import get_mesh, reshape
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models.common import (Params, apply_rope, causal_mask,
                                        dense_init, rms_norm)
 
 NEG_INF = -1e30
-
-#: decode backends of the JAX package that this port does not have yet
-_DECODE_IMPL_ITEMS = {"seqsharded": "A13"}
-
-
-def _check_decode_impl(impl: str) -> None:
-    if impl in _DECODE_IMPL_ITEMS:
-        raise ValueError(f"decode impl={impl!r} is not ported yet (ROADMAP "
-                         f"{_DECODE_IMPL_ITEMS[impl]})")
-
 
 def merge_softmax_groups(out1: torch.Tensor, m1: torch.Tensor,
                          l1: torch.Tensor, s2: torch.Tensor,
@@ -86,9 +80,9 @@ def _project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = (x @ params["wq"]).reshape(B, S, H, D)
-    k = (x @ params["wk"]).reshape(B, S, Hkv, D)
-    v = (x @ params["wv"]).reshape(B, S, Hkv, D)
+    q = reshape(x @ params["wq"], B, S, H, D)
+    k = reshape(x @ params["wk"], B, S, Hkv, D)
+    v = reshape(x @ params["wv"], B, S, Hkv, D)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -106,14 +100,14 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
-    qg = q.reshape(B, Sq, Hkv, G, D)
+    qg = reshape(q, B, Sq, Hkv, G, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
     scores = scores / math.sqrt(D)
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
-    return out.reshape(B, Sq, H, D)
+    return reshape(out, B, Sq, H, D)
 
 
 def attention_full(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -139,7 +133,7 @@ def attention_full(params: Params, cfg: ModelConfig, x: torch.Tensor,
         out = _sdpa(q, k, v, causal_mask(positions, positions,
                                          window=cfg.window,
                                          prefix_len=prefix_len))
-    out = out.reshape(B, S, cfg.q_dim) @ params["wo"]
+    out = reshape(out, B, S, cfg.q_dim) @ params["wo"]
     cache = None
     if cache_len >= S:
         pad = (0, 0, 0, 0, 0, cache_len - S)
@@ -269,7 +263,6 @@ def attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     order-free, so the ring needs no reordering), by the backend ``impl``
     picks (module docstring).  Returns new cache tensors; the inputs are
     not modified."""
-    _check_decode_impl(impl)
     B = x.shape[0]
     Smax = cache["k"].shape[1]
     if cfg.window and cfg.window < Smax:
@@ -279,12 +272,23 @@ def attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     q, k, v = _project_qkv(params, cfg, x, positions)
     slot = (cache_index % Smax if cfg.window
             else torch.clamp(cache_index, max=Smax - 1))
+    n_valid = torch.clamp(cache_index + 1, max=Smax)
+    if impl == "seqsharded":
+        mesh = get_mesh()
+        if mesh is None:
+            raise ValueError("impl='seqsharded' needs distributed.context"
+                             ".set_mesh(mesh)")
+        new_k = seqsharded_write(mesh, cache["k"], k[:, 0], slot)
+        new_v = seqsharded_write(mesh, cache["v"], v[:, 0], slot)
+        out = make_seqsharded_decode_attn(mesh)(q[:, 0], new_k, new_v,
+                                                n_valid)
+        out = out.reshape(B, cfg.q_dim) @ params["wo"]
+        return out[:, None, :], {"k": new_k, "v": new_v}
     bidx = torch.arange(B, device=x.device)
     new_k = cache["k"].clone()
     new_v = cache["v"].clone()
     new_k[bidx, slot] = k[:, 0]
     new_v[bidx, slot] = v[:, 0]
-    n_valid = torch.clamp(cache_index + 1, max=Smax)
     if impl == "paged":
         out = pa_ops.decode_attention_dense(q[:, 0], new_k, new_v, n_valid)
     elif impl == "flash_jnp":
@@ -310,9 +314,9 @@ def attention_decode_deferred(params: Params, cfg: ModelConfig,
     with the new token's own logit in fp32 (``merge_softmax_groups``).
     Under a window, once the ring is full the slot the new token will
     overwrite holds position ``index - Smax``, outside the window: it is
-    masked out.  Every ``impl`` but ``"seqsharded"`` (A13) takes this
-    path, as in JAX."""
-    _check_decode_impl(impl)
+    masked out.  ``impl="seqsharded"`` computes the partials over the
+    sequence-sharded cache of the ambient mesh (``min(index, Smax)``
+    entries, as in JAX); every other ``impl`` takes the path above."""
     B = x.shape[0]
     Smax = cache["k"].shape[1]
     positions = cache_index[:, None]
@@ -321,13 +325,21 @@ def attention_decode_deferred(params: Params, cfg: ModelConfig,
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     G = H // Hkv
     n_valid = torch.clamp(cache_index, max=Smax)
-    sidx = torch.arange(Smax, device=x.device)[None, :]
-    valid = sidx < n_valid[:, None]
-    if cfg.window:
-        expired = ((sidx == (cache_index % Smax)[:, None])
-                   & (cache_index[:, None] >= Smax))
-        valid &= ~expired
-    out1, m1, l1 = decode_attn_partials(q1, cache["k"], cache["v"], valid)
+    if impl == "seqsharded":
+        mesh = get_mesh()
+        if mesh is None:
+            raise ValueError("impl='seqsharded' needs set_mesh(mesh)")
+        out1, m1, l1 = make_seqsharded_decode_attn_partials(mesh)(
+            q1, cache["k"], cache["v"], n_valid)
+    else:
+        sidx = torch.arange(Smax, device=x.device)[None, :]
+        valid = sidx < n_valid[:, None]
+        if cfg.window:
+            expired = ((sidx == (cache_index % Smax)[:, None])
+                       & (cache_index[:, None] >= Smax))
+            valid &= ~expired
+        out1, m1, l1 = decode_attn_partials(q1, cache["k"], cache["v"],
+                                            valid)
     # the new token's own logit and value per query head
     qg = q1.reshape(B, Hkv, G, D).float()
     s2 = torch.einsum("bhgd,bhd->bhg", qg, k1.float()) / math.sqrt(D)

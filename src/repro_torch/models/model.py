@@ -20,7 +20,9 @@ a backward through it raises, as the JAX package has none either);
 decode takes the reference branch for it, as in JAX.  The dense decode's
 ``impl="paged"`` runs the paged decode kernel on the contiguous cache
 and ``"flash_jnp"`` the chunked online-softmax loop
-(``models.attention``); ``"seqsharded"`` is ROADMAP A13.
+(``models.attention``); ``"seqsharded"`` flash-decodes a cache whose
+sequence is sharded over the ambient mesh (``distributed.context.
+set_mesh``), the cache leaves staying DTensors sharded on the sequence.
 
 The cache dict carries "index" (B,) = tokens already in context (== next
 absolute position), plus, for the dense family, "k"/"v" of shape
@@ -35,13 +37,21 @@ runs it on the closed chunked form under autograd instead, the
 arithmetic the JAX model trains through.  ``prefill_chunk`` (the slot
 planes' chunk step) and ``decode_step_deferred`` (one cache scatter per
 step) run every family.  The MoE family's MLP is ``models.moe``'s
-dispatch chosen by ``moe_impl`` (``"dense"``, ``"sparse"``; ``"ep"`` is
-ROADMAP A13), with JAX's defaults: ``"sparse"`` in the model functions,
-``"dense"`` in the engine; both dispatches train.  The hybrid family's
+dispatch chosen by ``moe_impl`` (``"dense"``, ``"sparse"``, and ``"ep"``,
+expert parallelism over the ambient mesh), with JAX's defaults:
+``"sparse"`` in the model functions, ``"dense"`` in the engine; every
+dispatch trains.  The hybrid family's
 layer runs windowed attention and the selective SSM (``models.ssm``,
 plain torch as in JAX; its scan differentiated by ``ssm.ChunkScan``)
 side by side on the same input and adds the mean of their normalized
 outputs.  Every family trains through ``train_loss``.
+
+Every entry point runs under ``distributed.context.spmd_scope``: params,
+batches or caches may be DTensors on a device mesh (the counterpart of
+GSPMD-sharded arrays), and the plain tensors the functions make
+(positions, masks) meet them as replicated values.  The token embedding
+is ``F.embedding``, vocab-parallel over a vocab-sharded table
+(``distributed.collectives.embedding``).
 
 The frontends (``_embed``) are JAX's stubs.  A ``vlm`` model scales its
 token embeddings by ``sqrt(d_model)`` (rounded to the params' dtype, as
@@ -65,6 +75,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import embedding, seqsharded_write
+from repro_torch.distributed.context import get_mesh, replicated, spmd
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -187,7 +199,7 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     S) at absolute ``positions`` (B, S), through the family's frontend
     (module docstring); ``S' = P + S`` and ``prefix_len = P`` when a
     ``patch`` model is given ``patch_embeds`` (B, P, d), else S and 0."""
-    x = params["embed"][tokens]
+    x = embedding(tokens, params["embed"])
     prefix_len = 0
     if cfg.family == "vlm":
         x = x * _vlm_scale(cfg.d_model, x.dtype)
@@ -329,6 +341,7 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None, :].expand(B, S)
 
 
+@spmd
 def train_loss(cfg: ModelConfig, params: Params,
                batch: Dict[str, torch.Tensor], *, impl: str = "reference",
                moe_impl: str = "sparse", remat: bool = True) -> torch.Tensor:
@@ -337,7 +350,9 @@ def train_loss(cfg: ModelConfig, params: Params,
     ``batch["patch_embeds"]`` go in front as the prefix and are cropped
     before the head.  ``remat`` keeps only each layer's input for the
     backward and recomputes the layer (``jax.checkpoint`` of the layer
-    body in the JAX package)."""
+    body in the JAX package).  Vocab-sharded logits are gathered over
+    the ``model`` axis before the loss (DTensor's sharded ``gather``
+    mis-reduces there)."""
     check_supported(cfg, train=True)
     tokens, labels = batch["tokens"], batch["labels"]
     B, S = tokens.shape
@@ -354,10 +369,12 @@ def train_loss(cfg: ModelConfig, params: Params,
         x = (checkpoint(body, x, lp, use_reentrant=False) if remat
              else body(x, lp))
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)[:, prefix_len:]
-    return softmax_cross_entropy(_logits(cfg, params, x), labels,
-                                 cfg.vocab_size)
+    return softmax_cross_entropy(replicated(_logits(cfg, params, x),
+                                            "model"),
+                                 labels, cfg.vocab_size)
 
 
+@spmd
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             cache_len: int, *, impl: str = "reference",
             moe_impl: str = "sparse"
@@ -455,6 +472,7 @@ def _cache_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
                                                            ("k", "v"))
 
 
+@spmd
 def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   cache: Dict[str, torch.Tensor], *,
                   impl: str = "reference", moe_impl: str = "sparse",
@@ -498,6 +516,7 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return _logits(cfg, params, x_last), out
 
 
+@spmd
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Dict[str, torch.Tensor], *, impl: str = "reference",
                 moe_impl: str = "sparse"
@@ -505,9 +524,9 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """tokens (B,) or (B, 1); one decode step.  Returns (logits (B, Vpad),
     a new cache with index + 1); the input cache is not modified.  The
     dense family's attention backend is ``impl`` ("paged", "flash_jnp";
-    "reference", "flash" and any other the JAX package sends to its
-    reference branch take the reference decode; "seqsharded" raises,
-    A13); RWKV6 ignores it, as in JAX."""
+    "seqsharded"; "reference", "flash" and any other the JAX package
+    sends to its reference branch take the reference decode); RWKV6
+    ignores it, as in JAX."""
     check_supported(cfg)
     if tokens.ndim == 1:
         tokens = tokens[:, None]
@@ -528,6 +547,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return logits, out
 
 
+@spmd
 def decode_step_deferred(cfg: ModelConfig, params: Params,
                          tokens: torch.Tensor,
                          cache: Dict[str, torch.Tensor], *,
@@ -541,8 +561,11 @@ def decode_step_deferred(cfg: ModelConfig, params: Params,
     the fp32 merge of the new token's softmax group.  Under a window the
     scatter writes ring slot ``index mod Smax``; a hybrid layer's new SSM
     state is its delta, stacked as it is.  RWKV6's states are the delta:
-    its step is ``decode_step``'s.  Returns (logits (B, Vpad), a new
-    cache with index + 1); the input cache is not modified."""
+    its step is ``decode_step``'s.  Under ``impl="seqsharded"`` the
+    scatter is shard-local on the sequence-sharded cache
+    (``distributed.collectives.seqsharded_write``).  Returns (logits (B,
+    Vpad), a new cache with index + 1); the input cache is not
+    modified."""
     check_supported(cfg)
     if tokens.ndim == 1:
         tokens = tokens[:, None]
@@ -560,12 +583,18 @@ def decode_step_deferred(cfg: ModelConfig, params: Params,
     logits = _logits(cfg, params, x[:, 0])
     deltas = _stack(deltas)
     B, Smax = tokens.shape[0], cache["k"].shape[2]
-    rows = torch.arange(B, device=tokens.device)
     slot = (index % Smax if cfg.window
             else torch.clamp(index, max=Smax - 1))
-    new_k, new_v = cache["k"].clone(), cache["v"].clone()
-    new_k[:, rows, slot] = deltas.pop("k_new")      # (L, B, Hkv, D)
-    new_v[:, rows, slot] = deltas.pop("v_new")
+    if impl == "seqsharded":
+        new_k = seqsharded_write(get_mesh(), cache["k"], deltas.pop("k_new"),
+                                 slot)
+        new_v = seqsharded_write(get_mesh(), cache["v"], deltas.pop("v_new"),
+                                 slot)
+    else:
+        rows = torch.arange(B, device=tokens.device)
+        new_k, new_v = cache["k"].clone(), cache["v"].clone()
+        new_k[:, rows, slot] = deltas.pop("k_new")      # (L, B, Hkv, D)
+        new_v[:, rows, slot] = deltas.pop("v_new")
     out = {"index": index + 1, "k": new_k, "v": new_v}
     out.update(deltas)                              # hybrid: h, conv
     return logits, out

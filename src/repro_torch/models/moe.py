@@ -23,8 +23,16 @@ top-k with softmax-after-topk (Qwen style); padding experts (qwen2-moe
   contributions of a token are summed in k order, so a call is
   bit-reproducible on a card (atomics would not be, and a step graph's
   replay must equal its eager call).
-* ``apply_moe_ep`` (the expert-parallel dispatch over a device mesh) is
-  ROADMAP A13 and raises.
+* ``apply_moe_ep``: the expert-parallel dispatch over the ambient mesh
+  (``distributed.context.set_mesh``).  Experts are sharded over the
+  ``model`` axis; each rank routes its tokens (the router replicated),
+  packs capacity buffers per destination rank, exchanges them with one
+  all-to-all, runs its local experts on per-expert capacity buffers and
+  returns the rows with a second all-to-all.  JAX's arithmetic: ``dest =
+  topi // e_loc``, capacities ``max(1, int(factor * T * K / n))`` and
+  ``cap2 = max(1, int(factor * R / e_loc))`` as Python ints, dropped
+  entries adding nothing, the expert products in fp32 with JAX's casts;
+  buffers are written by indexed copies as in ``apply_moe_sparse``.
 
 Every product is a plain ``torch.matmul``: the JAX package computes the
 MoE layer outside any Pallas kernel.
@@ -37,6 +45,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import (P, all_to_all, axis_size,
+                                             dp_axes_of, get_mesh, reshape,
+                                             shard_map_compat, spmd,
+                                             to_dtensor)
 from repro_torch.models.common import (Params, dense_init, gated_mlp,
                                        gated_mlp_init)
 
@@ -78,13 +90,18 @@ def route(params: Params, cfg: ModelConfig, xt: torch.Tensor
     return torch.softmax(topv, dim=-1), topi
 
 
+def _shared_expert(params: Params, xt: torch.Tensor) -> torch.Tensor:
+    """The sigmoid-gated shared expert (gate in fp32, then cast)."""
+    sg = torch.sigmoid((xt @ params["shared_gate"]).float())
+    return sg.to(xt.dtype) * gated_mlp(params["shared"], xt)
+
+
 def _shared(params: Params, cfg: ModelConfig, xt: torch.Tensor,
             y: torch.Tensor) -> torch.Tensor:
-    """Add the sigmoid-gated shared expert (gate in fp32, then cast)."""
+    """Add the shared expert where the config has one."""
     if not cfg.num_shared_experts:
         return y
-    sg = torch.sigmoid((xt @ params["shared_gate"]).float())
-    return y + sg.to(xt.dtype) * gated_mlp(params["shared"], xt)
+    return y + _shared_expert(params, xt)
 
 
 def _experts(params: Params, buf: torch.Tensor) -> torch.Tensor:
@@ -160,12 +177,87 @@ def apply_moe_sparse(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return _shared(params, cfg, xt, y).reshape(B, S, d)
 
 
+def _pack(rows: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+          n: int) -> torch.Tensor:
+    """An (n, ...) zero buffer with kept entry i of ``rows`` at row
+    ``slot[i]`` (kept slots are distinct; dropped entries land on a
+    scratch row that is cut off): JAX's ``zeros.at[slot].add(where(keep,
+    rows, 0))``."""
+    dest = torch.where(keep, slot, torch.full_like(slot, n))
+    buf = rows.new_zeros((n + 1,) + rows.shape[1:])
+    buf[dest] = rows
+    return buf[:n]
+
+
+@spmd
 def apply_moe_ep(params: Params, cfg: ModelConfig, x: torch.Tensor,
                  capacity_factor: float = 1.25,
                  ep_axis: str = "model") -> torch.Tensor:
-    """The expert-parallel dispatch (all-to-all over a mesh axis)."""
-    raise ValueError("moe_impl 'ep' (expert parallelism over a device "
-                     "mesh) is not ported yet (ROADMAP A13)")
+    """Expert-parallel MoE: x (B, S, d) -> (B, S, d) (module docstring).
+    Tokens overflowing a (src, dst) pair's capacity or a local expert's
+    are dropped (GShard semantics); equal to ``apply_moe`` when nothing
+    overflows.  The sequence is sharded over the expert axis when it
+    divides (else every rank routes the same replicated tokens); the
+    shared experts run outside the sharded region."""
+    mesh = get_mesh()
+    if mesh is None:
+        raise ValueError("apply_moe_ep requires distributed.context"
+                         ".set_mesh(mesh)")
+    dp = dp_axes_of(mesh)
+    n = axis_size(mesh, ep_axis)
+    B, S, d = x.shape
+    E, K = cfg.padded_experts, cfg.experts_per_token
+    e_loc = E // n
+
+    def local(xb, router, wg, wu, wo):
+        T = xb.shape[0] * xb.shape[1]
+        xt = xb.reshape(T, d)
+        # the router is replicated: tokens are row-sharded over the ep
+        # axis, so each rank needs every expert's logit for its tokens
+        weights, topi = route({"router": router}, cfg, xt)
+        dest = topi // e_loc                                 # target rank
+        local_eid = topi % e_loc
+        # ---- pack per destination rank ------------------------------- #
+        cap = max(1, int(capacity_factor * T * K / n))
+        slot, keep = dispatch_slots(dest, n, cap)
+        send_x = _pack(xt.repeat_interleave(K, dim=0), slot, keep, n * cap)
+        send_e = _pack(local_eid.reshape(-1) + 1, slot, keep, n * cap)
+        recv_x = all_to_all(send_x, ep_axis, mesh)
+        recv_e = all_to_all(send_e, ep_axis, mesh)
+        # ---- local experts on capacity buffers ----------------------- #
+        R = n * cap
+        valid = recv_e > 0
+        eid = torch.clamp(recv_e - 1, min=0)
+        oh2 = ((eid[:, None] == torch.arange(e_loc, device=eid.device))
+               & valid[:, None]).long()
+        pos2 = ((torch.cumsum(oh2, dim=0) - 1) * oh2).sum(-1)
+        cap2 = max(1, int(capacity_factor * R / e_loc))
+        keep2 = (pos2 < cap2) & valid
+        slot2 = eid * cap2 + torch.where(keep2, pos2, torch.zeros_like(pos2))
+        buf = _pack(recv_x, slot2, keep2, e_loc * cap2).view(e_loc, cap2, d)
+        h = F.silu(torch.matmul(buf.float(), wg.float()))
+        h = (h * torch.matmul(buf.float(), wu.float())).to(xt.dtype)
+        out = torch.matmul(h.float(), wo.float()).reshape(
+            e_loc * cap2, d).to(xt.dtype)
+        y_rows = out[slot2] * keep2[:, None].to(out.dtype)
+        # ---- return + combine at the source ---------------------------- #
+        ret = all_to_all(y_rows, ep_axis, mesh)
+        y_tk = ret[slot] * keep[:, None].to(ret.dtype)
+        y_tk = y_tk * weights.reshape(-1)[:, None].to(ret.dtype)
+        return _sum_in_k_order(y_tk.view(T, K, d)).reshape(xb.shape)
+
+    seq = ep_axis if S % n == 0 else None
+    y = shard_map_compat(
+        local, mesh=mesh,
+        in_specs=(P(dp, seq, None), P(None, None), P(ep_axis, None, None),
+                  P(ep_axis, None, None), P(ep_axis, None, None)),
+        out_specs=P(dp, seq, None),
+    )(x, params["router"], params["wi_gate"], params["wi_up"], params["wo"])
+    if cfg.num_shared_experts:
+        shared = reshape(_shared_expert(params, reshape(x, B * S, d)),
+                         B, S, d)
+        y = y + to_dtensor(shared, mesh, P(dp, seq, None))
+    return y
 
 
 #: moe_impl -> dispatch, as ``repro.models.model._mlp_or_moe`` picks it

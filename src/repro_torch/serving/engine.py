@@ -127,7 +127,8 @@ Differences from the JAX engine (``repro.serving.engine``):
   shapes (one JAX compile per tail length) are the point of the plane,
   and only its decode step is a graph.
 * Settings this port does not run yet (``impl="seqsharded"`` and
-  ``moe_impl="ep"``, A13) raise ``ValueError``
+  ``moe_impl="ep"``: the model functions run them over a mesh, the
+  SPMD engine that would serve them is A13-ii) raise ``ValueError``
   naming the ROADMAP item that will port them.
   ``EngineConfig`` has no ``share_jits``: a step graph belongs to the
   engine that captured it.
@@ -203,7 +204,7 @@ class EngineConfig:
     #                               cache), "flash_jnp"
     moe_impl: str = "dense"       # MoE dispatch: "dense" (chunk-invariant,
     #                               for parity) or "sparse" (capacity
-    #                               buffers); "ep" is ROADMAP A13
+    #                               buffers); "ep" is ROADMAP A13-ii
     swap_bytes: Optional[int] = None   # host swap-store capacity (None =
     #                                    unbounded); a full store makes the
     #                                    victim fall back to recompute
@@ -285,11 +286,15 @@ def _validate(cfg: ModelConfig, ecfg: EngineConfig,
         raise ValueError(f"unknown moe_impl {ecfg.moe_impl!r}")
     if ecfg.moe_impl == "ep" and cfg.num_experts:
         raise ValueError("moe_impl 'ep' (expert parallelism over a device "
-                         "mesh) is not ported yet (ROADMAP A13)")
+                         "mesh) runs in the model functions; the engine "
+                         "that serves it, SPMD over a mesh, is ROADMAP "
+                         "A13-ii")
     if ecfg.impl == "seqsharded" and cfg.family != "ssm" \
             and not (ecfg.plane == "paged" and paged_supported(cfg)):
         raise ValueError("decode impl 'seqsharded' (a sequence-sharded "
-                         "cache) is not ported yet (ROADMAP A13)")
+                         "cache) runs in the model functions; the engine "
+                         "that serves it, SPMD over a mesh, is ROADMAP "
+                         "A13-ii")
     if scfg.partial_preempt and not (ecfg.plane == "paged"
                                      and paged_supported(cfg)):
         raise ValueError("partial_preempt needs the pooled paged data plane")

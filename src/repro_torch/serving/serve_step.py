@@ -3,16 +3,30 @@ port.
 
 ``build_prefill_fn`` / ``build_decode_fn`` / ``build_train_fn`` return
 plain functions of (params, batch/cache) over ``models.model``; PyTorch
-runs them eagerly, so there is nothing to compile.  The
-ShapeDtypeStruct stand-ins of the JAX module belong to the XLA dry-run
-tools (ROADMAP A13) and are not ported.
+runs them eagerly, so there is nothing to compile.  ``param_specs`` and
+``cache_specs`` are the shape-only trees of ``jax.eval_shape``: the
+model's own init run on fake tensors, which allocate nothing (the
+sharding rules read their shapes).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+
+
+def param_specs(cfg: ModelConfig) -> Any:
+    """The params tree of ``cfg`` as fake tensors (shapes and dtypes)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return M.init_params(cfg, device="cpu")
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Any:
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return M.init_cache(cfg, batch, cache_len, device="cpu")
 
 
 def build_prefill_fn(cfg: ModelConfig, *, cache_len: int,

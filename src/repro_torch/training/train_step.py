@@ -10,6 +10,14 @@ after a failure from the same inputs.  The global batch is split into k
 microbatches run in turn (activation memory / k); gradients accumulate
 in fp32.  Metrics are 0-dim device tensors: reading one waits for the
 device.
+
+The step runs on DTensor params too (placed by ``distributed.sharding.
+param_pspecs`` with ``fault_tolerance.reshard``) and a DTensor batch
+sharded over ``data``: the counterpart of ``jax.jit`` of the same step
+under a mesh (GSPMD).  It runs under ``distributed.context.spmd_scope``,
+so the optimizer's step count, learning rate and clip scale, plain
+tensors, meet the DTensor leaves as replicated values; the params stay
+DTensors.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import placed_like, spmd
 from repro_torch.models import model as M
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState, Tree,
                                             adamw_update, tree_leaves,
@@ -34,14 +43,18 @@ def make_loss_fn(cfg: ModelConfig, *, impl: str = "reference",
 
 def value_and_grad(loss_fn: Callable) -> Callable:
     """``jax.value_and_grad`` for a loss of a dict of tensors: (params,
-    batch) -> (loss, grads in the params' structure and dtypes).  The
-    params are not modified."""
+    batch) -> (loss, grads in the params' structure, dtypes and, for
+    DTensor params, placements: a gradient summed over data-parallel
+    ranks is reduced, as GSPMD reduces it).  The params are not
+    modified."""
+    @spmd
     def fn(params: Tree, batch) -> Tuple[torch.Tensor, Tree]:
         leaf = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        leaves = list(tree_leaves(leaf))
         with torch.enable_grad():
             loss = loss_fn(leaf, batch)
-            grads = torch.autograd.grad(loss, list(tree_leaves(leaf)))
-        it = iter(grads)
+            grads = torch.autograd.grad(loss, leaves)
+        it = iter(placed_like(g, p) for g, p in zip(grads, leaves))
         return loss.detach(), _unflatten(leaf, it)
     return fn
 
@@ -58,6 +71,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     grad_fn = value_and_grad(make_loss_fn(cfg, impl=impl, moe_impl=moe_impl,
                                           remat=remat))
 
+    @spmd
     def train_step(params: Tree, opt_state: AdamWState,
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Tree, AdamWState, Dict]:
@@ -68,8 +82,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                                  f"{microbatches} microbatches")
             n = B // microbatches
             loss_sum = None
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for i in range(microbatches):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 loss, g = grad_fn(params, mb)

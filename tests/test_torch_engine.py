@@ -253,8 +253,8 @@ def test_tokens_equal_both_references(runs, models, name):
 
 
 @pytest.mark.parametrize("ekw,skw,item", [
-    (dict(plane="batched", impl="seqsharded"), {}, "A13"),
-    (dict(plane="legacy", impl="seqsharded"), {}, "A13"),
+    (dict(plane="batched", impl="seqsharded"), {}, "A13-ii"),
+    (dict(plane="legacy", impl="seqsharded"), {}, "A13-ii"),
     (dict(plane="batched"), dict(partial_preempt=True),
      "pooled paged data plane"),
     (dict(decode_append="later"), {}, "unknown decode_append"),
@@ -268,9 +268,10 @@ def test_unported_settings_raise(models, ekw, skw, item):
 
 
 @pytest.mark.parametrize("over,ekw,item", [
-    # the MoE family serves; its expert-parallel dispatch is A13
+    # the MoE family serves; its expert-parallel dispatch runs in the
+    # model functions, and the engine that serves it is A13-ii
     (dict(family="moe", num_experts=4, experts_per_token=2, moe_d_ff=32),
-     dict(moe_impl="ep"), "A13"),
+     dict(moe_impl="ep"), "A13-ii"),
     # the hybrid family and sliding windows serve
     # (tests/test_torch_hybrid_engine.py); the VLM and audio families
     # (A10, ported) serve on every plane (tests/test_torch_vlm_engine.py,

@@ -54,7 +54,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
               "kernels.flash_attention.ops", "training.train_step",
               "checkpoint.manager", "distributed.fault_tolerance",
               "data.synthetic", "launch.train", "kernels.rwkv_scan.ops",
-              "models.rwkv", "distributed.collectives"):
+              "models.rwkv", "distributed.collectives",
+              "distributed.context", "distributed.sharding",
+              "distributed.compression", "launch.mesh"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -276,13 +276,15 @@ def test_causal_mask_options_match_jax(kw):
 
 
 @pytest.mark.parametrize("fn,over,item", [
-    ("decode_step", {}, "A13"),
-    ("decode_step_deferred", {}, "A13"),
-    ("decode_step", dict(window=8), "A13"),
+    ("decode_step", {}, "set_mesh"),
+    ("decode_step_deferred", {}, "set_mesh"),
+    ("decode_step", dict(window=8), "set_mesh"),
 ])
 def test_unported_decode_impls_raise(models, fn, over, item):
-    """``impl="seqsharded"`` (a sequence-sharded cache) is A13 on both
-    decode paths, over a sliding window's ring too (the window serves)."""
+    """``impl="seqsharded"`` (a sequence-sharded cache) needs a mesh: on
+    both decode paths, over a sliding window's ring too, it raises JAX's
+    ``set_mesh`` error when none is set (tests/test_torch_distributed.py
+    runs it under one)."""
     _, tcfg, _, tp = models
     cache = TM.init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(ValueError, match=item):
