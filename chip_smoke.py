@@ -355,12 +355,27 @@ Phases — each raises on failure, so any failure exits non-zero:
    (its wall time, the card's name and power limit, the backend) and a
    summary line with the host-staged collectives; these are times of
    ranks sharing one card, not multi-card times.
+27. The serving engine over a mesh (``serving.spmd``), on
+   ``DIST_RANKS`` = 4 ranks that share the card (``gloo``, every step
+   eager): (a) full-width TinyLlama-1.1B in fp32 on the ``batched``
+   plane with ``impl="seqsharded"`` (the slot cache's sequence sharded
+   over the 4 ranks) serving ``smoke_server``'s 16 shared-prefix
+   requests: every rank's tokens and ``BatchLog`` schedule equal rank
+   0's and phase 21's one-rank fp32 ``batched`` engine's; (b) qwen2-moe
+   at phase 22's 4 fp32 layers on the paged plane with ``moe_impl=
+   "ep"`` (16 of 64 experts a rank, capacity ``SPMD_EP_CAPACITY``, at
+   which no token overflows): tokens equal phase 22's one-rank fp32
+   engine's.  The engines check every step's tokens equal across the
+   ranks.  One JSON line per check: its wall, tokens/s, staged
+   all-gathers per step, the card's name and power limit, and the note
+   that 4 ranks share one card.
 
 Each phase prints the seconds since the start when it is done; phase
 20's three engines run after phase 18's fp32 and bf16 serves and phase
 15's bf16 one, on their weights; phase 21's TinyLlama runs after phase
 20's fp32 and bf16 engines, its RWKV6-7B runs after phase 19; phase 23
-runs after phase 22, then phase 24, phase 25 and phase 26 last.
+runs after phase 22, then phase 24, phase 25, phase 26 and phase 27
+last.
 
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
@@ -2643,7 +2658,19 @@ def phase_planes(torch, pa, cfg, params, want):
                      "preemptions": res.metrics.num_preemptions,
                      "same_tokens": same, "first_differences": first,
                      "phase_stats": res.phase_stats,
-                     "replay_vs_eager": cmp}
+                     "replay_vs_eager": cmp, "outputs": res.outputs,
+                     "schedule": schedule(res)}
+    return out
+
+
+def schedule(res):
+    """A run's ``BatchLog``s as dicts, without the measured ``wall_s``:
+    what two engines on one workload must agree on."""
+    out = []
+    for b in res.metrics.batches:
+        d = dataclasses.asdict(b)
+        d.pop("wall_s")
+        out.append(d)
     return out
 
 
@@ -4218,6 +4245,148 @@ def phase_distributed(torch, card: str):
     return {"ranks": ranks, "wall_s": wall, "host_staged": staged}
 
 
+# --------------------------------------------------------------------- #
+# phase 27: the engine over a mesh of ranks that share the card
+# --------------------------------------------------------------------- #
+
+#: phase 27 (b)'s expert-parallel capacity factor: the least at which no
+#: token overflows on 4 ranks of 64 experts, top 4 (factor >= ranks, and
+#: factor ** 2 >= ranks x experts a rank / top-k = 16, for a dispatch whose
+#: tokens are sharded or replicated over the ranks), so the tokens can be
+#: held equal to the one-rank dense dispatch's; at the model functions'
+#: 1.25 GShard's drops change them by design (the ranks still agree)
+SPMD_EP_CAPACITY = 4.0
+
+
+def spmd_serve(torch, eng, reqs):
+    """One engine run on this rank: its outputs, schedule, wall and the
+    host-staged all-gathers and collectives it issued."""
+    from repro_torch.distributed import context
+    staged = context.HOST_STAGED["all_gather"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = len(res.metrics.batches)
+    tokens = sum(len(o) for o in res.outputs.values())
+    return {"outputs": res.outputs, "schedule": schedule(res),
+            "wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
+            "steps": steps, "prefill_rounds": eng.prefill_rounds,
+            "decode_steps": eng.decode_steps,
+            "num_graphs": eng.num_graphs,
+            "preemptions": res.metrics.num_preemptions,
+            "staged_all_gathers": context.HOST_STAGED["all_gather"] - staged,
+            "staged_all_gathers_per_step":
+                (context.HOST_STAGED["all_gather"] - staged) / steps,
+            "finished": all(r.finished for r in reqs)}
+
+
+def spmd_rank(rank: int, world: int):
+    """One rank of phase 27 on a (1, ``DIST_RANKS``) mesh: (a) full-width
+    TinyLlama in fp32 on the ``batched`` plane with ``impl="seqsharded"``
+    (the cache's sequence over the 4 ranks) serving ``smoke_server``'s
+    workload; (b) qwen2-moe at ``MOE_FP32_LAYERS`` layers in fp32 on the
+    paged plane with ``moe_impl="ep"`` (16 of 64 experts a rank) at
+    ``SPMD_EP_CAPACITY``.  The engines check every step's tokens equal
+    across the ranks (``check_invariants``)."""
+    import functools
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import set_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import (SMOKE_ARCH, SMOKE_MOE_ARCH,
+                                          smoke_plane_server, smoke_server)
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    set_mesh(make_test_mesh(1, DIST_RANKS, device=DEVICE))
+    out = {}
+    cfg = dataclasses.replace(get_config(SMOKE_ARCH), dtype="float32")
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    eng, reqs = smoke_plane_server(cfg, params, device=DEVICE,
+                                   plane="batched", impl="seqsharded")
+    out["a"] = spmd_serve(torch, eng, reqs)
+    out["a"]["cache_leaves"] = sorted({type(v).__name__
+                                       for v in eng.cache.values()})
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_mod.DISPATCH["ep"] = functools.partial(
+        moe_mod.apply_moe_ep, capacity_factor=SPMD_EP_CAPACITY)
+    cfg = dataclasses.replace(get_config(SMOKE_MOE_ARCH), dtype="float32",
+                              num_layers=MOE_FP32_LAYERS)
+    params = M.init_params(cfg, seed=0, device=DEVICE)
+    eng, reqs = smoke_server(cfg, params, device=DEVICE, moe_impl="ep")
+    out["b"] = spmd_serve(torch, eng, reqs)
+    out["b"]["experts"] = sorted({type(v).__name__ for v in
+                                  eng.params["layers"]["moe"].values()
+                                  if not isinstance(v, dict)})
+    del eng, params
+    set_mesh(None)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+#: phase 27's limit on its ranks, and on each collective
+SPMD_TIMEOUT_S = 400.0
+
+
+def phase_spmd_engine(torch, card: str, planes32, moe32):
+    """Phase 27: ``spmd_rank`` on ``DIST_RANKS`` ranks of the one card.
+    Every rank's tokens and schedule equal rank 0's; (a)'s tokens and
+    schedule equal phase 21's one-rank fp32 ``batched`` engine's on the
+    same weights and workload, (b)'s tokens phase 22's one-rank fp32
+    qwen2-moe engine's (the dense dispatch).  One JSON line per check."""
+    import gc
+    from repro_torch.launch.mesh import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(spmd_rank, DIST_RANKS, device=DEVICE,
+                      timeout_s=SPMD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    wants = {"a": (planes32["outputs"], planes32["schedule"]),
+             "b": (moe32["outputs"], None)}
+    out = {"wall_s": wall, "peak_gib_per_rank": [r["peak_gib"]
+                                                 for r in ranks]}
+    for name, (want, want_schedule) in wants.items():
+        r0 = ranks[0][name]
+        for r in ranks[1:]:
+            check(r[name]["outputs"] == r0["outputs"]
+                  and r[name]["schedule"] == r0["schedule"],
+                  f"phase 27 ({name}): the ranks' tokens or schedules "
+                  "differ")
+        check(r0["finished"] and r0["num_graphs"] == 0,
+              f"phase 27 ({name}): unfinished requests or step graphs "
+              f"({r0['num_graphs']}) over the mesh")
+        same = sum(r0["outputs"][rid] == toks for rid, toks in want.items())
+        check(same == len(want) == len(r0["outputs"]),
+              f"phase 27 ({name}): {same}/{len(want)} requests' tokens "
+              "equal the one-rank engine's")
+        if want_schedule is not None:
+            check(r0["schedule"] == want_schedule,
+                  f"phase 27 ({name}): the schedule differs from the "
+                  "one-rank engine's")
+        line = {k: v for k, v in r0.items()
+                if k not in ("outputs", "schedule")}
+        line.update(same_tokens=f"{same}/{len(want)}",
+                    schedule_equal=want_schedule is None
+                    or r0["schedule"] == want_schedule,
+                    wall_s_by_rank=[r[name]["wall_s"] for r in ranks])
+        print(json.dumps({"phase": 27, "check": name, "ranks": DIST_RANKS,
+                          "card": card, "shared_card": True,
+                          "note": f"{DIST_RANKS} ranks share one card: not "
+                                  "a multi-card time", **line},
+                         default=float))
+        out[name] = line
+    print(json.dumps({"phase": 27, "wall_s": wall, "card": card,
+                      "peak_gib_per_rank": out["peak_gib_per_rank"]}))
+    return out
+
+
 def ptxas_report(log: str):
     """(kernel, "N registers, S bytes spill stores, ...") per entry
     function of an ``nvcc -Xptxas -v`` log; the kernel named by its
@@ -4465,6 +4634,9 @@ def main(argv=None) -> int:
         lap("MoE, hybrid and RWKV6 trainers")
     distributed = phase_distributed(torch, card)
     lap(f"distributed layer on {DIST_RANKS} ranks")
+    spmd = phase_spmd_engine(torch, card, planes32["batched"],
+                             moe["qwen2_fp32"])
+    lap(f"the engine over a mesh of {DIST_RANKS} ranks")
     # each entry: its launches on its main path (counts zeroed just before
     # that run), its comparison with the plain version at the main shapes,
     # and its times at those shapes
@@ -4623,7 +4795,7 @@ def main(argv=None) -> int:
                   planes_fp32=planes32, planes_bf16=planes16,
                   rwkv_planes_fp32=rwkv_planes, moe=moe, hybrid=hybrid,
                   frontends=fe, train_families=families,
-                  distributed=distributed,
+                  distributed=distributed, spmd_engine=spmd,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

@@ -360,6 +360,16 @@ def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
     return _Reshape.apply(x, shape)
 
 
+def plain_like(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``out`` as a plain tensor (its global value, gathered where it is
+    sharded) where the region's input ``x`` was a plain tensor: a caller
+    whose activations are plain tensors (the serving engine over a mesh)
+    gets plain tensors back; a DTensor caller keeps DTensors."""
+    if is_dtensor(out) and not is_dtensor(x):
+        return out.full_tensor()
+    return out
+
+
 def is_dtensor(x: Any) -> bool:
     """Whether ``x`` is a DTensor; false at once while no process group
     is up (no mesh, so no DTensor), which keeps the single-device model

@@ -73,15 +73,16 @@ SMOKE_WORKLOAD = dict(n=16, input_len=256, prefix_frac=0.75, num_groups=2,
                       output_len=48, vocab=32000, stagger=1e-6, seed=0)
 
 
-def smoke_server(cfg, params, device: str = "cuda"):
+def smoke_server(cfg, params, device: str = "cuda",
+                 moe_impl: str = "dense"):
     """A warmed ``Engine`` (vLLM scheduler, SRF replacement) and fresh
     requests of the smoke workload, for ``cfg``/``params`` of
     ``SMOKE_ARCH`` in any dtype, or of another model on the paged plane
     (``SMOKE_MOE_ARCH``, ``SMOKE_VLM_ARCH``: prompt ids drawn over its own
-    vocabulary)."""
+    vocabulary; an MoE model's layers in the ``moe_impl`` dispatch)."""
     sched = make_scheduler("vllm", SMOKE_M, S=SMOKE_ENGINE.cache_len,
                            replacement="srf")
-    eng = Engine(cfg, params, sched, SMOKE_ENGINE,
+    eng = Engine(cfg, params, sched, replace(SMOKE_ENGINE, moe_impl=moe_impl),
                  cost_model=TheoreticalCostModel(cfg, get_hardware("h100")),
                  device=device).warmup()
     return eng, shared_prefix(**dict(SMOKE_WORKLOAD, vocab=cfg.vocab_size))

@@ -41,7 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import (
     decode_attn_partials, make_seqsharded_decode_attn,
     make_seqsharded_decode_attn_partials, seqsharded_write)
-from repro_torch.distributed.context import get_mesh, reshape
+from repro_torch.distributed.context import get_mesh, plain_like, reshape
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models.common import (Params, apply_rope, causal_mask,
@@ -280,8 +280,8 @@ def attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
                              ".set_mesh(mesh)")
         new_k = seqsharded_write(mesh, cache["k"], k[:, 0], slot)
         new_v = seqsharded_write(mesh, cache["v"], v[:, 0], slot)
-        out = make_seqsharded_decode_attn(mesh)(q[:, 0], new_k, new_v,
-                                                n_valid)
+        out = plain_like(make_seqsharded_decode_attn(mesh)(
+            q[:, 0], new_k, new_v, n_valid), x)
         out = out.reshape(B, cfg.q_dim) @ params["wo"]
         return out[:, None, :], {"k": new_k, "v": new_v}
     bidx = torch.arange(B, device=x.device)
@@ -329,8 +329,9 @@ def attention_decode_deferred(params: Params, cfg: ModelConfig,
         mesh = get_mesh()
         if mesh is None:
             raise ValueError("impl='seqsharded' needs set_mesh(mesh)")
-        out1, m1, l1 = make_seqsharded_decode_attn_partials(mesh)(
-            q1, cache["k"], cache["v"], n_valid)
+        out1, m1, l1 = (plain_like(t, x) for t in
+                        make_seqsharded_decode_attn_partials(mesh)(
+                            q1, cache["k"], cache["v"], n_valid))
     else:
         sidx = torch.arange(Smax, device=x.device)[None, :]
         valid = sidx < n_valid[:, None]

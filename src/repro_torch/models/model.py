@@ -76,7 +76,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import embedding, seqsharded_write
-from repro_torch.distributed.context import get_mesh, replicated, spmd
+from repro_torch.distributed.context import (get_mesh, plain_like,
+                                             replicated, spmd)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -287,7 +288,9 @@ def _mlp_or_moe(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     if cfg.num_experts:
         if moe_impl not in moe_mod.DISPATCH:
             raise ValueError(f"unknown moe_impl {moe_impl!r}")
-        return moe_mod.DISPATCH[moe_impl](lp["moe"], cfg, x)
+        # plain activations come back plain (``moe_impl="ep"`` returns a
+        # DTensor): the serving engine over a mesh keeps them plain
+        return plain_like(moe_mod.DISPATCH[moe_impl](lp["moe"], cfg, x), x)
     return gated_mlp(lp["mlp"], x, act="gelu" if cfg.family == "vlm"
                      else "silu")
 

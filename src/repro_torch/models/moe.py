@@ -33,6 +33,10 @@ top-k with softmax-after-topk (Qwen style); padding experts (qwen2-moe
   ``cap2 = max(1, int(factor * R / e_loc))`` as Python ints, dropped
   entries adding nothing, the expert products in fp32 with JAX's casts;
   buffers are written by indexed copies as in ``apply_moe_sparse``.
+  Where the tokens are replicated over the expert axis (a decode step),
+  every rank takes the first rank's expert results, so that the ranks
+  agree where a duplicate row overflows a capacity (JAX's controller
+  reads the first device's replica).
 
 Every product is a plain ``torch.matmul``: the JAX package computes the
 MoE layer outside any Pallas kernel.
@@ -240,6 +244,14 @@ def apply_moe_ep(params: Params, cfg: ModelConfig, x: torch.Tensor,
         out = torch.matmul(h.float(), wo.float()).reshape(
             e_loc * cap2, d).to(xt.dtype)
         y_rows = out[slot2] * keep2[:, None].to(out.dtype)
+        if seq is None:
+            # the tokens are replicated over the axis, so every source
+            # sent the same rows, and a later source's copy can overflow
+            # an expert where the first's did not: every source takes the
+            # first's results, so the ranks agree (JAX's controller reads
+            # the first device's replica of a replicated output)
+            y_rows = y_rows.view(n, cap, d)[:1].expand(n, cap, d).reshape(
+                n * cap, d)
         # ---- return + combine at the source ---------------------------- #
         ret = all_to_all(y_rows, ep_axis, mesh)
         y_tk = ret[slot] * keep[:, None].to(ret.dtype)

@@ -126,10 +126,18 @@ Differences from the JAX engine (``repro.serving.engine``):
   legacy plane's prefill is the exception: it runs eagerly, as its exact
   shapes (one JAX compile per tail length) are the point of the plane,
   and only its decode step is a graph.
-* Settings this port does not run yet (``impl="seqsharded"`` and
-  ``moe_impl="ep"``: the model functions run them over a mesh, the
-  SPMD engine that would serve them is A13-ii) raise ``ValueError``
-  naming the ROADMAP item that will port them.
+* Over a device mesh (``distributed.context.set_mesh``) the JAX engine's
+  steps are one GSPMD program from one controller; the port runs the
+  same engine on every rank (``serving.spmd``).  ``impl="seqsharded"``
+  on the slot planes shards the cache's ``k``/``v`` over the sequence,
+  ``moe_impl="ep"`` the experts; every other tensor is plain and equal
+  on every rank.  The step's wall is agreed (its max over the mesh)
+  before the straggler monitor reads it, and under ``check_invariants``
+  each step's greedy tokens are checked equal across ranks.  Steps run
+  eagerly there (``num_graphs`` is 0): their collectives run on the host
+  under ``gloo`` and cannot be captured.  Without a mesh both settings
+  raise ``ValueError`` at construction, where JAX's model functions
+  raise at the first step.
   ``EngineConfig`` has no ``share_jits``: a step graph belongs to the
   engine that captured it.
 
@@ -159,6 +167,7 @@ from repro_torch.core.request import Request
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.simulator import BatchLog, SimResult
 from repro_torch.core import stat_keys as SK
+from repro_torch.distributed.context import get_mesh
 from repro_torch.distributed.fault_tolerance import (StragglerMonitor,
                                                      run_with_retries)
 from repro_torch.models import model as M
@@ -166,6 +175,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.serving.faults import (FaultError, FaultPlan,
                                         IntegrityError, PermanentStoreError,
                                         TransientStoreError)
+from repro_torch.serving import spmd
 from repro_torch.serving.host_copy import (HostLink, Transfer, gather_pages,
                                            gather_slot, nbytes_of,
                                            restore_pages, restore_slot)
@@ -174,6 +184,7 @@ from repro_torch.serving.paged_plane import (build_paged_fns,
                                              paged_supported)
 from repro_torch.serving.serve_step import (build_decode_fn,
                                             build_prefill_chunk_fn)
+from repro_torch.serving.spmd import merge_rows  # noqa: F401  (re-export)
 from repro_torch.serving.swap_store import (KVSwapStore, SwapEntry,
                                             SwapStoreFullError, flip_bit,
                                             seal_entry, verify_entry)
@@ -201,10 +212,13 @@ class EngineConfig:
     impl: str = "reference"       # the slot planes' dense decode
     #                               attention: "reference", "paged" (the
     #                               paged decode kernel on the contiguous
-    #                               cache), "flash_jnp"
+    #                               cache), "flash_jnp", "seqsharded" (the
+    #                               cache's sequence sharded over the
+    #                               mesh's "model" axis; needs set_mesh)
     moe_impl: str = "dense"       # MoE dispatch: "dense" (chunk-invariant,
-    #                               for parity) or "sparse" (capacity
-    #                               buffers); "ep" is ROADMAP A13-ii
+    #                               for parity), "sparse" (capacity
+    #                               buffers) or "ep" (experts sharded over
+    #                               the mesh's "model" axis; needs set_mesh)
     swap_bytes: Optional[int] = None   # host swap-store capacity (None =
     #                                    unbounded); a full store makes the
     #                                    victim fall back to recompute
@@ -242,21 +256,6 @@ class EngineConfig:
     #                               running request (wall-clock dependent)
 
 
-def merge_rows(cache: Dict[str, torch.Tensor], active: torch.Tensor,
-               new_cache: Dict[str, torch.Tensor]) -> None:
-    """The slot plane's masked merge (JAX's): the rows of ``active``
-    (nslots,) of every leaf of ``new_cache`` are written into ``cache``'s
-    leaf IN PLACE, and the other slots keep their state bit for bit.  In
-    place because the step graphs are captured against the leaves: a new
-    tensor would live in the graphs' pool, overwritten by the next
-    replay."""
-    for k, new in new_cache.items():
-        leaf = cache[k]
-        # leaves are (L, nslots, ...), the index (nslots,)
-        shape = (-1,) if new.dim() == 1 else (1, -1) + (1,) * (new.dim() - 2)
-        torch.where(active.reshape(shape), new, leaf, out=leaf)
-
-
 def _bucket_ladder(chunk: int, min_bucket: int) -> List[int]:
     """Fixed padding targets: powers of two in [min_bucket, chunk), plus
     ``chunk`` itself.  Every prefill sub-chunk is padded UP to the
@@ -273,9 +272,9 @@ def _bucket_ladder(chunk: int, min_bucket: int) -> List[int]:
 
 
 def _validate(cfg: ModelConfig, ecfg: EngineConfig,
-              scheduler: Scheduler) -> None:
-    """Refuse every setting this port does not run yet, naming the
-    ROADMAP item that ports it."""
+              scheduler: Scheduler, mesh) -> None:
+    """Refuse every setting this port does not run, and the mesh-only
+    settings without a mesh."""
     scfg = scheduler.cfg
     if ecfg.plane not in ("batched", "legacy", "paged"):
         raise ValueError(f"unknown plane {ecfg.plane!r}")
@@ -284,17 +283,14 @@ def _validate(cfg: ModelConfig, ecfg: EngineConfig,
     M.check_supported(cfg)
     if ecfg.moe_impl not in moe_mod.DISPATCH:
         raise ValueError(f"unknown moe_impl {ecfg.moe_impl!r}")
-    if ecfg.moe_impl == "ep" and cfg.num_experts:
-        raise ValueError("moe_impl 'ep' (expert parallelism over a device "
-                         "mesh) runs in the model functions; the engine "
-                         "that serves it, SPMD over a mesh, is ROADMAP "
-                         "A13-ii")
-    if ecfg.impl == "seqsharded" and cfg.family != "ssm" \
-            and not (ecfg.plane == "paged" and paged_supported(cfg)):
-        raise ValueError("decode impl 'seqsharded' (a sequence-sharded "
-                         "cache) runs in the model functions; the engine "
-                         "that serves it, SPMD over a mesh, is ROADMAP "
-                         "A13-ii")
+    if mesh is None and ecfg.moe_impl == "ep" and cfg.num_experts:
+        raise ValueError("moe_impl 'ep' shards the experts over a device "
+                         "mesh: call distributed.context.set_mesh(mesh) "
+                         "first")
+    if mesh is None and _seqsharded(cfg, ecfg):
+        raise ValueError("impl 'seqsharded' shards the cache's sequence "
+                         "over a device mesh: call distributed.context."
+                         "set_mesh(mesh) first")
     if scfg.partial_preempt and not (ecfg.plane == "paged"
                                      and paged_supported(cfg)):
         raise ValueError("partial_preempt needs the pooled paged data plane")
@@ -303,6 +299,14 @@ def _validate(cfg: ModelConfig, ecfg: EngineConfig,
                          "serves 'lru' and 'break_even'")
     if scfg.prefix_lookup not in ("trie", "exact"):
         raise ValueError(f"unknown prefix_lookup {scfg.prefix_lookup!r}")
+
+
+def _seqsharded(cfg: ModelConfig, ecfg: EngineConfig) -> bool:
+    """Whether the decode attention runs on a sequence-sharded cache: a
+    slot plane's attention family (on the pooled plane ``impl`` picks
+    nothing, RWKV6 has no attention)."""
+    return (ecfg.impl == "seqsharded" and cfg.family != "ssm"
+            and not (ecfg.plane == "paged" and paged_supported(cfg)))
 
 
 class Engine:
@@ -337,7 +341,9 @@ class Engine:
             scheduler.cfg.cache_demotion = ecfg.cache_demotion
         if ecfg.faults is not None:
             scheduler.cfg.faults = ecfg.faults
-        _validate(cfg, ecfg, scheduler)
+        # SPMD over the ambient mesh when one is set (``serving.spmd``)
+        self.mesh = get_mesh()
+        _validate(cfg, ecfg, scheduler, self.mesh)
         # pooled paged plane for unbounded dense attention; the bounded
         # state of RWKV6 stays slot-resident (and keeps no host tier)
         self._pooled = ecfg.plane == "paged" and paged_supported(cfg)
@@ -353,6 +359,11 @@ class Engine:
             on_evict=self._demote_prefix if self._demotion else None)
         pg = ecfg.page_size
         self.max_pages = -(-ecfg.cache_len // pg)
+        if self.mesh is not None and ecfg.moe_impl == "ep" \
+                and cfg.num_experts:
+            spmd.check_split(cfg.padded_experts, "moe_impl='ep': experts",
+                             self.mesh, "model")
+            self.params = spmd.place_experts(cfg, params, self.mesh)
         if self._pooled:
             self.k_pools, self.v_pools = init_pools(
                 cfg, self.allocator.num_pages, pg, nslots=ecfg.nslots,
@@ -364,6 +375,12 @@ class Engine:
             self.k_pools = self.v_pools = None
             self.cache = M.init_cache(cfg, ecfg.nslots, ecfg.cache_len,
                                       device=device)
+            if self.mesh is not None and _seqsharded(cfg, ecfg):
+                spec = spmd.kv_spec(cfg, ecfg.nslots, ecfg.cache_len,
+                                    self.mesh)
+                spmd.check_split(ecfg.cache_len, "impl='seqsharded': "
+                                 "cache_len", self.mesh, "model")
+                self.cache = spmd.place_cache(self.cache, spec, self.mesh)
             self._chunk_fn = build_prefill_chunk_fn(
                 cfg, impl=ecfg.impl, moe_impl=ecfg.moe_impl)
             self._decode_fn = build_decode_fn(cfg, impl=ecfg.impl,
@@ -377,7 +394,7 @@ class Engine:
         # the step graphs (one per step shape) and the static block
         # tables every pooled graph reads; _bt_cache is the allocator
         # version _bt_dev holds (see _block_tables_device)
-        self.graphs = StepGraphs()
+        self.graphs = StepGraphs(eager=self.mesh is not None)
         self._bt_dev = (torch.zeros((ecfg.nslots, self.max_pages),
                                     dtype=torch.int32, device=device)
                         if self._pooled else None)
@@ -408,6 +425,9 @@ class Engine:
         self._alloc_ordinal = 0     # allocation counter within an attempt
         self._last_dt = 0.0         # predicted dt of the last batch
         self._last_wall = 0.0       # measured wall of the last batch
+        # the greedy token each slot took in this step (-1: none), which
+        # the ranks of a mesh check equal (``spmd.agree``)
+        self._emitted = np.full(ecfg.nslots, -1, np.int64)
         # abort history, outside the step txn: rolling a step back must
         # not erase the record of the rollback itself
         self.recovery_stats: Dict[str, float] = {
@@ -488,7 +508,10 @@ class Engine:
         outputs are discarded, the allocator's pages and the slots' state
         stay bit-identical (inactive decode rows write only the sentinel
         page; the slot plane merges no row), and the step counters do not
-        move."""
+        move.  Over a mesh it captures nothing: the steps run eagerly.
+        """
+        if self.mesh is not None:
+            return self
         prefill = [] if self._legacy else [self._prefill_graph(b)
                                            for b in self.buckets]
         for g in prefill + [self._decode_graph()]:
@@ -508,7 +531,8 @@ class Engine:
     def num_graphs(self) -> int:
         """Step graphs built: ``len(buckets) + 1`` once every shape has
         run (``warmup``), on the CPU and on a card alike; 1 (the decode
-        step) on the legacy plane, whose prefill builds none."""
+        step) on the legacy plane, whose prefill builds none; 0 over a
+        mesh, where every step runs eagerly."""
         return len(self.graphs)
 
     # --- step graphs (serving.step_graphs) ------------------------------ #
@@ -601,8 +625,7 @@ class Engine:
         return slot
 
     def _zero_slot(self, slot: int) -> None:
-        for leaf in self.cache.values():
-            leaf[slot if leaf.dim() == 1 else (slice(None), slot)] = 0
+        spmd.zero_slot(self.cache, slot)
 
     def _release(self, rid: int) -> None:
         slot = self.slot_of.pop(rid, None)
@@ -696,6 +719,7 @@ class Engine:
         plan = self.fault_plan
         if plan is None:
             return do_put()
+        # seeded, content-keyed draws: every rank of a mesh draws the same
         if plan.decide(self._PERM_KIND[kind], *key):
             self.swap_stats[SK.PERMANENT_STORE_FAILURES] += 1
             raise PermanentStoreError(
@@ -791,6 +815,8 @@ class Engine:
         t0 = time.perf_counter()
         slot = self.slot_of[victim.rid]
         self._check_unwritten(slots=(slot,))
+        # whole rows on every rank: the store's bytes are the one-rank
+        # engine's, so are its capacity decisions
         snap = gather_slot(self.cache, self._link.ids([slot]))
         # content key: identical across aborted-attempt retries, so the
         # fault draws are idempotent (the JAX engine's key)
@@ -843,6 +869,8 @@ class Engine:
         before that step (the end-of-step boundary); neither drains
         everything (end of run).  In-flight demotions and page runs share
         the ``before_step`` and drain-all boundaries."""
+        # drain boundaries are step numbers and rids, never a clock: every
+        # rank of a mesh drains the same transfers
         if rid is not None:
             rids = [rid] if rid in self._pending_swaps else []
         elif before_step is not None:
@@ -921,6 +949,7 @@ class Engine:
         cap = self.swap_store.capacity_bytes
         if cap is None:
             return
+        # shape arithmetic on pools that are whole on every rank of a mesh
         nbytes = 2 * self.cfg.num_layers * npages * self.ecfg.page_size \
             * self.cfg.num_kv_heads * self.cfg.head_dim_ \
             * self.k_pools.element_size()
@@ -1374,7 +1403,10 @@ class Engine:
         """One bucketed chunk round over ALL slots (tokens (nslots,
         bucket), lengths (nslots,), 0 = inert row): greedy ids (nslots,)
         sampled on the device, the state merged into live rows."""
-        logits, new_cache = self._chunk_fn(self.params, tokens, self.cache,
+        # a sequence-sharded cache is gathered whole (the chunk attends to
+        # every cached position); the merge writes each rank's block
+        cache = {k: spmd.full_value(v) for k, v in self.cache.items()}
+        logits, new_cache = self._chunk_fn(self.params, tokens, cache,
                                            lengths)
         self._merge(lengths > 0, new_cache)
         return torch.argmax(logits[:, :self.cfg.vocab_size],
@@ -1533,6 +1565,7 @@ class Engine:
         for attempt in range(_MAX_STEP_ATTEMPTS):
             # repro: allow-txn-coverage(attempt bookkeeping is reset at every attempt start and keys the per-attempt fault draws - restoring it would replay attempt 0's faults forever)
             self._attempt, self._alloc_ordinal = attempt, 0
+            self._emitted.fill(-1)  # repro: allow-txn-coverage(the step's tokens for the ranks' check: reset at every attempt start, written only after the commit point)
             txn = self._begin_txn()
             # repro: allow-txn-coverage(the deferred-write log is opened empty at every attempt start; a rollback drops it unapplied, which is what rolls the pools and slots back)
             self._intents, self._committed = [], False
@@ -1561,9 +1594,16 @@ class Engine:
                 self.recovery_stats[SK.ROLLBACKS] += 1
                 raise
             self._committed = False        # the attempt is over
+            wall_s = self._last_wall
+            if self.mesh is not None:
+                # the wall the monitor reads is agreed (the slowest
+                # rank's, as a GSPMD step's); the tokens are checked equal
+                wall_s = spmd.agree(
+                    self.mesh, self._step_no, wall_s,
+                    self._emitted if self.ecfg.check_invariants else None)
             if (self._straggler is not None and executed
                     and self._straggler.observe(predicted_s=self._last_dt,
-                                                actual_s=self._last_wall)):
+                                                actual_s=wall_s)):
                 self._requeue_stragglers()
             return executed
         raise RuntimeError(
@@ -1800,6 +1840,7 @@ class Engine:
                     self._register_prefix(r, m_new)
                 if generated:
                     tok = final_tok[r.rid]
+                    self._emitted[self.slot_of[r.rid]] = tok  # repro: allow-txn-coverage(the step's tokens for the ranks' check: reset at every attempt start, written only after the commit point)
                     self.outputs[r.rid].append(tok)
                     if r.finished:
                         self.sched.complete(r)
@@ -1815,6 +1856,7 @@ class Engine:
                 slot = self.slot_of[r.rid]
                 r.advance(c, self.now)
                 tok = int(host[slot])
+                self._emitted[slot] = tok  # repro: allow-txn-coverage(the step's tokens for the ranks' check: reset at every attempt start, written only after the commit point)
                 self.outputs[r.rid].append(tok)
                 if r.finished:
                     self.sched.complete(r)
@@ -1826,6 +1868,8 @@ class Engine:
         # had a full step of compute to overlap their copy; finalize them
         # now (this step's own snapshots stay in flight)
         self._drain_swaps(before_step=self._step_no)
+        # measured, rank-local: only the straggler monitor reads it, after
+        # the ranks of a mesh agree on it (``step``)
         wall_s = time.perf_counter() - t0
         self.wall += wall_s
         self._last_dt, self._last_wall = dt, wall_s   # straggler inputs  # repro: allow-txn-coverage(straggler-monitor inputs describe the attempt that COMMITTED - an aborted attempt never reaches this line)

@@ -68,15 +68,33 @@ def _slot_axis(leaf: torch.Tensor) -> int:
 def gather_slot(cache: Dict[str, torch.Tensor],
                 slot: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Fresh device copies of one slot of every cache leaf, the slot axis
-    kept (size 1), as JAX's ``dynamic_slice_in_dim`` gives them."""
-    return {k: leaf.index_select(_slot_axis(leaf), slot)
-            for k, leaf in cache.items()}
+    kept (size 1), as JAX's ``dynamic_slice_in_dim`` gives them.  A leaf
+    sharded over a mesh (a DTensor) is gathered whole on every rank, so
+    every rank holds and stores the one-rank engine's bytes."""
+    from repro_torch.distributed.context import is_dtensor, spmd_scope
+    with spmd_scope():
+        out = {k: leaf.index_select(_slot_axis(leaf), slot)
+               for k, leaf in cache.items()}
+    return {k: v.full_tensor() if is_dtensor(v) else v
+            for k, v in out.items()}
 
 
 def restore_slot(cache: Dict[str, torch.Tensor], slot: torch.Tensor,
                  snap: Dict[str, torch.Tensor]) -> None:
+    """Write whole slot rows ``snap`` (slot axis of size 1) into ``slot``
+    of every leaf; a sharded leaf takes each rank's block of them."""
+    from repro_torch.distributed.context import is_dtensor
     for k, leaf in cache.items():
-        leaf.index_copy_(_slot_axis(leaf), slot, snap[k])
+        ax = _slot_axis(leaf)
+        if not is_dtensor(leaf):
+            leaf.index_copy_(ax, slot, snap[k])
+            continue
+        from repro_torch.serving.spmd import local_block, owned
+        local, box = local_block(leaf)
+        i = owned(box, ax, int(slot[0]))
+        if i is not None:
+            local[(slice(None),) * ax + (i,)] = \
+                snap[k][box[:ax] + (0,) + box[ax + 1:]]
 
 
 class Transfer:

@@ -124,7 +124,7 @@ class StepGraph:
                   and all(a is b for a, b in zip(now, self._bound)),
                   f"{self.name}: the pools or cache leaves it was built "
                   "against were replaced")
-        if self.inputs[0].device.type != "cuda":
+        if self.owner.eager or self.inputs[0].device.type != "cuda":
             with torch.no_grad():
                 self.owner.eager_calls += 1
                 return self.fn(*self.inputs)
@@ -179,11 +179,18 @@ class StepGraphs:
     capture), and the counts a run reads (``len``: graphs built;
     ``replays``; ``eager_calls``: calls that ran the function eagerly,
     every CPU call and each graph's first call on a card;
-    ``capture_s``: host seconds spent in first calls)."""
+    ``capture_s``: host seconds spent in first calls).  With ``eager``
+    every call runs its function eagerly over the static buffers and no
+    graph is built (``len`` is 0): the steps of an engine over a mesh,
+    which call ``gloo`` collectives on the host, cannot be captured."""
 
-    def __init__(self, counters: Optional[Sequence[Any]] = None):
+    def __init__(self, counters: Optional[Sequence[Any]] = None, *,
+                 eager: bool = False):
         self.counters = tuple(kernel_counters() if counters is None
                               else counters)
+        # every call eager over the static buffers, nothing captured: an
+        # engine over a mesh, whose steps call host collectives
+        self.eager = eager
         self.graphs: Dict[Hashable, StepGraph] = {}
         self.replays = 0
         self.eager_calls = 0
@@ -192,7 +199,7 @@ class StepGraphs:
         self._stream = None
 
     def __len__(self) -> int:
-        return len(self.graphs)
+        return 0 if self.eager else len(self.graphs)
 
     def get(self, key: Hashable,
             build: Callable[[], Tuple[Callable[..., Any],

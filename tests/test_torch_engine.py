@@ -253,8 +253,10 @@ def test_tokens_equal_both_references(runs, models, name):
 
 
 @pytest.mark.parametrize("ekw,skw,item", [
-    (dict(plane="batched", impl="seqsharded"), {}, "A13-ii"),
-    (dict(plane="legacy", impl="seqsharded"), {}, "A13-ii"),
+    # the sequence-sharded cache needs a mesh (tests/test_torch_spmd_engine.py
+    # serves it on one): without one the engine refuses at construction
+    (dict(plane="batched", impl="seqsharded"), {}, "set_mesh"),
+    (dict(plane="legacy", impl="seqsharded"), {}, "set_mesh"),
     (dict(plane="batched"), dict(partial_preempt=True),
      "pooled paged data plane"),
     (dict(decode_append="later"), {}, "unknown decode_append"),
@@ -268,10 +270,10 @@ def test_unported_settings_raise(models, ekw, skw, item):
 
 
 @pytest.mark.parametrize("over,ekw,item", [
-    # the MoE family serves; its expert-parallel dispatch runs in the
-    # model functions, and the engine that serves it is A13-ii
+    # the MoE family serves; its expert-parallel dispatch needs a mesh
+    # (tests/test_torch_spmd_engine.py serves it on one)
     (dict(family="moe", num_experts=4, experts_per_token=2, moe_d_ff=32),
-     dict(moe_impl="ep"), "A13-ii"),
+     dict(moe_impl="ep"), "set_mesh"),
     # the hybrid family and sliding windows serve
     # (tests/test_torch_hybrid_engine.py); the VLM and audio families
     # (A10, ported) serve on every plane (tests/test_torch_vlm_engine.py,

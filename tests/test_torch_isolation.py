@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing any of its modules loads
-neither ``jax`` nor the JAX package ``repro``; its copies of the pure-
+neither ``jax`` nor the JAX package ``repro``, and its examples import
+neither; its copies of the pure-
 Python control plane are the JAX package's sources with only the import
 lines renamed; and the kernels' build directory is ignored by git."""
 import ast
@@ -56,7 +57,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
               "data.synthetic", "launch.train", "kernels.rwkv_scan.ops",
               "models.rwkv", "distributed.collectives",
               "distributed.context", "distributed.sharding",
-              "distributed.compression", "launch.mesh"):
+              "distributed.compression", "launch.mesh", "serving.spmd",
+              "launch.dryrun", "launch.comm_analysis"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -87,6 +89,20 @@ def test_no_file_imports_jax_or_repro(path):
     for name in _imported_names(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+#: the port's examples, beside the JAX package's four
+EXAMPLES = ["torch_quickstart.py", "torch_serve_continuous_batching.py",
+            "torch_train_multipod.py", "torch_whatif_analysis.py"]
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_port_examples_import_only_torch_and_the_port(name):
+    """Each example imports the port, never ``jax`` or ``repro``."""
+    names = {n.split(".")[0] for n in
+             _imported_names(REPO / "examples" / name)}
+    assert "repro_torch" in names
+    assert not names & {"jax", "jaxlib", "repro"}, names
 
 
 @pytest.mark.parametrize("rel", COPIES)
