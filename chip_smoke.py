@@ -369,13 +369,24 @@ Phases — each raises on failure, so any failure exits non-zero:
    ranks.  One JSON line per check: its wall, tokens/s, staged
    all-gathers per step, the card's name and power limit, and the note
    that 4 ranks share one card.
+28. The port's analyser (``repro_torch.analysis``): its static pass over
+   ``src/repro_torch`` against the committed baseline (0 blocking), then
+   ``artifact.audit_artifacts(device="cuda")``: a tiny reduced TinyLlama
+   engine per plane (``batched``, ``paged``, ``legacy``) on JAX's audit
+   workload, its graph count held to ``graph_budget.json``, and every
+   step graph it built captured again with CUDA's debug print on, read
+   node by node: no memcpy to or from host memory, no host node, and the
+   hand-written kernels each plane's graphs launch equal to the budget's
+   list (B1 and B2 on ``paged``, none on the slot planes).  Prints the
+   graph counts, each graph's node counts by type and its hand-written
+   kernels; any finding fails the run.
 
 Each phase prints the seconds since the start when it is done; phase
 20's three engines run after phase 18's fp32 and bf16 serves and phase
 15's bf16 one, on their weights; phase 21's TinyLlama runs after phase
 20's fp32 and bf16 engines, its RWKV6-7B runs after phase 19; phase 23
-runs after phase 22, then phase 24, phase 25, phase 26 and phase 27
-last.
+runs after phase 22, then phase 24, phase 25, phase 26, phase 27 and
+phase 28 last.
 
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
@@ -4387,6 +4398,44 @@ def phase_spmd_engine(torch, card: str, planes32, moe32):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 28: the port's analyser, static and on the card's step graphs
+# --------------------------------------------------------------------- #
+
+def phase_analysis(card: str):
+    """The static pass (0 blocking) and the step-graph audit (no finding)
+    of ``repro_torch.analysis``."""
+    from repro_torch.analysis.artifact import audit_artifacts, render
+    from repro_torch.analysis.runner import run_paths
+    t0 = time.perf_counter()
+    found = run_paths([str(ROOT / "src" / "repro_torch")],
+                      baseline=str(ROOT / "src" / "repro_torch" / "analysis"
+                                   / "baseline.json"))
+    static_s = time.perf_counter() - t0
+    blocking = [f for f in found if f.blocking]
+    print(f"phase 28 static pass over src/repro_torch: {len(found)} "
+          f"findings, {len(blocking)} blocking, in {static_s:.1f} s")
+    for f in blocking:
+        print(f"  {f.render()}")
+    check(not blocking, "phase 28: the static pass has blocking findings")
+    t1 = time.perf_counter()
+    report = {}
+    audit = audit_artifacts(device="cuda", report=report)
+    audit_s = time.perf_counter() - t1
+    print(render(report))
+    for f in audit:
+        print(f"  {f.render()}")
+    check(not audit, "phase 28: the step-graph audit has findings")
+    out = {"phase": 28, "card": card, "static_s": static_s,
+           "static_findings": len(found), "audit_s": audit_s,
+           "num_graphs": {p: e["num_graphs"] for p, e in report.items()},
+           "kernels": {p: e["kernels"] for p, e in report.items()},
+           "nodes": {f"{p}:{k}": g["nodes"] for p, e in report.items()
+                     for k, g in e["graphs"].items()}}
+    print(json.dumps(out))
+    return out
+
+
 def ptxas_report(log: str):
     """(kernel, "N registers, S bytes spill stores, ...") per entry
     function of an ``nvcc -Xptxas -v`` log; the kernel named by its
@@ -4637,6 +4686,8 @@ def main(argv=None) -> int:
     spmd = phase_spmd_engine(torch, card, planes32["batched"],
                              moe["qwen2_fp32"])
     lap(f"the engine over a mesh of {DIST_RANKS} ranks")
+    analysis = phase_analysis(card)
+    lap("the analyser's static pass and step-graph audit")
     # each entry: its launches on its main path (counts zeroed just before
     # that run), its comparison with the plain version at the main shapes,
     # and its times at those shapes
@@ -4796,6 +4847,7 @@ def main(argv=None) -> int:
                   rwkv_planes_fp32=rwkv_planes, moe=moe, hybrid=hybrid,
                   frontends=fe, train_families=families,
                   distributed=distributed, spmd_engine=spmd,
+                  analysis=analysis,
                   seconds=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

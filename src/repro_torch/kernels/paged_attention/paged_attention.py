@@ -37,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -80,7 +81,9 @@ def _check_aligned(**tensors) -> None:
             raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
-def _check_pools(k_pool, v_pool, dev, dtype, Hkv_D):
+def _check_pools(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 dev: torch.device, dtype: torch.dtype,
+                 Hkv_D: Tuple[int, int]) -> Tuple[int, int, int, int]:
     check_tensor("k_pool", k_pool, dev, dtype, 4)
     check_tensor("v_pool", v_pool, dev, dtype, 4)
     if v_pool.shape != k_pool.shape:

@@ -833,7 +833,7 @@ class Engine:
                 self._pending_swaps[victim.rid] = (
                     entry, self._step_no, self._link.start(snap))
             else:
-                host = self._link.fetch(snap)
+                host = self._link.fetch(snap)  # repro: allow-host-sync(async_swap=False is the synchronous swap path by choice - the JAX engine's device_get fallback)
                 entry = self._guarded_put(
                     "store_put", fkey,
                     lambda: self.swap_store.put(
@@ -961,7 +961,7 @@ class Engine:
     def _snapshot_pages(self, page_ids) -> Dict[str, np.ndarray]:
         """The synchronous page snapshot ``async_swap=False`` selects."""
         self._check_unwritten(pages=page_ids)
-        return self._link.fetch(gather_pages(
+        return self._link.fetch(gather_pages(  # repro: allow-host-sync(async_swap=False selects this synchronous snapshot - the JAX engine's device_get fallback)
             self.k_pools, self.v_pools, self._link.ids(page_ids)))
 
     def _gather_pages_device(self, page_ids
@@ -1354,12 +1354,14 @@ class Engine:
         return self.cost_model.swap_time(n_kvs) if self.cost_model else 0.0
 
     # ------------------------------------------------------------------ #
-    def _run_prefill_rounds(self, plans, emits, step_fn) -> Dict[int, int]:
-        """Bucketed round loop: one ``step_fn(toks, lens, starts)`` call
+    def _run_prefill_rounds(self, plans, emits, stage) -> Dict[int, int]:
+        """Bucketed round loop: one replay of the bucket's prefill graph
         per round over the full slot grid, sub-chunks padded to the
-        bucket ladder.  Only (nslots,) sampled token ids are fetched, and
-        only on rounds where some emitting request finishes its batch
-        allotment.  ``plans`` rows are [request, slot, cursor, remaining]."""
+        bucket ladder; ``stage(dst, toks, lens, starts)`` uploads the
+        round into the graph's static input ``dst``.  Only (nslots,)
+        sampled token ids are fetched, and only on rounds where some
+        emitting request finishes its batch allotment.  ``plans`` rows
+        are [request, slot, cursor, remaining]."""
         nslots = self.ecfg.nslots
         final_tok: Dict[int, int] = {}
         while True:
@@ -1384,7 +1386,10 @@ class Engine:
                 p[3] -= sc
                 if p[3] == 0:
                     finishing.append((r, slot))
-            tok_ids = step_fn(toks, lens, starts)
+            g = self._prefill_graph(bucket)
+            stage(g.inputs[0], toks, lens, starts)
+            self.prefill_rounds += 1
+            tok_ids = g()
             if any(emits[r.rid] for r, _ in finishing):
                 host = tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
                 for r, slot in finishing:
@@ -1468,14 +1473,10 @@ class Engine:
         plans = [[r, self.slot_of[r.rid], r.m, c] for r, c in prefill_items]
         emits = {r.rid: r.m + c == r.target_context for r, c in prefill_items}
 
-        def step(toks, lens, starts):
-            g = self._prefill_graph(toks.shape[1])   # [toks | lens]
-            self._upload(g.inputs[0], np.concatenate([toks, lens[:, None]],
-                                                     axis=1))
-            self.prefill_rounds += 1
-            return g()
+        def stage(dst, toks, lens, starts):      # [toks | lens]
+            self._upload(dst, np.concatenate([toks, lens[:, None]], axis=1))
 
-        return self._run_prefill_rounds(plans, emits, step)
+        return self._run_prefill_rounds(plans, emits, stage)
 
     def _run_decodes_batched(self, decode_items) -> np.ndarray:
         """Slot plane: one decode-graph replay over all slots, kept by the
@@ -1500,15 +1501,12 @@ class Engine:
         emits = {r.rid: r.m + c == r.target_context for r, c in prefill_items}
         self._block_tables_device()
 
-        def step(toks, lens, starts):
+        def stage(dst, toks, lens, starts):
             # one coalesced upload per round: [toks | lens | starts]
-            g = self._prefill_graph(toks.shape[1])
-            self._upload(g.inputs[0], np.concatenate(
+            self._upload(dst, np.concatenate(
                 [toks, lens[:, None], starts[:, None]], axis=1))
-            self.prefill_rounds += 1
-            return g()
 
-        return self._run_prefill_rounds(plans, emits, step)
+        return self._run_prefill_rounds(plans, emits, stage)
 
     def _run_decodes_paged(self, decode_items) -> np.ndarray:
         """One decode-graph replay over all slots against the pooled KV.
@@ -1984,10 +1982,11 @@ def generate_reference(cfg: ModelConfig, params: Any, prompt: Sequence[int],
                               cache_len=cache_len, impl=impl,
                               moe_impl=moe_impl)
     cur = torch.argmax(logits[:, :vocab], dim=-1)
+    # repro: allow-host-sync(the parity oracle outside the serving loop - one greedy id a step must reach the host)
     out: List[int] = [int(cur[0])]
     for _ in range(num_tokens - 1):
         logits, cache = M.decode_step(cfg, params, cur, cache, impl=impl,
                                       moe_impl=moe_impl)
         cur = torch.argmax(logits[:, :vocab], dim=-1)
-        out.append(int(cur[0]))
+        out.append(int(cur[0]))  # repro: allow-host-sync(the parity oracle - as above)
     return out

@@ -187,7 +187,7 @@ def mesh_max(values: Sequence[float], mesh) -> np.ndarray:
         if dist.get_backend(group) == "nccl":
             t = t.to(torch.device("cuda", torch.cuda.current_device()))
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-    return t.cpu().numpy()
+    return t.cpu().numpy()  # repro: allow-host-sync(the agreed values decide on the host - one small float64 read per step over a mesh, whose steps run eagerly)
 
 
 class DivergenceError(RuntimeError):

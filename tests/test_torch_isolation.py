@@ -17,7 +17,7 @@ PORT = REPO / "src" / "repro_torch"
 JAXPKG = REPO / "src" / "repro"
 
 #: modules the port keeps word for word (ROADMAP A1-A4, A5a, A5b, A6, A7,
-#: A8)
+#: A8, A14)
 COPIES = [
     "configs/base.py", "configs/tinyllama_1_1b.py", "configs/llama2_7b.py",
     "configs/llama3_8b.py", "configs/qwen3_4b.py", "configs/smollm_360m.py",
@@ -30,6 +30,8 @@ COPIES = [
     "core/cost_model.py", "core/scheduler.py", "core/five_minute_rule.py",
     "data/workloads.py", "serving/swap_store.py", "serving/faults.py",
     "serving/txn.py",
+    # A14: the analysis modules that need no word of their own
+    "analysis/astutil.py", "analysis/charges.py",
 ]
 
 _IMPORT = re.compile(r"^(\s*)(from|import) repro(\.|\s)", re.M)
@@ -58,7 +60,13 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
               "models.rwkv", "distributed.collectives",
               "distributed.context", "distributed.sharding",
               "distributed.compression", "launch.mesh", "serving.spmd",
-              "launch.dryrun", "launch.comm_analysis"):
+              "launch.dryrun", "launch.comm_analysis", "analysis",
+              "analysis.__main__", "analysis.findings", "analysis.astutil",
+              "analysis.runner", "analysis.program", "analysis.flow",
+              "analysis.charges", "analysis.asserts", "analysis.txncov",
+              "analysis.statmirror", "analysis.hostsync", "analysis.capture",
+              "analysis.asyncdrain", "analysis.ranklocal",
+              "analysis.artifact"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
