@@ -21,7 +21,8 @@ Phases — each raises on failure, so any failure exits non-zero:
    call that must give the same bits (nothing persists between calls).
    Every kernel picks its variant by dtype (B1: bf16 the tensor-core
    ``split_mma`` kernel, fp32 the CUDA-core ``split_simt``; B2 and B3:
-   bf16 ``wgmma``, fp32 ``simt``): every case checks that exactly one
+   bf16 ``wgmma``, fp32 ``mma_3xtf32``, the 3xTF32 tensor-core
+   kernel): every case checks that exactly one
    launch of its dtype's variant was made.  The
    prefill must leave every pool byte outside its written slots as it
    was, bit for bit, in both dtypes, and write zeros for padded rows.
@@ -32,8 +33,8 @@ Phases — each raises on failure, so any failure exits non-zero:
    and recompute preemptions.  Every request's tokens must equal
    ``generate_reference``, and the kernels' launch counts, zeroed just
    before the run, must equal layers x prefill rounds (B2, every one
-   through the CUDA-core variant) and layers x decode steps (B1, every
-   one through ``split_simt``).
+   through ``mma_3xtf32``) and layers x decode steps (B1, every one
+   through ``split_simt``).
 4. Serve the same workload in bf16 and report tokens/s; B2's launches,
    zeroed just before, must all be ``wgmma`` ones, layers x prefill
    rounds, and B1's all ``split_mma`` ones, layers x decode steps.  Time
@@ -43,10 +44,15 @@ Phases — each raises on failure, so any failure exits non-zero:
    flushed before each launch, as the serving loop finds it), beside
    their plain versions, ``scaled_dot_product_attention`` on
    pre-gathered dense K/V (a yardstick only: the port never calls it;
-   fp32 with TF32 off) and the least time the card could take (bytes
+   fp32 with TF32 off; for fp32 B2 and B3 pinned with
+   ``torch.nn.attention.sdpa_kernel`` to the backend the dispatcher
+   takes, named in the row) and the least time the card could take (bytes
    over 3.35 TB/s or operations over the peak rate of the inputs' type,
    whichever is larger; K/V bytes count each distinct pool slot read
-   once, however many rows map its page).
+   once, however many rows map its page).  fp32 B2 and B3 do each
+   product as three TF32 products (3xTF32), so their bound is the work as
+   they do it, 3 x operations over the TF32 rate (494.7 TFLOP/s), with
+   the fp32 CUDA cores' bound (operations over 67 TFLOP/s) beside it.
 5. Hold the full-sequence flash-attention kernel (B3) against its plain
    version in both dtypes: the sweep of ``tests/test_kernels.py`` (fp32
    at 2e-5, bf16 at 2e-2), ragged S (100, 37, 200), D=128, S=2048,
@@ -58,7 +64,8 @@ Phases — each raises on failure, so any failure exits non-zero:
    from seed 0), ``prefill(impl="flash")`` against ``impl="reference"``
    at B=2, S=512 (logits and cache), and ``generate_reference`` tokens
    of both impls for a few prompts; B3's launch count, zeroed just
-   before, must equal layers x prefill calls, all CUDA-core launches.
+   before, must equal layers x prefill calls, all ``mma_3xtf32``
+   launches.
    Then the same weights in bf16: ``prefill(impl="flash")`` must launch
    the ``wgmma`` kernel once per layer, and its logits and cache may be
    at most ``BF16_PREFILL_RATIO`` times as far (relative L2) from the
@@ -288,7 +295,7 @@ Phases — each raises on failure, so any failure exits non-zero:
    ``smoke_server``'s engine and workload (text-only requests over its
    vocabulary) in fp32 (every request's tokens equal to
    ``generate_reference``, B1 / B2 = layers x decode steps / prefill
-   rounds through the CUDA-core variants), again on ``batched`` with
+   rounds through the fp32 variants), again on ``batched`` with
    ``impl="paged"`` (B1 on the dense view at D = 256; replays within
    ``TOL`` of eager calls), and in bf16 (replays bit-equal, tokens/s, the
    decode graph's device time against its byte bound).  (d) Its
@@ -391,7 +398,9 @@ phase 28 last.
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
 ``split_mma`` kernel, ``paged_prefill`` and ``flash_attention`` the bf16
-``wgmma`` kernels, ``..._simt`` the fp32 CUDA-core ones,
+``wgmma`` kernels, ``paged_decode_simt`` B1's fp32 CUDA-core kernel,
+``paged_prefill_3xtf32`` / ``flash_attention_3xtf32`` B2 / B3's fp32
+3xTF32 tensor-core kernels (each of the others with the same suffixes),
 ``paged_decode_dense`` B1 on the dense view of the slot cache,
 ``paged_decode_moe`` / ``paged_prefill_moe`` B1 / B2 at qwen2-moe's
 serving shapes, ``paged_decode_hymba`` / ``flash_attention_hymba`` B1 on
@@ -419,7 +428,10 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core bf16
-            "float32": 67e12}      # fp32 outside the tensor cores
+            "float32": 67e12,      # fp32 outside the tensor cores
+            "tf32": 494.7e12}      # dense tensor-core tf32
+#: TF32 products per fp32 product in fp32 B2 and B3 (3xTF32)
+TF32_PRODUCTS = 3
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
@@ -535,11 +547,15 @@ def prefill_case(torch, inp, B, c, H, Hkv, D, page, maxp, dtype, starts,
 # --------------------------------------------------------------------- #
 
 #: the kernel each dtype selects in B2 and B3 (the C entries' choice)
-VARIANT = {"float32": "simt", "bfloat16": "wgmma"}
+VARIANT = {"float32": "mma_3xtf32", "bfloat16": "wgmma"}
 #: the dtype's short name in report keys
 TAG = {"float32": "fp32", "bfloat16": "bf16"}
 #: ... and in B1
 DECODE_VARIANT = {"float32": "split_simt", "bfloat16": "split_mma"}
+#: report-key suffix of each dtype's kernel: B1's (``split_simt`` in
+#: fp32), B2's and B3's (``mma_3xtf32`` in fp32)
+DECODE_SFX = {"bfloat16": "", "float32": "_simt"}
+ATTN_SFX = {"bfloat16": "", "float32": "_3xtf32"}
 
 
 def one_launch_of(fn, before, dtype, what, variants=VARIANT) -> None:
@@ -854,9 +870,9 @@ def phase_serve_fp32(torch, pa, cfg, params, swap=False, faults=None,
     check(launches["paged_decode"] == L * eng.decode_steps > 0,
           f"paged_decode launched {launches['paged_decode']} times, "
           f"expected {L} x {eng.decode_steps}")
-    check(variants == {"wgmma": 0, "simt": launches["paged_prefill"]},
+    check(variants == {"wgmma": 0, "mma_3xtf32": launches["paged_prefill"]},
           f"fp32 paged_prefill launches by variant {variants}: every one "
-          "should be the CUDA-core kernel")
+          "should be the 3xTF32 kernel")
     check(dvariants == {"split_mma": 0,
                         "split_simt": launches["paged_decode"]},
           f"fp32 paged_decode launches by variant {dvariants}: every one "
@@ -973,7 +989,7 @@ def phase_serve_bf16(torch, pa, cfg, params, swap=False, faults=None,
           f"{eng.prefill_rounds} prefill rounds, {eng.decode_steps} decode "
           f"steps; launches {launches}, paged_prefill by variant {variants},"
           f" paged_decode by variant {dvariants}")
-    check(variants == {"wgmma": L * eng.prefill_rounds, "simt": 0}
+    check(variants == {"wgmma": L * eng.prefill_rounds, "mma_3xtf32": 0}
           and eng.prefill_rounds > 0,
           f"bf16 paged_prefill launches by variant {variants}, expected "
           f"{L} x {eng.prefill_rounds} through wgmma and none other")
@@ -1084,6 +1100,52 @@ def bound(nbytes: float, ops: float, dtype: str):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def attention_bound(nbytes: float, ops: float, dtype: str) -> dict:
+    """B2's and B3's bound: in bf16 ``bound``; in fp32 the work as their
+    3xTF32 kernels do it (``TF32_PRODUCTS`` TF32 products for each
+    product, at the TF32 rate), with the fp32 CUDA cores' bound beside
+    it as ``bound_ms_fp32_cores``."""
+    if dtype != "float32":
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        return dict(bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound(nbytes, TF32_PRODUCTS * ops, "tf32")
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                bound_ms_fp32_cores=bound(nbytes, ops, "float32")[0])
+
+
+#: the SDPA backends in the order tried for the fp32 yardstick
+SDPA_ORDER = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+              "MATH")
+
+
+def sdpa_yardstick(torch, dtype: str, *args, **kw) -> dict:
+    """``scaled_dot_product_attention(*args, **kw)`` timed as a yardstick
+    (the port never calls it).  In fp32 it is pinned with
+    ``torch.nn.attention.sdpa_kernel`` to the first backend of
+    ``SDPA_ORDER`` that takes these inputs, and timed unpinned beside it
+    (``library_ms_unpinned``); bf16 runs unpinned, as before."""
+    import torch.nn.functional as F
+    call = lambda: F.scaled_dot_product_attention(*args, **kw)  # noqa: E731
+    if dtype != "float32":
+        return dict(library_ms=time_ms(torch, call))
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for name in SDPA_ORDER:
+        backend = getattr(SDPBackend, name)
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")   # why a backend declines
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        with sdpa_kernel([backend]):   # entered once, outside the events
+            pinned = time_ms(torch, call)
+        return dict(library_ms=pinned, sdpa_backend=name,
+                    library_ms_unpinned=time_ms(torch, call))
+    raise RuntimeError("no SDPA backend takes these inputs")
+
+
 def pool_slots_read(bt, lens, page: int) -> int:
     """Distinct pool slots (page id, in-page offset) below each row's
     length: the K/V positions the function must read.  Prefix pages that
@@ -1125,7 +1187,6 @@ def time_decode(torch, pa, ref, case, dtype):
 
 
 def time_prefill(torch, pa, ref, case, dtype):
-    import torch.nn.functional as F
     q, k, v, kp, vp, bt, st, ln = case
     B, c, H, D = q.shape
     P, page, Hkv, _ = kp.shape
@@ -1137,7 +1198,6 @@ def time_prefill(torch, pa, ref, case, dtype):
               + kv_rows * Hkv * D * 2 * es + (bt.numel() + 2 * B) * 4)
     ops = sum(sum(s + r + 1 for r in range(n)) for s, n in
               zip(starts, lengths)) * Hkv * G * D * 4
-    b_ms, b_by = bound(nbytes, ops, dtype)
     ms = time_ms(torch, lambda: pa.paged_prefill_cuda(*case))
     plain = time_ms(torch, lambda: ref.paged_prefill_reference(*case))
     # library yardstick: SDPA over [prefix pages ++ chunk] gathered dense
@@ -1153,11 +1213,10 @@ def time_prefill(torch, pa, ref, case, dtype):
     qpos = st[:, None] + torch.arange(c, device=DEVICE)[None]
     mask = (torch.arange(S, device=DEVICE)[None, None] <= qpos[:, :, None])
     mask = mask[:, None]
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qd, kd, vd, attn_mask=mask, enable_gqa=True)
-    lib_ms = time_ms(torch, lib)
-    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, bytes=nbytes, ops=ops)
+    lib = sdpa_yardstick(torch, dtype, qd, kd, vd, attn_mask=mask,
+                         enable_gqa=True)
+    return dict(ms=ms, plain_ms=plain, **attention_bound(nbytes, ops, dtype),
+                **lib, bytes=nbytes, ops=ops, dtype=dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -1260,9 +1319,9 @@ def phase_full_prefill(torch, fa, M, cfg, params):
     check(launches == L * prefill_calls,
           f"flash_attention launched {launches} times, expected {L} x "
           f"{prefill_calls}")
-    check(variants == {"wgmma": 0, "simt": launches},
+    check(variants == {"wgmma": 0, "mma_3xtf32": launches},
           f"fp32 flash_attention launches by variant {variants}: every one "
-          "should be the CUDA-core kernel")
+          "should be the 3xTF32 kernel")
     ref_logits, ref_cache = M.prefill(cfg, params, {"tokens": toks},
                                       cache_len=cache_len)
     ref_tokens = [generate_reference(cfg, params, p, new_tokens,
@@ -1331,7 +1390,7 @@ def phase_full_prefill_bf16(torch, fa, M, cfg16, params16):
     launches = fa.flash_attention_cuda.launches
     variants = dict(fa.flash_attention_cuda.launches_by_variant)
     L = cfg16.num_layers
-    check(variants == {"wgmma": L, "simt": 0} and launches == L,
+    check(variants == {"wgmma": L, "mma_3xtf32": 0} and launches == L,
           f"bf16 full prefill: flash_attention launches by variant "
           f"{variants}, expected {L} through wgmma")
     ref16, ref_cache = M.prefill(cfg16, params16, {"tokens": toks},
@@ -1436,7 +1495,6 @@ def time_flash(torch, fa, fref, case, dtype, window=0, prefix_len=0):
     """B3 on ``case``, causal (with a sliding ``window`` or a
     bidirectional ``prefix_len``, SDPA given the boolean mask), beside its
     plain version, SDPA and its bound (the pairs the mask keeps)."""
-    import torch.nn.functional as F
     q, k, v = case
     B, S, H, D = q.shape
     es = q.element_size()
@@ -1444,17 +1502,14 @@ def time_flash(torch, fa, fref, case, dtype, window=0, prefix_len=0):
     opt = dict(window=window, prefix_len=prefix_len)
     mask = fref.visible(S, device=DEVICE, **opt)
     ops = 4 * D * int(mask.sum()) * B * H
-    b_ms, b_by = bound(nbytes, ops, dtype)
     ms = time_ms(torch, lambda: fa.flash_attention_cuda(*case, **opt))
     plain = time_ms(torch, lambda: fref.attention_reference(*case, **opt))
     qt, kt, vt = (t.transpose(1, 2) for t in case)      # views, no copy
     kw = (dict(attn_mask=mask) if window or prefix_len
           else dict(is_causal=True))
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, enable_gqa=True, **kw)
-    lib_ms = time_ms(torch, lib)
-    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, bytes=nbytes, ops=ops, shape=list(q.shape),
+    lib = sdpa_yardstick(torch, dtype, qt, kt, vt, enable_gqa=True, **kw)
+    return dict(ms=ms, plain_ms=plain, **attention_bound(nbytes, ops, dtype),
+                **lib, bytes=nbytes, ops=ops, shape=list(q.shape),
                 kv_heads=k.shape[2], dtype=dtype, window=window,
                 prefix_len=prefix_len)
 
@@ -3174,8 +3229,9 @@ def phase_hybrid(torch, pa, fa, fref, ref, pa_ops, M, get_config):
           f"ring while prefilling, {dec} while decoding")
     # (b) B1 on the full ring and B3 over the longest prompt, timed
     inp, times = Inputs(torch, 43), {}
-    for dtype, sfx in (("bfloat16", ""), ("float32", "_simt")):
-        times["paged_decode_hymba" + sfx] = time_decode(
+    for dtype in ("bfloat16", "float32"):
+        sfx = ATTN_SFX[dtype]
+        times["paged_decode_hymba" + DECODE_SFX[dtype]] = time_decode(
             torch, pa, ref, dense_view_case(
                 torch, inp, dtype, HYMBA_RING,
                 [HYMBA_RING[4]] * HYMBA_RING[0])[0], dtype)
@@ -3315,8 +3371,9 @@ def time_frontend_kernels(torch, pa, ref, fa, fref, P_main, ecfg):
     method (``time_decode``, ``time_prefill``, ``time_flash``)."""
     inp, times = Inputs(torch, 53), {}
     B, S, pre = FLASH_256["S512_prefix256"]
-    for dtype, sfx in (("bfloat16", ""), ("float32", "_simt")):
-        times["paged_decode_d256" + sfx] = time_decode(
+    for dtype in ("bfloat16", "float32"):
+        sfx, dsfx = ATTN_SFX[dtype], DECODE_SFX[dtype]
+        times["paged_decode_d256" + dsfx] = time_decode(
             torch, pa, ref, main_path_decode(torch, inp, dtype, P_main, ecfg,
                                              HEADS["paligemma"]), dtype)
         times["paged_prefill_d256" + sfx] = time_prefill(
@@ -3326,7 +3383,7 @@ def time_frontend_kernels(torch, pa, ref, fa, fref, P_main, ecfg):
         times["flash_attention_d256" + sfx] = time_flash(
             torch, fa, fref, flash_case(inp, B, S, *HEADS["paligemma"],
                                         dtype), dtype, prefix_len=pre)
-        times["paged_decode_musicgen" + sfx] = time_decode(
+        times["paged_decode_musicgen" + dsfx] = time_decode(
             torch, pa, ref, audio_decode_case(torch, inp, dtype), dtype)
         times["paged_prefill_musicgen" + sfx] = time_prefill(
             torch, pa, ref, audio_prefill_case(torch, inp, dtype), dtype)
@@ -4454,6 +4511,21 @@ def ptxas_report(log: str):
     return out
 
 
+def sdpa_note(t: dict) -> str:
+    """The pinned SDPA backend of a timing, and its unpinned time."""
+    if "sdpa_backend" not in t:
+        return ""
+    return (f" ({t['sdpa_backend']}; unpinned "
+            f"{t['library_ms_unpinned']:.4f} ms)")
+
+
+def cores_note(t: dict) -> str:
+    """The fp32 CUDA cores' bound beside a 3xTF32 kernel's."""
+    if "bound_ms_fp32_cores" not in t:
+        return ""
+    return f"; fp32 CUDA cores' bound {t['bound_ms_fp32_cores']:.4f} ms"
+
+
 def _tree_to(tree, dtype):
     return {k: _tree_to(v, dtype) if isinstance(v, dict) else v.to(dtype)
             for k, v in tree.items()}
@@ -4581,9 +4653,11 @@ def main(argv=None) -> int:
         times = {}
         decode_more, prefill_more = {}, {}
         # "paged_decode" / "paged_prefill" / "flash_attention" the bf16
-        # (tensor-core) kernels, "..._simt" the fp32 (CUDA-core) ones
-        for dtype, sfx in (("bfloat16", ""), ("float32", "_simt")):
-            times["paged_decode" + sfx] = time_decode(
+        # (tensor-core) kernels, "paged_decode_simt" B1's fp32 (CUDA-core)
+        # one, "..._3xtf32" B2's and B3's fp32 (3xTF32 tensor-core) ones
+        for dtype in ("bfloat16", "float32"):
+            sfx, dsfx = ATTN_SFX[dtype], DECODE_SFX[dtype]
+            times["paged_decode" + dsfx] = time_decode(
                 torch, pa, ref, main_path_decode(torch, inp, dtype, P_main,
                                                  ecfg), dtype)
             for what, (B, H, Hkv, D, page, npages, ctx) in \
@@ -4598,7 +4672,7 @@ def main(argv=None) -> int:
                                                   ecfg), dtype)
             times["flash_attention" + sfx] = time_flash(
                 torch, fa, fref, flash_case(inp, *FLASH_MAIN, dtype), dtype)
-            times["paged_decode_dense" + sfx] = time_decode(
+            times["paged_decode_dense" + dsfx] = time_decode(
                 torch, pa, ref, dense_view_case(torch, inp, dtype)[0], dtype)
             # phase 4 at the MoE serving shapes (qwen2-moe's heads in the
             # kernels' line; qwen3-moe's beside them)
@@ -4612,7 +4686,7 @@ def main(argv=None) -> int:
                 prefill_more[f"{key}_{dtype}"] = time_prefill(
                     torch, pa, ref, main_path_prefill(torch, inp, dtype,
                                                       P_main, ecfg, h), dtype)
-            times["paged_decode_moe" + sfx] = decode_more[f"moe_{dtype}"]
+            times["paged_decode_moe" + dsfx] = decode_more[f"moe_{dtype}"]
             times["paged_prefill_moe" + sfx] = prefill_more[f"moe_{dtype}"]
         flash_more = {
             "bfloat16_S2048": time_flash(
@@ -4702,15 +4776,16 @@ def main(argv=None) -> int:
         ("paged_prefill", "paged_prefill", "wgmma", "bfloat16",
          bf16["prefill_variants"]["wgmma"],
          errs["paged_prefill"]["main_bfloat16"], "serving shapes"),
-        ("paged_prefill_simt", "paged_prefill", "simt", "float32",
-         fp32["prefill_variants"]["simt"],
+        ("paged_prefill_3xtf32", "paged_prefill", "mma_3xtf32", "float32",
+         fp32["prefill_variants"]["mma_3xtf32"],
          errs["paged_prefill"]["main_float32"], "serving shapes"),
         ("flash_attention", "flash_attention", "wgmma", "bfloat16",
          prefill16["variants"]["wgmma"],
          errs["flash_attention"]["main_bfloat16"],
          "full-prefill shapes B2 S512 H32 Hkv4"),
-        ("flash_attention_simt", "flash_attention", "simt", "float32",
-         prefill["variants"]["simt"], errs["flash_attention"]["main_float32"],
+        ("flash_attention_3xtf32", "flash_attention", "mma_3xtf32",
+         "float32", prefill["variants"]["mma_3xtf32"],
+         errs["flash_attention"]["main_float32"],
          "full-prefill shapes B2 S512 H32 Hkv4"),
         ("paged_decode_dense", "paged_decode", "split_mma", "bfloat16",
          planes16["batched"]["decode_variants"]["split_mma"],
@@ -4736,8 +4811,8 @@ def main(argv=None) -> int:
          moe["qwen2_bf16"]["prefill_variants"]["wgmma"],
          errs["moe"]["paged_prefill"]["qwen2_moe_bfloat16"],
          "qwen2-moe serving shapes H16 Hkv16 D128"),
-        ("paged_prefill_moe_simt", "paged_prefill", "simt", "float32",
-         moe["qwen2_fp32"]["prefill_variants"]["simt"],
+        ("paged_prefill_moe_3xtf32", "paged_prefill", "mma_3xtf32",
+         "float32", moe["qwen2_fp32"]["prefill_variants"]["mma_3xtf32"],
          errs["moe"]["paged_prefill"]["qwen2_moe_float32"],
          "qwen2-moe serving shapes H16 Hkv16 D128"),
         # B1 on hymba's ring and B3 with its window (phase 23): B1's
@@ -4755,7 +4830,8 @@ def main(argv=None) -> int:
          hybrid["reference_launches_bf16"],
          hybrid["errors"]["flash_attention"]["main_bfloat16"],
          "hymba prefill S3100 H25 Hkv5 window 2048"),
-        ("flash_attention_hymba_simt", "flash_attention", "simt", "float32",
+        ("flash_attention_hymba_3xtf32", "flash_attention", "mma_3xtf32",
+         "float32",
          hybrid["reference_launches_fp32"],
          hybrid["errors"]["flash_attention"]["main_float32"],
          "hymba prefill S3100 H25 Hkv5 window 2048"),
@@ -4763,12 +4839,13 @@ def main(argv=None) -> int:
     # B1-B3 at head dim 256 (PaliGemma) and B1/B2 at MusicGen's shapes
     # (phase 24): B1/B2's launches from the paged serves, B3's from the
     # image-prefix prefill
-    for dtype, sfx in (("bfloat16", ""), ("float32", "_simt")):
+    for dtype in ("bfloat16", "float32"):
+        sfx, dsfx = ATTN_SFX[dtype], DECODE_SFX[dtype]
         tag, dv, pv = TAG[dtype], DECODE_VARIANT[dtype], VARIANT[dtype]
         vlm, audio = fe[f"vlm_{tag}_paged"], fe[f"audio_{tag}_paged"]
         e = fe["errors"]
         entries += [
-            ("paged_decode_d256" + sfx, "paged_decode", dv, dtype,
+            ("paged_decode_d256" + dsfx, "paged_decode", dv, dtype,
              vlm["decode_variants"][dv], e["paged_decode"][f"main_{dtype}"],
              "PaliGemma serving shapes H8 Hkv1 D256"),
             ("paged_prefill_d256" + sfx, "paged_prefill", pv, dtype,
@@ -4780,7 +4857,7 @@ def main(argv=None) -> int:
              e["flash_attention"][f"main_{dtype}"],
              "PaliGemma image-prefix prefill B2 S512 H8 Hkv1 D256 prefix "
              "256"),
-            ("paged_decode_musicgen" + sfx, "paged_decode", dv, dtype,
+            ("paged_decode_musicgen" + dsfx, "paged_decode", dv, dtype,
              audio["decode_variants"][dv],
              e["paged_decode"][f"musicgen_{dtype}"],
              "MusicGen serving shapes H24 Hkv24 D64, ctx 564-1564"),
@@ -4794,9 +4871,10 @@ def main(argv=None) -> int:
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
         print(f"{entry} ({var}, {dtype}, {shape}): {t['ms']:.4f} ms; plain "
-              f"{t['plain_ms']:.4f} ms; library {lib}; "
+              f"{t['plain_ms']:.4f} ms; library {lib}{sdpa_note(t)}; "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-              f"{t['bytes']:.3g} B, {t['ops']:.3g} ops); launches {launches}")
+              f"{t['bytes']:.3g} B, {t['ops']:.3g} ops){cores_note(t)}; "
+              f"launches {launches}")
         check(launches > 0, f"{entry}: no launch on its main path")
         kernels.append({"name": entry, "route": "cuda",
                         "source": KERNELS[name][0],
@@ -4805,7 +4883,9 @@ def main(argv=None) -> int:
                         "launches": launches, "max_abs_err": err,
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+                        "library_ms": t["library_ms"],
+                        **{k: t[k] for k in ("bound_ms_fp32_cores",
+                                             "sdpa_backend") if k in t}})
     for what, t in decode_more.items():
         print(f"paged_decode ({t['dtype']}, {what}, q {t['shape']}, Hkv "
               f"{t['kv_heads']}, span {t['span']}): {t['ms']:.4f} ms; plain "
@@ -4814,16 +4894,17 @@ def main(argv=None) -> int:
               f"{t['ops']:.3g} ops)")
     for what, t in prefill_more.items():
         print(f"paged_prefill ({what}): {t['ms']:.4f} ms; plain "
-              f"{t['plain_ms']:.4f} ms; sdpa {t['library_ms']:.4f} ms; bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.3g} B, "
-              f"{t['ops']:.3g} ops)")
+              f"{t['plain_ms']:.4f} ms; sdpa {t['library_ms']:.4f} ms"
+              f"{sdpa_note(t)}; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}: {t['bytes']:.3g} B, {t['ops']:.3g} ops)"
+              f"{cores_note(t)}")
     for what, t in flash_more.items():
         print(f"flash_attention ({t['dtype']}, shape {t['shape']}, Hkv "
               f"{t['kv_heads']}, window {t['window']}): {t['ms']:.4f} ms; "
-              f"plain {t['plain_ms']:.4f}"
-              f" ms; sdpa {t['library_ms']:.4f} ms; bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.3g} B, "
-              f"{t['ops']:.3g} ops)")
+              f"plain {t['plain_ms']:.4f} ms; sdpa {t['library_ms']:.4f} ms"
+              f"{sdpa_note(t)}; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}: {t['bytes']:.3g} B, {t['ops']:.3g} ops)"
+              f"{cores_note(t)}")
     for what, t in wkv_more.items():
         print(f"wkv6 (fp32, {what}, B{t['shape'][0]} S{t['shape'][1]} "
               f"H{t['shape'][2]} D{t['shape'][3]}): {t['ms']:.4f} ms; plain "

@@ -15,7 +15,9 @@ synchronises; and raises if the launch reports an error.  Its
 ``launches`` attribute counts the launches it made, and
 ``launches_by_variant`` splits them by the kernel the dtype selects:
 ``"wgmma"`` (bf16, tensor cores over ``kernels/common/csrc/
-hopper_attention.cuh``) and ``"simt"`` (fp32, CUDA cores).  The kernel is built
+hopper_attention.cuh``) and ``"mma_3xtf32"`` (fp32, ``mma.sync``
+tensor-core products in 3xTF32 over ``kernels/common/csrc/
+tf32_attention.cuh``).  The kernel is built
 from the source on first call (``kernels.cuda_build``).  The plain
 version is in ``ref``; ``ops`` dispatches between the two by the
 tensors' device.
@@ -34,7 +36,7 @@ SRC = Path(__file__).parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel each dtype runs, as the C entry chooses it
-_VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+_VARIANT = {torch.float32: "mma_3xtf32", torch.bfloat16: "wgmma"}
 
 
 def build_all() -> None:
@@ -84,4 +86,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
-flash_attention_cuda.launches_by_variant = {"wgmma": 0, "simt": 0}
+flash_attention_cuda.launches_by_variant = {"wgmma": 0, "mma_3xtf32": 0}

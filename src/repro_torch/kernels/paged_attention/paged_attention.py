@@ -22,9 +22,11 @@ decode its workspace); never synchronises; and raises if the launch reports an e
 ``launches`` attribute counts the launches it made;
 ``launches_by_variant`` splits them by the kernel the dtype selects:
 for the prefill ``"wgmma"`` (bf16, tensor cores over
-``kernels/common/csrc/hopper_attention.cuh``) and ``"simt"`` (fp32, CUDA
-cores), for the decode ``"split_mma"`` (bf16, ``mma.sync`` tensor cores)
-and ``"split_simt"`` (fp32, CUDA cores).  The decode's partials go to a
+``kernels/common/csrc/hopper_attention.cuh``) and ``"mma_3xtf32"`` (fp32,
+``mma.sync`` tensor-core products in 3xTF32 over
+``kernels/common/csrc/tf32_attention.cuh``), for the decode
+``"split_mma"`` (bf16, ``mma.sync`` tensor cores) and ``"split_simt"``
+(fp32, CUDA cores).  The decode's partials go to a
 workspace the wrapper takes from the caching allocator at every call,
 sized by the span its C entry picks (``decode_span``); nothing persists
 between calls.  The kernels are
@@ -53,7 +55,7 @@ PAGE_SIZES = (8, 16, 32, 64)
 MAX_GROUPS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel each dtype runs, as the C entries choose it
-_VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+_VARIANT = {torch.float32: "mma_3xtf32", torch.bfloat16: "wgmma"}
 _DECODE_VARIANT = {torch.float32: "split_simt", torch.bfloat16: "split_mma"}
 
 
@@ -205,4 +207,4 @@ def paged_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 paged_prefill_cuda.launches = 0
-paged_prefill_cuda.launches_by_variant = {"wgmma": 0, "simt": 0}
+paged_prefill_cuda.launches_by_variant = {"wgmma": 0, "mma_3xtf32": 0}

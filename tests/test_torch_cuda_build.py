@@ -22,6 +22,8 @@ from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
 KERNELS = Path(cuda_build.__file__).parent
 COMMON = KERNELS / "common" / "csrc"
 HEADER = COMMON / "hopper_attention.cuh"
+#: the fp32 (3xTF32) attention core of B2 and B3
+TF32_HEADER = COMMON / "tf32_attention.cuh"
 #: the sources that include the shared attention core (B3, B2)
 CORE_USERS = [fa.SRC, pa.PREFILL_SRC]
 ALL_SOURCES = [pa.DECODE_SRC, pa.PREFILL_SRC, fa.SRC, wkv.SRC]
@@ -100,6 +102,68 @@ def test_only_b2_and_b3_use_the_tensor_core_core(src):
     assert "wgmma.mma_async" not in text
 
 
+@pytest.mark.parametrize("src", CORE_USERS, ids=lambda p: p.name)
+def test_editing_the_tf32_header_changes_the_library(tmp_path, src):
+    copied = _copy_tree(tmp_path, src)
+    before = cuda_build._lib_path(copied)
+    header = tmp_path / "kernels" / "common" / "csrc" / TF32_HEADER.name
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert cuda_build._lib_path(copied) != before
+
+
+def test_the_tf32_header_is_plain_device_code():
+    text = TF32_HEADER.read_text()
+    includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', text, re.M)
+    assert includes == ["cuda_runtime.h", "math.h", "stdint.h",
+                        "hopper_attention.cuh"]
+    assert "torch" not in text.lower() and "ATen" not in text
+    assert "#pragma once" in text
+    assert 'extern "C"' not in text and "__global__" not in text
+
+
+@pytest.mark.parametrize("src", ALL_SOURCES, ids=lambda p: p.name)
+def test_only_b2_and_b3_use_the_tf32_core(src):
+    text = src.read_text()
+    assert ('#include "tf32_attention.cuh"' in text) == (src in CORE_USERS)
+    # the products are issued in the shared header only
+    assert "tf32.tf32" not in text
+
+
+def test_the_tf32_core_issues_3xtf32_mma_products_on_rounded_operands():
+    """fp32 B2/B3's products: mma.sync m16n8k8 tf32 on operands rounded
+    to nearest, ties away (add 0x1000, clear the 13 low bits), three per
+    product, the small terms first; staged with cp.async; no atomics, no
+    wgmma, no library call."""
+    text = TF32_HEADER.read_text()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
+    assert "+ 0x1000u) & 0xffffe000u" in text
+    body = re.search(r"void mma_3xtf32\(.*?\n}\n", text, re.S).group(0)
+    calls = re.findall(r"mma_tf32\(d, (\w+), (\w+), (\w+)\);", body)
+    assert calls == [("ab", "bs0", "bs1"), ("as", "bb0", "bb1"),
+                     ("ab", "bb0", "bb1")]
+    code = re.sub(r"//[^\n]*", "", text).lower()
+    for banned in ("atomic", "wgmma", "cublas", "cudamalloc",
+                   "synchronize"):
+        assert banned not in code, banned
+    assert "cp_async16" in text
+
+
+@pytest.mark.parametrize("src", CORE_USERS, ids=lambda p: p.name)
+def test_fp32_dispatches_to_the_tf32_kernel_alone(src):
+    """The C entry sends every fp32 head dim to the 3xTF32 kernel and
+    bf16 to the wgmma one; the CUDA-core kernels are gone."""
+    text = src.read_text()
+    for d in (64, 128, 256):
+        assert re.search(rf"dtype == 0 && D == {d}\)\s*return "
+                         rf"launch_tf32<{d}>", text), d
+        assert re.search(rf"dtype == 1 && D == {d}\)\s*return "
+                         rf"launch_wgmma<{d}>", text), d
+    assert text.count("__global__") == 2
+    for gone in ("paged_prefill_kernel", "flash_fwd_kernel", "SoftmaxRow",
+                 "template <typename T, int D>"):
+        assert gone not in text, gone
+
+
 def test_the_core_issues_bf16_wgmma_products():
     text = HEADER.read_text()
     for shape in ("m64n64k16", "m64n128k16"):
@@ -114,7 +178,7 @@ def test_the_core_issues_bf16_wgmma_products():
                                 pa.paged_prefill_cuda],
                          ids=lambda f: f.__name__)
 def test_wrappers_count_launches_by_variant(fn):
-    assert set(fn.launches_by_variant) == {"wgmma", "simt"}
+    assert set(fn.launches_by_variant) == {"wgmma", "mma_3xtf32"}
     assert all(isinstance(n, int) and n >= 0
                for n in fn.launches_by_variant.values())
 
@@ -180,7 +244,7 @@ def test_ctypes_signatures_match_the_c_entries(mod):
 def test_every_dtype_the_wrapper_takes_selects_one_variant(mod):
     assert set(mod._VARIANT) == set(mod._DTYPE_CODE)
     assert mod._VARIANT[torch.bfloat16] == "wgmma"
-    assert mod._VARIANT[torch.float32] == "simt"
+    assert mod._VARIANT[torch.float32] == "mma_3xtf32"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

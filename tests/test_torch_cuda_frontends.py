@@ -34,7 +34,7 @@ from repro_torch.serving import Engine, EngineConfig, generate_reference
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 H, HKV, D = 8, 1, 256
-VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+VARIANT = {torch.float32: "mma_3xtf32", torch.bfloat16: "wgmma"}
 DECODE_VARIANT = {torch.float32: "split_simt", torch.bfloat16: "split_mma"}
 
 

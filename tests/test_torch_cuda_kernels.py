@@ -22,7 +22,7 @@ from repro_torch.models.ssm import pick_chunk
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 #: the kernel each dtype selects in B2 and B3
-VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+VARIANT = {torch.float32: "mma_3xtf32", torch.bfloat16: "wgmma"}
 
 
 def _variants(fn):
@@ -234,7 +234,20 @@ def _written_slots(bt, st, ln, c, P, page):
     # a mid-page start each writes into its own copy of the boundary page
     # (the copy-on-write guard's), at a page boundary into fresh pages
     (2, 16, 8, 1, 64, 16, 6, [40, 40], [16, 12], 2),
-    (2, 16, 8, 1, 64, 16, 6, [48, 48], [16, 16], 3)])
+    (2, 16, 8, 1, 64, 16, 6, [48, 48], [16, 16], 3),
+    # D = 128 with G = 1 (qwen2-moe) and G = 8 (qwen3-moe): ragged and
+    # length-0 rows, starts off the 32-key tile
+    (4, 128, 16, 16, 128, 16, 20, [0, 128, 37, 200], [128, 100, 0, 57], 0),
+    (3, 64, 32, 4, 128, 8, 40, [0, 131, 250], [64, 1, 63], 0),
+    # D = 256 (PaliGemma, G = 8): 8 warps a CTA, padded rows, a shared
+    # prefix, pages 8 and 64
+    (3, 128, 8, 1, 256, 16, 24, [0, 192, 130], [128, 64, 0], 0),
+    (4, 96, 8, 1, 256, 8, 40, [0, 37, 100, 200], [96, 50, 0, 80], 0),
+    (2, 64, 8, 1, 256, 64, 4, [65, 65], [64, 30], 1),
+    # MusicGen's round: 256-row chunks over prefixes up to 1,280, G = 1
+    (8, 256, 24, 24, 64, 16, 128, [0, 256, 512, 768, 1024, 1280, 0, 256],
+     [256] * 8, 0),
+    (3, 256, 24, 24, 64, 16, 100, [1280, 999, 0], [256, 13, 0], 0)])
 def test_prefill_kernel_matches_plain(gen, dtype, B, c, H, Hkv, D, page,
                                       maxp, starts, lengths, shared):
     P = B * maxp + 3
@@ -307,7 +320,10 @@ def _qkv(gen, B, S, H, Hkv, D, dtype):
     (1, 512, 15, 5, 64),              # SmolLM-360M, G = 3, H = 15
     (2, 512, 15, 5, 64),
     (1, 37, 6, 2, 128), (2, 37, 15, 5, 64), (1, 200, 6, 3, 128),
-    (1, 2048, 32, 4, 64)])            # long S: the heaviest tiles first
+    (1, 2048, 32, 4, 64),             # long S: the heaviest tiles first
+    (2, 512, 32, 4, 128), (1, 333, 16, 16, 128),   # D = 128, G = 8 and 1
+    (2, 512, 8, 1, 256), (1, 77, 8, 1, 256),       # D = 256 (PaliGemma)
+    (1, 300, 16, 2, 256)])
 def test_flash_kernel_matches_plain(gen, dtype, B, S, H, Hkv, D):
     q, k, v = _qkv(gen, B, S, H, Hkv, D, dtype)
     n0 = fa.flash_attention_cuda.launches
@@ -329,9 +345,10 @@ def test_flash_kernel_matches_plain(gen, dtype, B, S, H, Hkv, D):
     (True, 100, 0, 700),               # whole tiles outside the window
     (True, 130, 70, 500),              # a window and a mid-tile prefix
     (True, 0, 0, 37), (False, 0, 0, 37)])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_kernel_masks_match_plain(gen, dtype, causal, window,
-                                        prefix_len, S):
-    q, k, v = _qkv(gen, 1, S, 4, 2, 64, dtype)
+                                        prefix_len, S, D):
+    q, k, v = _qkv(gen, 1, S, 4, 2, D, dtype)
     kw = dict(causal=causal, window=window, prefix_len=prefix_len)
     before = _variants(fa.flash_attention_cuda)
     got = fa.flash_attention_cuda(q, k, v, **kw)
@@ -340,6 +357,39 @@ def test_flash_kernel_masks_match_plain(gen, dtype, causal, window,
                                fa_ref.attention_reference(
                                    q.float(), k.float(), v.float(), **kw),
                                **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_fp32_attention_kernels_repeat_bit_for_bit(gen, D):
+    """fp32 B2 and B3 (the 3xTF32 kernels) called again on the same
+    inputs give the same bits: no atomics, no state between calls; B2's
+    pool writes too."""
+    dtype = torch.float32
+    q, k, v = _qkv(gen, 2, 300, 8, 2, D, dtype)
+    first = fa.flash_attention_cuda(q, k, v, window=100, prefix_len=40)
+    for _ in range(3):
+        assert torch.equal(fa.flash_attention_cuda(q, k, v, window=100,
+                                                   prefix_len=40), first)
+    B, c, H, Hkv, page, maxp = 3, 128, 16, 2, 16, 24
+    P = B * maxp + 3
+    q = _randn(gen, B, c, H, D, dtype=dtype)
+    k = _randn(gen, B, c, Hkv, D, dtype=dtype)
+    v = _randn(gen, B, c, Hkv, D, dtype=dtype)
+    kp = _randn(gen, P, page, Hkv, D, dtype=dtype)
+    vp = _randn(gen, P, page, Hkv, D, dtype=dtype)
+    bt = _tables(gen, B, maxp, P)
+    st = torch.tensor([0, 200, 77], dtype=torch.int32, device="cuda")
+    ln = torch.tensor([128, 90, 0], dtype=torch.int32, device="cuda")
+    kp1, vp1 = kp.clone(), vp.clone()
+    before = _variants(pa.paged_prefill_cuda)
+    first = pa.paged_prefill_cuda(q, k, v, kp1, vp1, bt, st, ln)
+    _assert_one_launch_of(pa.paged_prefill_cuda, before, dtype)
+    for _ in range(3):
+        kp2, vp2 = kp.clone(), vp.clone()
+        assert torch.equal(pa.paged_prefill_cuda(q, k, v, kp2, vp2, bt, st,
+                                                 ln), first)
+        assert torch.equal(kp2, kp1) and torch.equal(vp2, vp1)
 
 
 @pytest.mark.cuda
