@@ -6,8 +6,11 @@ with a plain C interface (no PyTorch headers, so a build takes seconds)
 for ``sm_90a``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -I csrc -I ../common/csrc \\
+         -Xcompiler -fPIC -Xptxas -v -lineinfo -I csrc -I ../common/csrc \\
          -o build/lib<name>-<hash>.so csrc/<name>.cu
+
+``-lineinfo`` adds line tables and nothing else (the code is the same),
+so a report of compute-sanitizer or a profiler names the source line.
 
 Headers shared by several kernels live in ``kernels/common/csrc/``, which
 every build puts on the include path next to the source's own ``csrc/``.
@@ -31,7 +34,8 @@ from pathlib import Path
 from typing import Any, Dict, Iterable, List, Tuple
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo"]
 
 #: loaded libraries by absolute .so path (a process-wide cache: a shared
 #: library is loaded once per process anyway)

@@ -68,6 +68,44 @@ def init_pools(cfg: ModelConfig, num_pages: int, page_size: int, *,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def prefill_layer(cfg: ModelConfig, lp: Any, x: torch.Tensor,
+                  positions: torch.Tensor, k_pool: torch.Tensor,
+                  v_pool: torch.Tensor, block_tables: torch.Tensor,
+                  starts: torch.Tensor, lengths: torch.Tensor,
+                  moe_impl: str = "dense") -> torch.Tensor:
+    """One layer of ``prefill_fn``: x (B, c, d) -> x after the layer; the
+    chunk's K/V rows are written into the layer's pools by B2."""
+    B, c = x.shape[:2]
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn._project_qkv(lp["attn"], cfg, h, positions)
+    out = pa_ops.paged_prefill(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        k_pool, v_pool, block_tables, starts, lengths)
+    x = x + out.reshape(B, c, cfg.q_dim) @ lp["attn"]["wo"]
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + M._mlp_or_moe(cfg, lp, h, moe_impl)
+
+
+def decode_layer(cfg: ModelConfig, lp: Any, x: torch.Tensor,
+                 ctx: torch.Tensor, dest: torch.Tensor, k_pool: torch.Tensor,
+                 v_pool: torch.Tensor, block_tables: torch.Tensor,
+                 ctx_lens: torch.Tensor, moe_impl: str = "dense"
+                 ) -> torch.Tensor:
+    """One layer of ``decode_fn``: x (B, 1, d) -> x after the layer; the
+    new token's K/V row is written at pool slot ``dest`` (B,), then B1
+    attends over ``ctx_lens`` (B,) tokens of the row's pages."""
+    B = x.shape[0]
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn._project_qkv(lp["attn"], cfg, h, ctx[:, None])
+    scatter_rows(k_pool, dest, k[:, 0])
+    scatter_rows(v_pool, dest, v[:, 0])
+    out = pa_ops.paged_decode(q[:, 0].contiguous(), k_pool, v_pool,
+                              block_tables, ctx_lens)
+    x = x + (out.reshape(B, cfg.q_dim) @ lp["attn"]["wo"])[:, None]
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + M._mlp_or_moe(cfg, lp, h, moe_impl)
+
+
 def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense"
                     ) -> Tuple[Callable, Callable]:
     """Returns ``(prefill_fn, decode_fn)`` over pooled KV; an MoE block's
@@ -103,14 +141,8 @@ def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense"
                                                    dtype=torch.int32)
         x, _ = M._embed(cfg, params, tokens.long(), positions)
         for l, lp in enumerate(M.unstack_layers(params)):
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = attn._project_qkv(lp["attn"], cfg, h, positions)
-            out = pa_ops.paged_prefill(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                k_pools[l], v_pools[l], block_tables, starts, lengths)
-            x = x + out.reshape(B, c, cfg.q_dim) @ lp["attn"]["wo"]
-            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + M._mlp_or_moe(cfg, lp, h, moe_impl)
+            x = prefill_layer(cfg, lp, x, positions, k_pools[l], v_pools[l],
+                              block_tables, starts, lengths, moe_impl)
         last = torch.clamp(lengths.long() - 1, min=0)
         x_last = x[torch.arange(B, device=x.device), last]
         return _finish(params, x_last)
@@ -131,15 +163,8 @@ def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense"
         ctx_lens = (ctx + 1).to(torch.int32)
         x, _ = M._embed(cfg, params, tokens.long()[:, None], ctx[:, None])
         for l, lp in enumerate(M.unstack_layers(params)):
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = attn._project_qkv(lp["attn"], cfg, h, ctx[:, None])
-            scatter_rows(k_pools[l], dest, k[:, 0])
-            scatter_rows(v_pools[l], dest, v[:, 0])
-            out = pa_ops.paged_decode(q[:, 0].contiguous(), k_pools[l],
-                                      v_pools[l], block_tables, ctx_lens)
-            x = x + (out.reshape(B, cfg.q_dim) @ lp["attn"]["wo"])[:, None]
-            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + M._mlp_or_moe(cfg, lp, h, moe_impl)
+            x = decode_layer(cfg, lp, x, ctx, dest, k_pools[l], v_pools[l],
+                             block_tables, ctx_lens, moe_impl)
         return _finish(params, x[:, 0])
 
     return prefill_fn, decode_fn

@@ -359,37 +359,74 @@ def test_flash_kernel_masks_match_plain(gen, dtype, causal, window,
                                **TOL[dtype])
 
 
+#: every variant of B1-B4, by the dtype it runs in (B4: its columns a
+#: CTA, picked from B x H), at each head dim it takes
+REPEAT_CASES = (
+    [(kernel, dtype, D) for kernel in ("paged_decode", "paged_prefill",
+                                       "flash_attention")
+     for dtype in (torch.float32, torch.bfloat16) for D in (64, 128, 256)]
+    + [("wkv6_colsplit32", torch.float32, 64),
+       ("wkv6_colsplit64", torch.float32, 64)])
+REPEATS = 20
+
+
+def _repeat_call(gen, kernel, dtype, D):
+    """(a call of ``kernel``'s variant for ``dtype`` on fixed inputs ->
+    its outputs, the wrapper, the variant it must launch)."""
+    if kernel == "paged_decode":      # several splits: the merge runs
+        B, H, Hkv, page, npages = 3, 16, 2, 16, 32
+        P = B * npages + 3
+        q = _randn(gen, B, H, D, dtype=dtype)
+        kp, vp = (_randn(gen, P, page, Hkv, D, dtype=dtype)
+                  for _ in range(2))
+        bt = _tables(gen, B, npages, P)
+        ctx = torch.tensor([1, 300, 512], dtype=torch.int32, device="cuda")
+        return (lambda: (pa.paged_decode_cuda(q, kp, vp, bt, ctx),),
+                pa.paged_decode_cuda, DECODE_VARIANT[dtype])
+    if kernel == "paged_prefill":     # its pool writes repeat too
+        B, c, H, Hkv, page, maxp = 3, 128, 16, 2, 16, 24
+        P = B * maxp + 3
+        q = _randn(gen, B, c, H, D, dtype=dtype)
+        k, v = (_randn(gen, B, c, Hkv, D, dtype=dtype) for _ in range(2))
+        kp, vp = (_randn(gen, P, page, Hkv, D, dtype=dtype)
+                  for _ in range(2))
+        bt = _tables(gen, B, maxp, P)
+        st = torch.tensor([0, 200, 77], dtype=torch.int32, device="cuda")
+        ln = torch.tensor([128, 90, 0], dtype=torch.int32, device="cuda")
+
+        def call():
+            kp2, vp2 = kp.clone(), vp.clone()
+            return (pa.paged_prefill_cuda(q, k, v, kp2, vp2, bt, st, ln),
+                    kp2, vp2)
+        return call, pa.paged_prefill_cuda, VARIANT[dtype]
+    if kernel == "flash_attention":
+        q, k, v = _qkv(gen, 2, 300, 8, 2, D, dtype)
+        return (lambda: (fa.flash_attention_cuda(q, k, v, window=100,
+                                                 prefix_len=40),),
+                fa.flash_attention_cuda, VARIANT[dtype])
+    B, S, H = (1, 37, 4) if kernel == "wkv6_colsplit32" else (1, 21, 265)
+    r, k, v, w, u, s0 = _wkv_inputs(gen, B, S, H, D, s0=True)
+    assert f"wkv6_colsplit{wkv.columns(B, H, D)}" == kernel
+    return lambda: wkv.wkv6_cuda(r, k, v, w, u, s0), wkv.wkv6_cuda, None
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
-def test_fp32_attention_kernels_repeat_bit_for_bit(gen, D):
-    """fp32 B2 and B3 (the 3xTF32 kernels) called again on the same
-    inputs give the same bits: no atomics, no state between calls; B2's
-    pool writes too."""
-    dtype = torch.float32
-    q, k, v = _qkv(gen, 2, 300, 8, 2, D, dtype)
-    first = fa.flash_attention_cuda(q, k, v, window=100, prefix_len=40)
-    for _ in range(3):
-        assert torch.equal(fa.flash_attention_cuda(q, k, v, window=100,
-                                                   prefix_len=40), first)
-    B, c, H, Hkv, page, maxp = 3, 128, 16, 2, 16, 24
-    P = B * maxp + 3
-    q = _randn(gen, B, c, H, D, dtype=dtype)
-    k = _randn(gen, B, c, Hkv, D, dtype=dtype)
-    v = _randn(gen, B, c, Hkv, D, dtype=dtype)
-    kp = _randn(gen, P, page, Hkv, D, dtype=dtype)
-    vp = _randn(gen, P, page, Hkv, D, dtype=dtype)
-    bt = _tables(gen, B, maxp, P)
-    st = torch.tensor([0, 200, 77], dtype=torch.int32, device="cuda")
-    ln = torch.tensor([128, 90, 0], dtype=torch.int32, device="cuda")
-    kp1, vp1 = kp.clone(), vp.clone()
-    before = _variants(pa.paged_prefill_cuda)
-    first = pa.paged_prefill_cuda(q, k, v, kp1, vp1, bt, st, ln)
-    _assert_one_launch_of(pa.paged_prefill_cuda, before, dtype)
-    for _ in range(3):
-        kp2, vp2 = kp.clone(), vp.clone()
-        assert torch.equal(pa.paged_prefill_cuda(q, k, v, kp2, vp2, bt, st,
-                                                 ln), first)
-        assert torch.equal(kp2, kp1) and torch.equal(vp2, vp1)
+@pytest.mark.parametrize("kernel,dtype,D", REPEAT_CASES)
+def test_fp32_attention_kernels_repeat_bit_for_bit(gen, kernel, dtype, D):
+    """Every variant of B1-B4 (fp32 B2 and B3 the 3xTF32 kernels) called
+    again and again on the same inputs gives the same bits: no atomics,
+    no state between calls, no read of memory the kernel did not write;
+    B2's pool writes too."""
+    call, fn, variant = _repeat_call(gen, kernel, dtype, D)
+    n0, before = fn.launches, dict(getattr(fn, "launches_by_variant", {}))
+    first = call()
+    assert fn.launches == n0 + 1
+    if variant is not None:
+        assert fn.launches_by_variant == {
+            k: n + (k == variant) for k, n in before.items()}
+    for _ in range(REPEATS):
+        for got, want in zip(call(), first):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
