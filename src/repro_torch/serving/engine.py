@@ -140,6 +140,16 @@ Differences from the JAX engine (``repro.serving.engine``):
   raise at the first step.
   ``EngineConfig`` has no ``share_jits``: a step graph belongs to the
   engine that captured it.
+* The step's phases are spans (``serving.spans``): ``engine.step`` and
+  inside it ``engine.schedule``, ``engine.preempt``, ``engine.swap_in``,
+  ``engine.attach``, ``engine.commit``, ``engine.prefill`` (its
+  ``engine.round``s), ``engine.decode``, ``engine.account`` and
+  ``engine.drain``; ``engine.block_tables``, ``engine.upload``,
+  ``engine.replay`` and ``engine.fetch`` inside the compute phases.
+  Each adds its host seconds to ``phase_stats`` and, while a
+  ``torch.profiler`` collects, is a range on the profiler's clock.
+  ``prefill_tokens`` / ``prefill_grid_tokens`` count the rounds' real
+  tokens and the padded grid they compute.
 
 Correctness contract (tested against the JAX engine on the CPU, and
 against ``generate_reference`` on the card): scheduling, chunking,
@@ -176,6 +186,8 @@ from repro_torch.serving.faults import (FaultError, FaultPlan,
                                         IntegrityError, PermanentStoreError,
                                         TransientStoreError)
 from repro_torch.serving import spmd
+from repro_torch.serving import spans
+from repro_torch.serving.spans import span
 from repro_torch.serving.host_copy import (HostLink, Transfer, gather_pages,
                                            gather_slot, nbytes_of,
                                            restore_pages, restore_slot)
@@ -410,10 +422,10 @@ class Engine:
         self.token_ids: Dict[int, List[int]] = {}
         self.outputs: Dict[int, List[int]] = {}
         self.buckets = _bucket_ladder(ecfg.chunk, ecfg.min_bucket)
-        # wall-clock attribution of the step (prefix attach / prefill
-        # compute / host->device uploads)
-        self.phase_stats: Dict[str, float] = {
-            SK.ATTACH_S: 0.0, SK.PREFILL_S: 0.0, SK.UPLOAD_S: 0.0}
+        # host seconds of the step by phase, one key a span
+        # (``serving.spans``: attach_s, prefill_s, upload_s, replay_s, ...)
+        self.phase_stats: Dict[str, float] = dict.fromkeys(
+            spans.KEY.values(), 0.0)
         self.swap_store = KVSwapStore(capacity_bytes=ecfg.swap_bytes)
         # --- failure model: fault plan + step-transaction machinery ----- #
         self.fault_plan: Optional[FaultPlan] = (
@@ -494,6 +506,11 @@ class Engine:
         # decode kernel)
         self.prefill_rounds = 0
         self.decode_steps = 0
+        # the prefill rounds' real tokens (their chunks' lengths) and the
+        # grid they compute (nslots x bucket a round; on the legacy plane
+        # a chunk's own length): what padding the ladder costs
+        self.prefill_tokens = 0
+        self.prefill_grid_tokens = 0
         self.now = 0.0
         self.wall = 0.0
         self.batch_logs: List[BatchLog] = []
@@ -586,9 +603,8 @@ class Engine:
 
     def _upload(self, dst: torch.Tensor, host: np.ndarray) -> None:
         """ONE host-to-device copy into a step graph's static input."""
-        t0 = time.perf_counter()
-        dst.copy_(torch.from_numpy(host))
-        self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+        with span(self.phase_stats, spans.UPLOAD):
+            dst.copy_(torch.from_numpy(host))
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -1328,26 +1344,25 @@ class Engine:
         v = self.allocator.version
         if self._bt_cache == v:
             return self._bt_dev
-        t0 = time.perf_counter()
-        if self._bt_host is None:
-            self._bt_host = np.zeros((self.ecfg.nslots, self.max_pages),
-                                     np.int32)
-            self.allocator.consume_dirty()
-            dirty = set(self.slot_of)          # first build: all rows
-        else:
-            dirty = self.allocator.consume_dirty()
-        for rid in dirty:
-            slot = self.slot_of.get(rid)
-            if slot is None:
-                continue     # freed rid: _release already zeroed its row
-            row = self._bt_host[slot]
-            row[:] = 0
-            if self.allocator.has(rid):
-                pages = self.allocator.table(rid).pages
-                row[:len(pages)] = pages
-        self._bt_dev.copy_(torch.from_numpy(self._bt_host))
-        self._bt_cache = v
-        self.phase_stats[SK.UPLOAD_S] += time.perf_counter() - t0
+        with span(self.phase_stats, spans.BLOCK_TABLES):
+            if self._bt_host is None:
+                self._bt_host = np.zeros((self.ecfg.nslots, self.max_pages),
+                                         np.int32)
+                self.allocator.consume_dirty()
+                dirty = set(self.slot_of)          # first build: all rows
+            else:
+                dirty = self.allocator.consume_dirty()
+            for rid in dirty:
+                slot = self.slot_of.get(rid)
+                if slot is None:
+                    continue  # freed rid: _release already zeroed its row
+                row = self._bt_host[slot]
+                row[:] = 0
+                if self.allocator.has(rid):
+                    pages = self.allocator.table(rid).pages
+                    row[:len(pages)] = pages
+            self._bt_dev.copy_(torch.from_numpy(self._bt_host))
+            self._bt_cache = v
         return self._bt_dev
 
     def _swap_time(self, n_kvs: int) -> float:
@@ -1363,39 +1378,53 @@ class Engine:
         emitting request finishes its batch allotment.  ``plans`` rows
         are [request, slot, cursor, remaining]."""
         nslots = self.ecfg.nslots
+        ps = self.phase_stats
         final_tok: Dict[int, int] = {}
         while True:
             steps = {p[1]: min(self.ecfg.chunk, p[3])
                      for p in plans if p[3] > 0}
             if not steps:
                 break
-            bucket = self._bucket_for(max(steps.values()))
-            toks = np.zeros((nslots, bucket), np.int32)
-            lens = np.zeros((nslots,), np.int32)
-            starts = np.zeros((nslots,), np.int32)
-            finishing: List[Tuple[Request, int]] = []
-            for p in plans:
-                r, slot, cursor, rem = p
-                if rem <= 0:
-                    continue
-                sc = steps[slot]
-                toks[slot, :sc] = self.token_ids[r.rid][cursor:cursor + sc]
-                lens[slot] = sc
-                starts[slot] = cursor
-                p[2] += sc
-                p[3] -= sc
-                if p[3] == 0:
-                    finishing.append((r, slot))
-            g = self._prefill_graph(bucket)
-            stage(g.inputs[0], toks, lens, starts)
-            self.prefill_rounds += 1
-            tok_ids = g()
-            if any(emits[r.rid] for r, _ in finishing):
-                host = tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
-                for r, slot in finishing:
-                    if emits[r.rid]:
-                        final_tok[r.rid] = int(host[slot])
+            with span(ps, spans.ROUND):
+                bucket = self._bucket_for(max(steps.values()))
+                toks = np.zeros((nslots, bucket), np.int32)
+                lens = np.zeros((nslots,), np.int32)
+                starts = np.zeros((nslots,), np.int32)
+                finishing: List[Tuple[Request, int]] = []
+                for p in plans:
+                    r, slot, cursor, rem = p
+                    if rem <= 0:
+                        continue
+                    sc = steps[slot]
+                    toks[slot, :sc] = \
+                        self.token_ids[r.rid][cursor:cursor + sc]
+                    lens[slot] = sc
+                    starts[slot] = cursor
+                    p[2] += sc
+                    p[3] -= sc
+                    if p[3] == 0:
+                        finishing.append((r, slot))
+                g = self._prefill_graph(bucket)
+                stage(g.inputs[0], toks, lens, starts)
+                self._count_round(sum(steps.values()), nslots * bucket)
+                with span(ps, spans.REPLAY):
+                    tok_ids = g()
+                if any(emits[r.rid] for r, _ in finishing):
+                    with span(ps, spans.FETCH):
+                        host = tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
+                    for r, slot in finishing:
+                        if emits[r.rid]:
+                            final_tok[r.rid] = int(host[slot])
         return final_tok
+
+    def _count_round(self, tokens: int, grid: int) -> None:
+        """One prefill round run: ``tokens`` real tokens on a grid of
+        ``grid`` (``prefill_tokens`` / ``prefill_grid_tokens``).  Called
+        after the commit point only, so an aborted attempt never moves
+        the counters."""
+        self.prefill_rounds += 1
+        self.prefill_tokens += tokens
+        self.prefill_grid_tokens += grid
 
     def _merge(self, active: torch.Tensor,
                new_cache: Dict[str, torch.Tensor]) -> None:
@@ -1448,7 +1477,7 @@ class Engine:
                 logits, new = self._chunk_fn(
                     self.params, toks, gather_slot(self.cache, slot), None)
                 restore_slot(self.cache, slot, new)
-                self.prefill_rounds += 1
+                self._count_round(step_c, step_c)
                 start += step_c
                 remaining -= step_c
             if r.m + c == r.target_context:   # this batch emits a token
@@ -1487,8 +1516,10 @@ class Engine:
         g = self._decode_graph()
         self._upload(g.inputs[0], packed)
         self.decode_steps += 1
-        tok_ids = g()
-        return tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
+        with span(self.phase_stats, spans.REPLAY):
+            tok_ids = g()
+        with span(self.phase_stats, spans.FETCH):
+            return tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
 
     def _run_prefills_paged(self, prefill_items) -> Dict[int, int]:
         """The round loop over the fused paged prefill.  A grant's
@@ -1537,12 +1568,14 @@ class Engine:
             self._upload(g.inputs[0], packed)
         self._block_tables_device()
         self.decode_steps += 1
-        tok_ids = g()
+        with span(self.phase_stats, spans.REPLAY):
+            tok_ids = g()
         nxt = tuple(sorted(
             (r.rid, self.slot_of[r.rid], r.m + 1,
              len(self.token_ids[r.rid]) + 1) for r, _ in decode_items))
         self._decode_state = {"key": nxt}
-        return tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
+        with span(self.phase_stats, spans.FETCH):
+            return tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
 
     # ------------------------------------------------------------------ #
     def step(self) -> int:
@@ -1559,54 +1592,55 @@ class Engine:
         re-raises."""
         if not self.sched.has_work():
             return 0
-        self._step_no += 1  # repro: allow-txn-coverage(step identity deliberately survives rollback - a retried attempt is the SAME step, and drain/fault keying depends on that)
-        for attempt in range(_MAX_STEP_ATTEMPTS):
-            # repro: allow-txn-coverage(attempt bookkeeping is reset at every attempt start and keys the per-attempt fault draws - restoring it would replay attempt 0's faults forever)
-            self._attempt, self._alloc_ordinal = attempt, 0
-            self._emitted.fill(-1)  # repro: allow-txn-coverage(the step's tokens for the ranks' check: reset at every attempt start, written only after the commit point)
-            txn = self._begin_txn()
-            # repro: allow-txn-coverage(the deferred-write log is opened empty at every attempt start; a rollback drops it unapplied, which is what rolls the pools and slots back)
-            self._intents, self._committed = [], False
-            t0 = time.perf_counter()
-            try:
-                executed = self._step_attempt()
-            except (FaultError, IntegrityError) as e:
-                self._drop_intents()
-                txn.rollback()
-                aborted_s = time.perf_counter() - t0
-                self.wall += aborted_s  # repro: allow-txn-coverage(measured wall of the aborted attempt is real elapsed time - rolling it back would hide the recovery cost)
-                # repro: allow-txn-coverage(recovery accounting counts rollbacks so it must survive them - written only AFTER txn.rollback, never inside a txn)
-                self.recovery_stats[SK.ROLLBACKS] += 1
-                self.recovery_stats[SK.WALL_ABORTED_S] += aborted_s
-                if isinstance(e, IntegrityError):
-                    self.recovery_stats[SK.INTEGRITY_FAILURES] += 1
-                    self.recovery_stats[SK.DEGRADED_RECOMPUTES] += 1
-                    for repair in e.repairs:   # on rolled-back state
-                        repair()
-                else:
-                    self.recovery_stats[SK.ALLOC_FAULTS] += 1
-                continue
-            except OutOfPagesError:
-                self._drop_intents()
-                txn.rollback()
-                self.recovery_stats[SK.ROLLBACKS] += 1
-                raise
-            self._committed = False        # the attempt is over
-            wall_s = self._last_wall
-            if self.mesh is not None:
-                # the wall the monitor reads is agreed (the slowest
-                # rank's, as a GSPMD step's); the tokens are checked equal
-                wall_s = spmd.agree(
-                    self.mesh, self._step_no, wall_s,
-                    self._emitted if self.ecfg.check_invariants else None)
-            if (self._straggler is not None and executed
-                    and self._straggler.observe(predicted_s=self._last_dt,
-                                                actual_s=wall_s)):
-                self._requeue_stragglers()
-            return executed
-        raise RuntimeError(
-            f"step {self._step_no}: {_MAX_STEP_ATTEMPTS} fault-recovery "
-            f"attempts exhausted")
+        with span(self.phase_stats, spans.STEP):
+            self._step_no += 1  # repro: allow-txn-coverage(step identity deliberately survives rollback - a retried attempt is the SAME step, and drain/fault keying depends on that)
+            for attempt in range(_MAX_STEP_ATTEMPTS):
+                # repro: allow-txn-coverage(attempt bookkeeping is reset at every attempt start and keys the per-attempt fault draws - restoring it would replay attempt 0's faults forever)
+                self._attempt, self._alloc_ordinal = attempt, 0
+                self._emitted.fill(-1)  # repro: allow-txn-coverage(the step's tokens for the ranks' check: reset at every attempt start, written only after the commit point)
+                txn = self._begin_txn()
+                # repro: allow-txn-coverage(the deferred-write log is opened empty at every attempt start; a rollback drops it unapplied, which is what rolls the pools and slots back)
+                self._intents, self._committed = [], False
+                t0 = time.perf_counter()
+                try:
+                    executed = self._step_attempt()
+                except (FaultError, IntegrityError) as e:
+                    self._drop_intents()
+                    txn.rollback()
+                    aborted_s = time.perf_counter() - t0
+                    self.wall += aborted_s  # repro: allow-txn-coverage(measured wall of the aborted attempt is real elapsed time - rolling it back would hide the recovery cost)
+                    # repro: allow-txn-coverage(recovery accounting counts rollbacks so it must survive them - written only AFTER txn.rollback, never inside a txn)
+                    self.recovery_stats[SK.ROLLBACKS] += 1
+                    self.recovery_stats[SK.WALL_ABORTED_S] += aborted_s
+                    if isinstance(e, IntegrityError):
+                        self.recovery_stats[SK.INTEGRITY_FAILURES] += 1
+                        self.recovery_stats[SK.DEGRADED_RECOMPUTES] += 1
+                        for repair in e.repairs:   # on rolled-back state
+                            repair()
+                    else:
+                        self.recovery_stats[SK.ALLOC_FAULTS] += 1
+                    continue
+                except OutOfPagesError:
+                    self._drop_intents()
+                    txn.rollback()
+                    self.recovery_stats[SK.ROLLBACKS] += 1
+                    raise
+                self._committed = False        # the attempt is over
+                wall_s = self._last_wall
+                if self.mesh is not None:
+                    # the wall the monitor reads is agreed (the slowest
+                    # rank's, as a GSPMD step's); the tokens are checked equal
+                    wall_s = spmd.agree(
+                        self.mesh, self._step_no, wall_s,
+                        self._emitted if self.ecfg.check_invariants else None)
+                if (self._straggler is not None and executed
+                        and self._straggler.observe(predicted_s=self._last_dt,
+                                                    actual_s=wall_s)):
+                    self._requeue_stragglers()
+                return executed
+            raise RuntimeError(
+                f"step {self._step_no}: {_MAX_STEP_ATTEMPTS} fault-recovery "
+                f"attempts exhausted")
 
     def _begin_txn(self) -> StepTxn:
         """Open the step transaction: the common participants through
@@ -1636,7 +1670,8 @@ class Engine:
         state: ``_link._held`` holds pinned sources until their copies
         pass, whichever attempt made them; ``phase_stats`` and ``wall``
         are measured time, spent by an aborted attempt all the same; and
-        ``prefill_rounds``/``decode_steps`` move only after the commit."""
+        ``prefill_rounds``/``decode_steps``/``prefill_tokens``/
+        ``prefill_grid_tokens`` move only after the commit."""
         txn = begin_step_txn(
             scheduler=self.sched, allocator=self.allocator,
             store=self.swap_store,
@@ -1721,44 +1756,50 @@ class Engine:
         claim/attach/allocate, commit, price, then run the batch's prefill
         rounds and its decode step."""
         t0 = time.perf_counter()
+        ps = self.phase_stats
         self.allocator.now = self.now   # replacement-policy clock
-        batch = self.sched.get_next_batch()
+        with span(ps, spans.SCHEDULE):
+            batch = self.sched.get_next_batch()
         swap_s = 0.0
         num_swap_out = num_swap_in = 0
         # page-level partial preemptions first: chronologically they
         # precede any later FULL preemption of the same victim, and the
         # tail pages must be snapshotted before the remainder is
-        for r, npages, n_tokens, mode in batch.partial_preempted:
-            if not r.running:
-                # the victim was ALSO fully preempted later this round.  A
-                # swap-mode shed folds into the full suspend (whose
-                # snapshot covers the whole table, tail included) but
-                # keeps its per-run charge, as the simulator does; a
-                # recompute-mode shed must still come off the table so
-                # the full snapshot matches suspended_m
-                if mode == "swap":
+        with span(ps, spans.PREEMPT):
+            for r, npages, n_tokens, mode in batch.partial_preempted:
+                if not r.running:
+                    # the victim was ALSO fully preempted later this
+                    # round.  A swap-mode shed folds into the full suspend
+                    # (whose snapshot covers the whole table, tail
+                    # included) but keeps its per-run charge, as the
+                    # simulator does; a recompute-mode shed must still
+                    # come off the table so the full snapshot matches
+                    # suspended_m
+                    if mode == "swap":
+                        swap_s += self._swap_time(n_tokens)
+                        num_swap_out += 1
+                    else:
+                        removed = self.allocator.free_tail(r.rid, npages)
+                        if self.ecfg.check_invariants:
+                            invariant(removed == n_tokens,
+                                      (r.rid, removed, n_tokens))
+                    continue
+                if self._shed_tail(r, npages, n_tokens, mode):
                     swap_s += self._swap_time(n_tokens)
                     num_swap_out += 1
-                else:
-                    removed = self.allocator.free_tail(r.rid, npages)
-                    if self.ecfg.check_invariants:
-                        invariant(removed == n_tokens, (r.rid, removed,
-                                                        n_tokens))
-                continue
-            if self._shed_tail(r, npages, n_tokens, mode):
-                swap_s += self._swap_time(n_tokens)
-                num_swap_out += 1
-        for victim in batch.preempted:
-            s, o = self._handle_preempted(victim)
-            swap_s += s
-            num_swap_out += o
+            for victim in batch.preempted:
+                s, o = self._handle_preempted(victim)
+                swap_s += s
+                num_swap_out += o
         if not batch.items:
             # swap-outs still happened: owe their virtual-time charge to
             # the next executed batch (mirrors the simulator's carry)
             self._carry_swap_s += swap_s
             self._carry_out += num_swap_out
-            self._commit()          # no write was staged: nothing applies
-            self._drain_swaps(before_step=self._step_no)
+            with span(ps, spans.COMMIT):
+                self._commit()      # no write was staged: nothing applies
+            with span(ps, spans.DRAIN):
+                self._drain_swaps(before_step=self._step_no)
             self.wall += time.perf_counter() - t0
             return 0
         swap_s += self._carry_swap_s
@@ -1768,15 +1809,17 @@ class Engine:
         # swap-ins: restore suspended re-admissions before classification
         # so they re-enter as decodes/short prefills, not full refills;
         # partially shed requests restore their tail runs the same way
-        for r, _ in batch.items:
-            if r.suspended:
-                swap_s += self._swap_time(r.suspended_m)
-                num_swap_in += 1
-                (self._swap_in_paged if self._pooled else self._swap_in)(r)
-            elif r.tail_suspended_m > 0:
-                swap_s += self._swap_time(r.tail_suspended_m)
-                num_swap_in += 1
-                self._swap_in_tail(r)
+        with span(ps, spans.SWAP_IN):
+            for r, _ in batch.items:
+                if r.suspended:
+                    swap_s += self._swap_time(r.suspended_m)
+                    num_swap_in += 1
+                    (self._swap_in_paged if self._pooled
+                     else self._swap_in)(r)
+                elif r.tail_suspended_m > 0:
+                    swap_s += self._swap_time(r.tail_suspended_m)
+                    num_swap_in += 1
+                    self._swap_in_tail(r)
 
         # classify + virtual-time the batch up front
         spec = BatchSpec()
@@ -1794,29 +1837,30 @@ class Engine:
         # the prefix attach may PROMOTE host-demoted pages and any
         # allocation may reclaim-and-DEMOTE registry pages, and those
         # host-link charges belong to THIS batch's virtual time
-        t_attach = time.perf_counter()
-        for r, c in prefill_items:
-            if r.rid not in self.slot_of:
-                self._claim_slot(r.rid, reset=not self._pooled)
-            skip = 0
-            if self._pooled:           # prefix sharing maps KV pages
-                if (self.ecfg.prefix_sharing and r.m == 0
-                        and not self.allocator.has(r.rid)):
-                    skip = self._attach_prefix(r, c)
-                self._prefix_skip[r.rid] = skip
-            self.allocator.allocate(r.rid, c - skip)
-            if self._pooled:
-                self._cow_guard(r.rid, r.m + skip)
-        # repro: allow-txn-coverage(phase_stats is measured wall-clock attribution - time an aborted attempt spent was still spent; parity never compares it)
-        self.phase_stats[SK.ATTACH_S] += time.perf_counter() - t_attach
-        for r, _ in decode_items:
-            self.allocator.allocate(r.rid, 1)
-            if self._pooled:
-                self._cow_guard(r.rid, r.m)
+        # (the span's seconds stay in phase_stats when a fault aborts the
+        # attempt: time an aborted attempt spent was still spent)
+        with span(ps, spans.ATTACH):
+            for r, c in prefill_items:
+                if r.rid not in self.slot_of:
+                    self._claim_slot(r.rid, reset=not self._pooled)
+                skip = 0
+                if self._pooled:           # prefix sharing maps KV pages
+                    if (self.ecfg.prefix_sharing and r.m == 0
+                            and not self.allocator.has(r.rid)):
+                        skip = self._attach_prefix(r, c)
+                    self._prefix_skip[r.rid] = skip
+                self.allocator.allocate(r.rid, c - skip)
+                if self._pooled:
+                    self._cow_guard(r.rid, r.m + skip)
+            for r, _ in decode_items:
+                self.allocator.allocate(r.rid, 1)
+                if self._pooled:
+                    self._cow_guard(r.rid, r.m)
         # the commit point: the last fault point is behind; the staged
         # slot resets and restores, run restores, promotions and CoW
         # copies reach the pools and the cache now, before compute
-        self._commit()
+        with span(ps, spans.COMMIT):
+            self._commit()
         swap_s += self._tier_swap_s
         self._tier_swap_s = 0.0
 
@@ -1826,19 +1870,37 @@ class Engine:
 
         # ---- prefills (one packed bucketed call per round) -------------- #
         if prefill_items:
-            t_pf = time.perf_counter()
-            final_tok = (self._run_prefills_paged if self._pooled
-                         else self._run_prefills_legacy if self._legacy
-                         else self._run_prefills_batched)(prefill_items)
-            self.phase_stats[SK.PREFILL_S] += time.perf_counter() - t_pf
-            for r, c in prefill_items:
-                m_new = r.m + c
-                generated = r.advance(c, self.now)
-                if self._pooled and self.ecfg.prefix_sharing:
-                    self._register_prefix(r, m_new)
-                if generated:
-                    tok = final_tok[r.rid]
-                    self._emitted[self.slot_of[r.rid]] = tok  # repro: allow-txn-coverage(the step's tokens for the ranks' check: reset at every attempt start, written only after the commit point)
+            with span(ps, spans.PREFILL):
+                final_tok = (self._run_prefills_paged if self._pooled
+                             else self._run_prefills_legacy if self._legacy
+                             else self._run_prefills_batched)(prefill_items)
+            with span(ps, spans.ACCOUNT):
+                for r, c in prefill_items:
+                    m_new = r.m + c
+                    generated = r.advance(c, self.now)
+                    if self._pooled and self.ecfg.prefix_sharing:
+                        self._register_prefix(r, m_new)
+                    if generated:
+                        tok = final_tok[r.rid]
+                        self._emitted[self.slot_of[r.rid]] = tok  # repro: allow-txn-coverage(the step's tokens for the ranks' check: reset at every attempt start, written only after the commit point)
+                        self.outputs[r.rid].append(tok)
+                        if r.finished:
+                            self.sched.complete(r)
+                            self._release(r.rid)
+                        else:
+                            self.token_ids[r.rid].append(tok)
+
+        # ---- decodes (one fused step over all slots) -------------------- #
+        if decode_items:
+            with span(ps, spans.DECODE):
+                host = (self._run_decodes_paged if self._pooled
+                        else self._run_decodes_batched)(decode_items)
+            with span(ps, spans.ACCOUNT):
+                for r, c in decode_items:
+                    slot = self.slot_of[r.rid]
+                    r.advance(c, self.now)
+                    tok = int(host[slot])
+                    self._emitted[slot] = tok  # repro: allow-txn-coverage(the step's tokens for the ranks' check: reset at every attempt start, written only after the commit point)
                     self.outputs[r.rid].append(tok)
                     if r.finished:
                         self.sched.complete(r)
@@ -1846,44 +1908,30 @@ class Engine:
                     else:
                         self.token_ids[r.rid].append(tok)
 
-        # ---- decodes (one fused step over all slots) -------------------- #
-        if decode_items:
-            host = (self._run_decodes_paged if self._pooled
-                    else self._run_decodes_batched)(decode_items)
-            for r, c in decode_items:
-                slot = self.slot_of[r.rid]
-                r.advance(c, self.now)
-                tok = int(host[slot])
-                self._emitted[slot] = tok  # repro: allow-txn-coverage(the step's tokens for the ranks' check: reset at every attempt start, written only after the commit point)
-                self.outputs[r.rid].append(tok)
-                if r.finished:
-                    self.sched.complete(r)
-                    self._release(r.rid)
-                else:
-                    self.token_ids[r.rid].append(tok)
-
         # end-of-step boundary: snapshots enqueued in EARLIER steps have
         # had a full step of compute to overlap their copy; finalize them
         # now (this step's own snapshots stay in flight)
-        self._drain_swaps(before_step=self._step_no)
+        with span(ps, spans.DRAIN):
+            self._drain_swaps(before_step=self._step_no)
         # measured, rank-local: only the straggler monitor reads it, after
         # the ranks of a mesh agree on it (``step``)
         wall_s = time.perf_counter() - t0
         self.wall += wall_s
         self._last_dt, self._last_wall = dt, wall_s   # straggler inputs  # repro: allow-txn-coverage(straggler-monitor inputs describe the attempt that COMMITTED - an aborted attempt never reaches this line)
-        if self.ecfg.check_invariants:
-            self.allocator.check_invariants()
-            self.swap_store.check_invariants()
-            self._check_index_sync(batch)
-        kv_used = sum(r.m for r in self.sched.running)
-        self.batch_logs.append(BatchLog(
-            t_start=self.now - dt, t_end=self.now,
-            num_prefill=len(spec.prefills), num_decode=len(spec.decodes),
-            tokens=spec.total_tokens, kv_used=kv_used,
-            preempted=len(batch.preempted) + len(batch.partial_preempted),
-            swapped_out=num_swap_out, swapped_in=num_swap_in,
-            swap_s=swap_s, wall_s=wall_s,
-            pages_used=self.allocator.table_pages))
+        with span(ps, spans.ACCOUNT):
+            if self.ecfg.check_invariants:
+                self.allocator.check_invariants()
+                self.swap_store.check_invariants()
+                self._check_index_sync(batch)
+            kv_used = sum(r.m for r in self.sched.running)
+            self.batch_logs.append(BatchLog(
+                t_start=self.now - dt, t_end=self.now,
+                num_prefill=len(spec.prefills), num_decode=len(spec.decodes),
+                tokens=spec.total_tokens, kv_used=kv_used,
+                preempted=len(batch.preempted) + len(batch.partial_preempted),
+                swapped_out=num_swap_out, swapped_in=num_swap_in,
+                swap_s=swap_s, wall_s=wall_s,
+                pages_used=self.allocator.table_pages))
         return len(batch.items)
 
     def _check_index_sync(self, batch) -> None:
@@ -1955,7 +2003,7 @@ class EngineResult:
     # abort history (rollbacks, alloc faults, integrity failures,
     # degraded recomputes, straggler requeues, aborted wall)
     recovery_stats: Dict[str, float] = field(default_factory=dict)
-    # wall-clock attribution (attach_s / prefill_s / upload_s)
+    # host seconds by phase, one key a span (``serving.spans.KEY``)
     phase_stats: Dict[str, float] = field(default_factory=dict)
 
 

@@ -752,9 +752,9 @@ def test_rank_local_live_engine_agrees_and_unagreed_is_caught():
     src = path.read_text()
     rel = "src/repro_torch/serving/engine.py"
     assert not _blocking(ranklocal.check_module(ModuleIndex(rel, src)))
-    start = src.index("            if self.mesh is not None:\n"
-                      "                # the wall the monitor reads")
-    end = src.index("            if (self._straggler is not None", start)
+    start = src.index("                if self.mesh is not None:\n"
+                      "                    # the wall the monitor reads")
+    end = src.index("                if (self._straggler is not None", start)
     fs = _blocking(ranklocal.check_module(
         ModuleIndex(rel, src[:start] + src[end:])), ranklocal.RULE)
     assert [f.symbol for f in fs] == ["step"] and "wall_s" in fs[0].message
