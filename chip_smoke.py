@@ -186,15 +186,16 @@ Phases — each raises on failure, so any failure exits non-zero:
    launches = layers x prefill rounds, the recovery counts printed.
 20. The step graphs (``repro_torch.serving.step_graphs``).  Every serving
    phase above (3, 4, 10, 11, 14, 15, 18, 19) serves through them: its
-   engine's ``warmup()`` captures one CUDA graph per prefill bucket and
-   one decode graph, and each run must replay them for every prefill
-   round and decode step, build no graph and run no step eagerly
-   (``num_graphs == len(buckets) + 1`` before and after, ``num_compiles``
+   engine's ``warmup()`` captures one CUDA graph per prefill shape (row
+   rung and bucket on the pooled plane, bucket on a slot plane) and one
+   decode graph, and each run must replay them for every prefill round
+   and decode step, build no graph and run no step eagerly (``num_graphs
+   == len(rungs) * len(buckets) + 1`` before and after, ``num_compiles``
    0); the kernels' launch counters add each graph's launches at every
    replay, so the launch checks hold unchanged.  Then, for TinyLlama-1.1B
    in fp32 and bf16 (8 slots, ``cache_len`` 512, chunk 128, page 16) and
    RWKV6-7B in bf16 at full depth (4 slots, chunk 64): a fresh server's
-   capture seconds; each bucket's prefill replay and the decode replay
+   capture seconds; each prefill shape's replay and the decode replay
    against an eager call of the same plane function on cloned pools or
    cache from random state (ids, the decode graph's advanced cohort and
    every pool or cache byte: bit-equal, or the largest difference printed
@@ -2383,7 +2384,8 @@ def phase_rollback(torch, get_config):
 # phase 20: the step graphs at full width
 # --------------------------------------------------------------------- #
 #
-# A warmed engine holds one CUDA graph per ladder bucket and one decode
+# A warmed engine holds one CUDA graph per prefill shape (row rung and
+# ladder bucket on the pooled plane, bucket on a slot plane) and one decode
 # graph (``serving.step_graphs``), and every serving phase checks that its
 # run replayed them and nothing else (``check_graph_run``).
 # ``replay_vs_eager`` sets random state and step inputs, runs the same
@@ -2400,15 +2402,22 @@ def graph_counts(eng):
     return len(g), g.replays, g.eager_calls
 
 
+def expected_graphs(eng):
+    """The step graphs ``warmup()`` captures outside the legacy plane: one
+    per (row rung, bucket), plus the decode graph."""
+    return len(eng.rungs) * len(eng.buckets) + 1
+
+
 def check_graph_run(eng, before, label):
     """After ``warmup()``: every prefill round and decode step of the run
     was one replay, no graph was built and no step ran eagerly."""
     n0, r0, e0 = before
     n1, r1, e1 = graph_counts(eng)
     steps = eng.prefill_rounds + eng.decode_steps
-    check(n0 == n1 == len(eng.buckets) + 1,
+    check(n0 == n1 == expected_graphs(eng),
           f"{label}: {n0} step graphs before the run, {n1} after; "
-          f"expected {len(eng.buckets)} buckets + 1 decode")
+          f"expected {len(eng.rungs)} rungs x {len(eng.buckets)} buckets "
+          "+ 1 decode")
     check(r1 - r0 == steps and e1 == e0,
           f"{label}: {r1 - r0} replays and {e1 - e0} eager calls for "
           f"{eng.prefill_rounds} prefill rounds + {eng.decode_steps} decode "
@@ -2445,7 +2454,9 @@ def replay_vs_eager(torch, eng, seed, device=DEVICE):
     plane function on cloned state ({graph: ``_compare_state``}).  The
     engine's pools or cache are overwritten with random state; on the
     pooled plane each slot owns distinct pages for every position a step
-    may write, so the comparison does not depend on write order."""
+    may write, so the comparison does not depend on write order, and each
+    packed grid holds distinct random slots (some rows of length 0), the
+    eager call their rows of the block tables."""
     from repro_torch.serving.engine import merge_rows
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -2474,26 +2485,29 @@ def replay_vs_eager(torch, eng, seed, device=DEVICE):
         eng.cache["index"].copy_(ints(0, 1000, ns))
     out = {}
     with torch.no_grad():
-        for b in eng.buckets:
-            g = eng._prefill_graph(b)
-            lens = ints(0, b + 1, ns)
+        for rows, b in [(r, b) for r in eng.rungs for b in eng.buckets]:
+            g = eng._prefill_graph(b, rows)
+            lens = ints(0, b + 1, rows)
             lens[0] = b
-            toks = ints(0, vocab, ns, b)
+            toks = ints(0, vocab, rows, b)
             if eng._pooled:
-                starts = ints(0, cap - b + 1, ns)
+                starts = ints(0, cap - b + 1, rows)
+                slots = torch.randperm(ns, generator=gen, device=device)[
+                    :rows].to(torch.int32)
                 g.inputs[0].copy_(torch.cat([toks, lens[:, None],
-                                             starts[:, None]], 1))
+                                             starts[:, None],
+                                             slots[:, None]], 1))
                 kc, vc = (t.clone() for t in state)
-                want = (eng._paged_prefill(eng.params, kc, vc, toks, starts,
-                                           lens, eng._bt_dev), kc, vc)
+                want = (eng._paged_prefill(
+                    eng.params, kc, vc, toks, starts, lens,
+                    eng._bt_dev.index_select(0, slots)), kc, vc)
             else:
                 g.inputs[0].copy_(torch.cat([toks, lens[:, None]], 1))
                 clone = {k: v.clone() for k, v in eng.cache.items()}
                 logits, new = eng._chunk_fn(eng.params, toks, clone, lens)
                 merge_rows(clone, lens > 0, new)
                 want = (greedy(logits), *clone.values())
-            out[f"prefill/{b}"] = _compare_state(torch, (g(), *state), want,
-                                                 dtype)
+            out[g.name] = _compare_state(torch, (g(), *state), want, dtype)
         g = eng._decode_graph()
         toks, active = ints(0, vocab, ns), ints(0, 2, ns)
         active[0] = 1
@@ -2528,9 +2542,9 @@ def phase_graphs(torch, label, server, cfg, params, want, seed=23):
     eng, reqs = server(cfg, params, device=DEVICE)
     torch.cuda.synchronize()
     built_s = time.perf_counter() - t0
-    check(eng.num_graphs == len(eng.buckets) + 1,
+    check(eng.num_graphs == expected_graphs(eng),
           f"{label}: {eng.num_graphs} step graphs after warmup, expected "
-          f"{len(eng.buckets)} buckets + 1 decode")
+          f"{len(eng.rungs)} rungs x {len(eng.buckets)} buckets + 1 decode")
     cmp = replay_vs_eager(torch, eng, seed)
     for what, c in cmp.items():
         print(f"  {label} {what}: replay "
@@ -2900,8 +2914,10 @@ def moe_round_times(torch, eng, cfg, params):
                          device=DEVICE, dtype=torch.int32)
     lens = torch.full((ns,), b, dtype=torch.int32, device=DEVICE)
     starts = torch.zeros((ns,), dtype=torch.int32, device=DEVICE)
-    g = eng._prefill_graph(b)
-    g.inputs[0].copy_(torch.cat([toks, lens[:, None], starts[:, None]], 1))
+    slots = torch.arange(ns, dtype=torch.int32, device=DEVICE)
+    g = eng._prefill_graph(b, ns)
+    g.inputs[0].copy_(torch.cat([toks, lens[:, None], starts[:, None],
+                                 slots[:, None]], 1))
     out = {"prefill_graph_ms": event_ms(torch, g)}
     for impl in ("dense", "sparse"):
         pf, _ = build_paged_fns(cfg, moe_impl=impl)

@@ -14,15 +14,27 @@ print:
   the prefill counters where the engine has them; in a traced run also
   over the traced sub-window alone.  Printed to standard error in both
   kinds of run;
+* the step graphs' capture seconds in set-up (``StepGraphs.capture_s``)
+  and their count;
+* the window's prefill rounds by the rows of their grid
+  (``prefill_rounds_by_rows``: the row rung on the pooled plane) and its
+  pad share, 100 x (1 - ``prefill_tokens`` / ``prefill_grid_tokens``),
+  where the engine has the counters;
 * in a traced run, from the device trace of the sub-window: host ms a
   step by program span, idle seconds by the innermost span around them,
   the longest idle gaps named by harness range, program
   spans and host operation (``portbench.program_spans``), and every
   device interval that carries a program span's name (an echo: there
   should be none);
-* Python's garbage collections in the window: count and longest pause
-  by generation; while the profiler collects, each is a range named
-  ``gc.gen<n>``, so a gap it causes is named by it.
+* Python's garbage collections in the window: count, longest and total
+  pause by generation; while the profiler collects, each is a range named
+  ``gc.gen<n>``, so a gap it causes is named by it;
+* what the engine holds at the window's end and grows with the requests
+  it finished: the pool's live pages, those in block tables and those in
+  the prefix registry alone, the registry's trie nodes, the requests
+  whose token ids it keeps; and the host ms a step of the step
+  transaction's snapshot (``Engine._begin_txn``), over the window and
+  over its first and last fifth of steps.
 
 Writes the report as one JSON object to ``--out`` (default
 ``build/phases/<cell>.<seed>.<trace>.json``, a directory git ignores)
@@ -40,6 +52,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 COUNTERS = ("prefill_rounds", "decode_steps", "prefill_tokens",
             "prefill_grid_tokens")
+BY_ROWS = "prefill_rounds_by_rows"
 
 
 def snapshot(eng) -> dict:
@@ -48,6 +61,24 @@ def snapshot(eng) -> dict:
     for k in COUNTERS:
         if hasattr(eng, k):
             out[k] = float(getattr(eng, k))
+    for rows, n in getattr(eng, BY_ROWS, {}).items():
+        out[f"{BY_ROWS}.{rows}"] = float(n)
+    return out
+
+
+def prefill_summary(after: dict, before: dict) -> dict:
+    """The rounds run between two snapshots by their grid's rows, and the
+    pad share of their grids in %, where the engine counts them."""
+    out = {}
+    rounds = {int(k.split(".")[1]): int(v - before.get(k, 0.0))
+              for k, v in after.items() if k.startswith(BY_ROWS + ".")}
+    if rounds:
+        out[BY_ROWS] = {r: n for r, n in sorted(rounds.items()) if n}
+    grid = after.get("prefill_grid_tokens", 0.0) \
+        - before.get("prefill_grid_tokens", 0.0)
+    if grid > 0:
+        real = after["prefill_tokens"] - before.get("prefill_tokens", 0.0)
+        out["pad_share_pct"] = 100.0 * (1.0 - real / grid)
     return out
 
 
@@ -83,9 +114,49 @@ class GcPauses:
         if self.rf is not None:
             self.rf.__exit__(None, None, None)
             self.rf = None
-        n, worst = self.pauses.get(info["generation"], (0, 0.0))
-        self.pauses[info["generation"]] = (
-            n + 1, max(worst, time.perf_counter() - self.t0))
+        dt = time.perf_counter() - self.t0
+        n, worst, total = self.pauses.get(info["generation"], (0, 0.0, 0.0))
+        self.pauses[info["generation"]] = (n + 1, max(worst, dt),
+                                           total + dt)
+
+
+class TxnTimes:
+    """Host seconds of each ``Engine._begin_txn`` call, in call order."""
+
+    def __init__(self, cls):
+        self.times: list = []
+        begin = cls._begin_txn
+
+        def timed(eng):
+            t0 = time.perf_counter()
+            try:
+                return begin(eng)
+            finally:
+                self.times.append(time.perf_counter() - t0)
+        cls._begin_txn = timed
+
+    def summary(self, n0: int) -> dict:
+        """ms a call from the ``n0``-th on, and over its first and last
+        fifth."""
+        t = self.times[n0:]
+        if not t:
+            return {}
+        k = max(1, len(t) // 5)
+        return {"calls": len(t), "ms": 1e3 * sum(t) / len(t),
+                "first_fifth_ms": 1e3 * sum(t[:k]) / k,
+                "last_fifth_ms": 1e3 * sum(t[-k:]) / k}
+
+
+def held_state(eng) -> dict:
+    """What the engine holds that grows with the requests it finished."""
+    alloc = eng.allocator
+    reg = alloc.prefix_cache
+    return {"pool_pages": alloc.num_pages, "used_pages": alloc.used_pages,
+            "table_pages": alloc.table_pages,
+            "registry_pages": len(reg.pages),
+            "registry_only_pages": alloc.used_pages - alloc.table_pages,
+            "registry_nodes": reg.num_nodes,
+            "requests_held": len(eng.token_ids)}
 
 
 def main(argv=None) -> int:
@@ -111,22 +182,31 @@ def main(argv=None) -> int:
 
     held: dict = {}
     pauses = GcPauses()
+    from repro_torch.serving.engine import Engine
+    txn = TxnTimes(Engine)
     drive, start, finish = S.Driver.run, T.Tracer.start, T.Tracer.finish
 
     def run(self):
         held["drv"] = self
+        held["capture_s"] = self.eng.graphs.capture_s
+        held["num_graphs"] = self.eng.num_graphs
         before = snapshot(self.eng)
+        n0 = len(txn.times)
         gc.callbacks.append(pauses)
         try:
             rec = drive(self)
         finally:
             gc.callbacks.remove(pauses)
             del held["drv"]          # the engine must go before the check
-        held["window"] = per_step(snapshot(self.eng), before,
-                                  len(rec.step_walls))
+        after = snapshot(self.eng)
+        held["held_at_end"] = dict(held_state(self.eng),
+                                   finished=len(self.finished()))
+        held["begin_txn"] = txn.summary(n0)
+        held["window"] = per_step(after, before, len(rec.step_walls))
+        held["prefill"] = prefill_summary(after, before)
         if "at_trace" in held:
             snap, n0 = held.pop("at_trace")
-            held["sub_window"] = per_step(snapshot(self.eng), snap,
+            held["sub_window"] = per_step(after, snap,
                                           len(rec.step_walls) - n0)
         return rec
 
@@ -147,9 +227,21 @@ def main(argv=None) -> int:
               "trace": args.trace, "root": str(root),
               "correct": res["correct"], "metrics": res["metrics"],
               "device": res["device"], "window": held.get("window"),
-              "gc_pauses": {f"gen{g}": {"count": n, "max_s": w}
-                            for g, (n, w) in sorted(pauses.pauses.items())}}
+              "prefill": held.get("prefill"),
+              "capture_s": held.get("capture_s"),
+              "num_graphs": held.get("num_graphs"),
+              "held_at_end": held.get("held_at_end"),
+              "begin_txn": held.get("begin_txn"),
+              "gc_pauses": {f"gen{g}": {"count": n, "max_s": w,
+                                        "total_s": t}
+                            for g, (n, w, t)
+                            in sorted(pauses.pauses.items())}}
     print(f"phase_stats a step, window: {held.get('window')}",
+          file=sys.stderr)
+    print(f"prefill rounds by grid rows and pad share, window: "
+          f"{held.get('prefill')}", file=sys.stderr)
+    print(f"held at the window's end: {held.get('held_at_end')}; step "
+          f"snapshot: {held.get('begin_txn')}; gc: {report['gc_pauses']}",
           file=sys.stderr)
     data = held.get("trace")
     if data is not None:

@@ -31,9 +31,10 @@ captures):
 
 * ``graph-shape`` — a graph key (``self.graphs.get(key, ...)``) that does
   not derive from the bucket ladder (``self.buckets``,
-  ``_bucket_for``) or a constant, following the key's names to the call
-  sites of its function.  Each distinct key is one more capture, as each
-  distinct shape is one more XLA compile in JAX.
+  ``_bucket_for``), the row rungs (``self.rungs``, ``_rows_for``) or a
+  constant, following the key's names to the call sites of its function.
+  Each distinct key is one more capture, as each distinct shape is one
+  more XLA compile in JAX.
 """
 from __future__ import annotations
 
@@ -221,15 +222,15 @@ def _check_output_reads(flow: Flow, d: Def) -> List[Finding]:
 
 
 # --------------------------------------------------------------------- #
-# graph-shape: keys from the bucket ladder
+# graph-shape: keys from the bucket ladder and the row rungs
 # --------------------------------------------------------------------- #
 
 def _ladder(expr: ast.AST) -> bool:
     for n in ast.walk(expr):
-        if isinstance(n, ast.Attribute) and n.attr == "buckets":
+        if isinstance(n, ast.Attribute) and n.attr in ("buckets", "rungs"):
             return True
-        if isinstance(n, ast.Call) \
-                and last_attr(dotted_name(n.func)) == "_bucket_for":
+        if isinstance(n, ast.Call) and last_attr(dotted_name(n.func)) \
+                in ("_bucket_for", "_rows_for"):
             return True
     return False
 
@@ -252,7 +253,8 @@ def _check_keys(prog: Program, mod: ModuleIndex) -> List[Finding]:
                     symbol=where.qual if site is not None else d.qual,
                     message=f"graph key `{ast.unparse(node.args[0])}` of "
                             f"{d.qual} does not derive from the bucket "
-                            f"ladder (self.buckets / _bucket_for) or a "
+                            f"ladder (self.buckets / _bucket_for), the row "
+                            f"rungs (self.rungs / _rows_for) or a "
                             f"constant"
                             + (f" at this call site (`{ast.unparse(site)}`)"
                                if site is not None else "")

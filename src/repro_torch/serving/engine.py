@@ -28,8 +28,11 @@ the paged flash-decoding kernel.  On top of the pooled pages:
   append.  Registry pages are reclaimed in the order of the pluggable
   replacement policy (``cache_policy``: ``lru`` or ``break_even``).
 * *bucket ladder + packed prefill grid* — every prefill sub-chunk is
-  padded up to a fixed ladder of bucket sizes, and each round's tokens,
-  lengths and starts ride ONE ``(nslots, bucket+2)`` int32 upload.
+  padded up to a fixed ladder of bucket sizes, and a round's prefilling
+  rows are packed into the smallest row rung (powers of eight below
+  ``nslots``, then ``nslots``) of a ``(rows, bucket+3)`` int32 grid
+  [toks | lens | starts | slot], ONE upload; each row reads its slot's
+  block table.  A round of one prompt computes one row, not ``nslots``.
 * *dirty-row block-table mirror* — a persistent host copy of the block
   tables is rewritten row by row from the allocator's dirty set and
   uploaded once per change.
@@ -111,8 +114,9 @@ Differences from the JAX engine (``repro.serving.engine``):
   read pages no intent of the same attempt targets, which is checked.
 * Compiled steps are CUDA graphs (``serving.step_graphs``).  Where the
   JAX engine jits each plane step, the port captures one graph per step
-  shape: one prefill round per ladder bucket and one decode step, on
-  every plane, sharing one memory pool.  On a card every prefill round
+  shape: one prefill round per (row rung, ladder bucket) -- a slot plane
+  has the one rung ``nslots`` -- and one decode step, on every plane,
+  sharing one memory pool.  On a card every prefill round
   and decode step after a graph's first call is one ``replay()``; the
   step reads static input buffers the engine uploads into (the packed
   round grid, the decode cohort, the block tables) and writes the pools
@@ -149,7 +153,8 @@ Differences from the JAX engine (``repro.serving.engine``):
   Each adds its host seconds to ``phase_stats`` and, while a
   ``torch.profiler`` collects, is a range on the profiler's clock.
   ``prefill_tokens`` / ``prefill_grid_tokens`` count the rounds' real
-  tokens and the padded grid they compute.
+  tokens and the padded grid they compute; ``prefill_rounds_by_rows``
+  the rounds by their grid's rows.
 
 Correctness contract (tested against the JAX engine on the CPU, and
 against ``generate_reference`` on the card): scheduling, chunking,
@@ -200,7 +205,8 @@ from repro_torch.serving.spmd import merge_rows  # noqa: F401  (re-export)
 from repro_torch.serving.swap_store import (KVSwapStore, SwapEntry,
                                             SwapStoreFullError, flip_bit,
                                             seal_entry, verify_entry)
-from repro_torch.serving.step_graphs import StepGraph, StepGraphs
+from repro_torch.serving.step_graphs import (StepGraph, StepGraphs,
+                                             collector_held)
 from repro_torch.serving.txn import StepTxn, begin_step_txn
 
 # hard ceiling on fault-recovery retries of one step (the JAX engine's):
@@ -281,6 +287,31 @@ def _bucket_ladder(chunk: int, min_bucket: int) -> List[int]:
         b *= 2
     ladder.append(chunk)
     return ladder
+
+
+def _row_rungs(nslots: int) -> List[int]:
+    """Row counts of the pooled plane's prefill grids: powers of eight
+    below ``nslots``, plus ``nslots`` itself.  A round's prefilling rows
+    are packed into the smallest rung that holds them.  Each rung costs
+    one graph capture per bucket in set-up (0.1-0.2 s each on an H100's
+    host), and a round seldom holds more than one row once the slots are
+    full, so the rungs are sparse: at 32 slots, 1, 8 and 32."""
+    rungs = []
+    r = 1
+    while r < nslots:
+        rungs.append(r)
+        r *= 8
+    rungs.append(nslots)
+    return rungs
+
+
+def _first_layer(params: Any) -> Any:
+    """``params`` with every stacked per-layer leaf cut to its first layer
+    (views)."""
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[:1]
+                for k, v in tree.items()}
+    return {**params, "layers": cut(params["layers"])}
 
 
 def _validate(cfg: ModelConfig, ecfg: EngineConfig,
@@ -422,6 +453,14 @@ class Engine:
         self.token_ids: Dict[int, List[int]] = {}
         self.outputs: Dict[int, List[int]] = {}
         self.buckets = _bucket_ladder(ecfg.chunk, ecfg.min_bucket)
+        # the prefill grids' row counts: the pooled plane packs a round's
+        # prefilling rows into the smallest rung.  A slot plane's grid is
+        # every slot, merged by slot; so is the pooled grid under a
+        # capacity-based MoE dispatch ("sparse", "ep"), whose tokens share
+        # the experts' capacity over the whole grid, as in the JAX engine
+        packs = self._pooled and (not cfg.num_experts
+                                  or ecfg.moe_impl == "dense")
+        self.rungs = _row_rungs(ecfg.nslots) if packs else [ecfg.nslots]
         # host seconds of the step by phase, one key a span
         # (``serving.spans``: attach_s, prefill_s, upload_s, replay_s, ...)
         self.phase_stats: Dict[str, float] = dict.fromkeys(
@@ -507,10 +546,12 @@ class Engine:
         self.prefill_rounds = 0
         self.decode_steps = 0
         # the prefill rounds' real tokens (their chunks' lengths) and the
-        # grid they compute (nslots x bucket a round; on the legacy plane
-        # a chunk's own length): what padding the ladder costs
+        # grid they compute (rows x bucket a round; on the legacy plane
+        # a chunk's own length): what padding costs; and the rounds run
+        # by the grid's rows (a rung on the pooled plane)
         self.prefill_tokens = 0
         self.prefill_grid_tokens = 0
+        self.prefill_rounds_by_rows: Dict[int, int] = {}
         self.now = 0.0
         self.wall = 0.0
         self.batch_logs: List[BatchLog] = []
@@ -518,22 +559,31 @@ class Engine:
     # ------------------------------------------------------------------ #
     def warmup(self) -> "Engine":
         """Capture every step graph the run loop can hit -- one prefill
-        round per ladder bucket and the decode step; on the legacy plane,
-        whose prefill runs eagerly, the decode step only -- as the JAX
-        engine's ``warmup`` compiles every signature.  Each graph's first
-        call runs once with inert inputs (zero lengths, no active row):
-        outputs are discarded, the allocator's pages and the slots' state
-        stay bit-identical (inactive decode rows write only the sentinel
-        page; the slot plane merges no row), and the step counters do not
-        move.  Over a mesh it captures nothing: the steps run eagerly.
+        round per (row rung, ladder bucket) and the decode step; on the
+        legacy plane, whose prefill runs eagerly, the decode step only --
+        as the JAX engine's ``warmup`` compiles every signature.  The
+        prefill grids go from the largest to the smallest, so the largest
+        sizes the shared pool and the others reuse its blocks, and
+        Python's collector runs once for all the captures.  Each graph is
+        readied over inert inputs (zero lengths, no active row;
+        ``StepGraph.prepare``): on a card its eager warm-up -- the step,
+        or a pooled prefill's first layer alone -- then its capture, and
+        no step; on the CPU one eager call.  Outputs are discarded, the
+        allocator's pages and the slots' state stay bit-identical
+        (inactive decode rows write only the sentinel page; the slot
+        plane merges no row), and the step counters do not move.  Over a
+        mesh it captures nothing: the steps run eagerly.
         """
         if self.mesh is not None:
             return self
-        prefill = [] if self._legacy else [self._prefill_graph(b)
-                                           for b in self.buckets]
-        for g in prefill + [self._decode_graph()]:
-            g.inputs[0].zero_()
-            g()
+        shapes = sorted(((r, b) for r in self.rungs for b in self.buckets),
+                        key=lambda s: (s[0] * s[1], s[0]), reverse=True)
+        prefill = [] if self._legacy else [self._prefill_graph(b, r)
+                                           for r, b in shapes]
+        with collector_held():
+            for g in prefill + [self._decode_graph()]:
+                g.inputs[0].zero_()
+                g.prepare()
         self._decode_state = None     # its buffer holds no cohort now
         return self
 
@@ -546,10 +596,11 @@ class Engine:
 
     @property
     def num_graphs(self) -> int:
-        """Step graphs built: ``len(buckets) + 1`` once every shape has
-        run (``warmup``), on the CPU and on a card alike; 1 (the decode
-        step) on the legacy plane, whose prefill builds none; 0 over a
-        mesh, where every step runs eagerly."""
+        """Step graphs built: ``len(rungs) * len(buckets) + 1`` once every
+        shape has run (``warmup``), on the CPU and on a card alike (a slot
+        plane has one rung, ``nslots``); 1 (the decode step) on the legacy
+        plane, whose prefill builds none; 0 over a mesh, where every step
+        runs eagerly."""
         return len(self.graphs)
 
     # --- step graphs (serving.step_graphs) ------------------------------ #
@@ -560,25 +611,43 @@ class Engine:
             return (self.k_pools, self.v_pools, self._bt_dev)
         return tuple(self.cache.values())
 
-    def _prefill_graph(self, bucket: int) -> StepGraph:
-        """The prefill round of one ladder bucket.  Its static input is
-        the round's packed grid: (nslots, bucket + 2) int32 [toks | lens
-        | starts] on the pooled plane, (nslots, bucket + 1) [toks | lens]
-        on the slot plane (starts are the cache index there)."""
+    def _prefill_graph(self, bucket: int, rows: int) -> StepGraph:
+        """The prefill round of one row rung and ladder bucket.  Its
+        static input is the round's grid: on the pooled plane (rows,
+        bucket + 3) int32 [toks | lens | starts | slot], each row reading
+        its slot's block table (``_bt_dev.index_select``), rows that no
+        prompt fills inert (length 0); on the slot plane
+        (nslots, bucket + 1) [toks | lens], row b being slot b (starts are
+        the cache index there; ``rows`` is ``nslots``)."""
         def build():
-            extra = 2 if self._pooled else 1
-            grid = torch.zeros((self.ecfg.nslots, bucket + extra),
-                               dtype=torch.int32, device=self.device)
             if self._pooled:
-                def fn(g):
+                grid = torch.zeros((rows, bucket + 3), dtype=torch.int32,
+                                   device=self.device)
+
+                def step(g, params, k_pools, v_pools):
                     return self._paged_prefill(
-                        self.params, self.k_pools, self.v_pools, g[:, :-2],
-                        g[:, -1], g[:, -2], self._bt_dev)
+                        params, k_pools, v_pools, g[:, :-3], g[:, -2],
+                        g[:, -3], self._bt_dev.index_select(0, g[:, -1]))
+
+                def fn(g):
+                    return step(g, self.params, self.k_pools, self.v_pools)
+
+                def warm(g):
+                    # the first layer alone runs every kernel at every
+                    # shape of the step (the layers are stacked alike), at
+                    # 1/L of an eager step's host time, and its K/V writes
+                    # are ones the step repeats
+                    return step(g, _first_layer(self.params),
+                                self.k_pools[:1], self.v_pools[:1])
+                return fn, (grid,), self._graph_state, warm
             else:
+                grid = torch.zeros((rows, bucket + 1), dtype=torch.int32,
+                                   device=self.device)
+
                 def fn(g):
                     return self._prefill_many(g[:, :-1], g[:, -1])
             return fn, (grid,), self._graph_state
-        return self.graphs.get(f"prefill/{bucket}", build)
+        return self.graphs.get(f"prefill/{rows}x{bucket}", build)
 
     def _decode_graph(self) -> StepGraph:
         """The decode step over all slots.  Pooled plane: its static input
@@ -611,6 +680,10 @@ class Engine:
             if n <= b:
                 return b
         raise ValueError(f"chunk step {n} exceeds ladder {self.buckets}")
+
+    def _rows_for(self, n: int) -> int:
+        """The smallest row rung that holds ``n`` prefilling rows."""
+        return next(r for r in self.rungs if n <= r)
 
     # ------------------------------------------------------------------ #
     def submit(self, r: Request) -> None:
@@ -1370,61 +1443,64 @@ class Engine:
 
     # ------------------------------------------------------------------ #
     def _run_prefill_rounds(self, plans, emits, stage) -> Dict[int, int]:
-        """Bucketed round loop: one replay of the bucket's prefill graph
-        per round over the full slot grid, sub-chunks padded to the
-        bucket ladder; ``stage(dst, toks, lens, starts)`` uploads the
-        round into the graph's static input ``dst``.  Only (nslots,)
-        sampled token ids are fetched, and only on rounds where some
-        emitting request finishes its batch allotment.  ``plans`` rows
-        are [request, slot, cursor, remaining]."""
-        nslots = self.ecfg.nslots
+        """Bucketed round loop: each round takes the next sub-chunk of
+        every plan with tokens left, padded to the bucket ladder, into the
+        prefill graph of the smallest row rung that holds them, and
+        replays it.  On a full grid (``nslots`` rows) row b is slot b;
+        on a smaller rung the rows are packed first, in plan order, and
+        the rest are inert (length 0).  ``stage(dst, at, toks, lens,
+        starts, slots)`` uploads the round's rows (one a plan) into the
+        graph's static input ``dst`` at rows ``at``.  Only the sampled ids
+        are fetched, and only on rounds where some emitting request
+        finishes its batch allotment.  ``plans`` rows are [request, slot,
+        cursor, remaining]."""
         ps = self.phase_stats
         final_tok: Dict[int, int] = {}
         while True:
-            steps = {p[1]: min(self.ecfg.chunk, p[3])
-                     for p in plans if p[3] > 0}
-            if not steps:
+            live = [p for p in plans if p[3] > 0]
+            if not live:
                 break
             with span(ps, spans.ROUND):
-                bucket = self._bucket_for(max(steps.values()))
-                toks = np.zeros((nslots, bucket), np.int32)
-                lens = np.zeros((nslots,), np.int32)
-                starts = np.zeros((nslots,), np.int32)
+                lens = np.array([min(self.ecfg.chunk, p[3]) for p in live],
+                                np.int32)
+                starts = np.array([p[2] for p in live], np.int32)
+                slots = np.array([p[1] for p in live], np.int32)
+                bucket = self._bucket_for(int(lens.max()))
+                toks = np.zeros((len(live), bucket), np.int32)
                 finishing: List[Tuple[Request, int]] = []
-                for p in plans:
-                    r, slot, cursor, rem = p
-                    if rem <= 0:
-                        continue
-                    sc = steps[slot]
-                    toks[slot, :sc] = \
-                        self.token_ids[r.rid][cursor:cursor + sc]
-                    lens[slot] = sc
-                    starts[slot] = cursor
+                for i, p in enumerate(live):
+                    r, _, cursor, _ = p
+                    sc = int(lens[i])
+                    toks[i, :sc] = self.token_ids[r.rid][cursor:cursor + sc]
                     p[2] += sc
                     p[3] -= sc
-                    if p[3] == 0:
-                        finishing.append((r, slot))
-                g = self._prefill_graph(bucket)
-                stage(g.inputs[0], toks, lens, starts)
-                self._count_round(sum(steps.values()), nslots * bucket)
+                    if p[3] == 0 and emits[r.rid]:
+                        finishing.append((r, i))
+                rows = self._rows_for(len(live))
+                at = slots if rows == self.ecfg.nslots \
+                    else np.arange(len(live))
+                g = self._prefill_graph(bucket, rows)
+                stage(g.inputs[0], at, toks, lens, starts, slots)
+                self._count_round(int(lens.sum()), rows, bucket)
                 with span(ps, spans.REPLAY):
                     tok_ids = g()
-                if any(emits[r.rid] for r, _ in finishing):
+                if finishing:
                     with span(ps, spans.FETCH):
-                        host = tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (nslots,) int32 only)
-                    for r, slot in finishing:
-                        if emits[r.rid]:
-                            final_tok[r.rid] = int(host[slot])
+                        host = tok_ids.cpu().numpy()  # repro: allow-host-sync(per-step sampled-token fetch - ids must reach the host to extend prompts and detect EOS; (rows,) int32 only)
+                    for r, i in finishing:
+                        final_tok[r.rid] = int(host[at[i]])
         return final_tok
 
-    def _count_round(self, tokens: int, grid: int) -> None:
+    def _count_round(self, tokens: int, rows: int, width: int) -> None:
         """One prefill round run: ``tokens`` real tokens on a grid of
-        ``grid`` (``prefill_tokens`` / ``prefill_grid_tokens``).  Called
-        after the commit point only, so an aborted attempt never moves
-        the counters."""
+        ``rows`` x ``width`` (``prefill_tokens`` / ``prefill_grid_tokens``
+        / ``prefill_rounds_by_rows``).  Called after the commit point
+        only, so an aborted attempt never moves the counters."""
         self.prefill_rounds += 1
         self.prefill_tokens += tokens
-        self.prefill_grid_tokens += grid
+        self.prefill_grid_tokens += rows * width
+        by = self.prefill_rounds_by_rows
+        by[rows] = by.get(rows, 0) + 1
 
     def _merge(self, active: torch.Tensor,
                new_cache: Dict[str, torch.Tensor]) -> None:
@@ -1477,7 +1553,7 @@ class Engine:
                 logits, new = self._chunk_fn(
                     self.params, toks, gather_slot(self.cache, slot), None)
                 restore_slot(self.cache, slot, new)
-                self._count_round(step_c, step_c)
+                self._count_round(step_c, 1, step_c)
                 start += step_c
                 remaining -= step_c
             if r.m + c == r.target_context:   # this batch emits a token
@@ -1502,8 +1578,11 @@ class Engine:
         plans = [[r, self.slot_of[r.rid], r.m, c] for r, c in prefill_items]
         emits = {r.rid: r.m + c == r.target_context for r, c in prefill_items}
 
-        def stage(dst, toks, lens, starts):      # [toks | lens]
-            self._upload(dst, np.concatenate([toks, lens[:, None]], axis=1))
+        def stage(dst, at, toks, lens, starts, slots):   # [toks | lens]
+            grid = np.zeros(tuple(dst.shape), np.int32)
+            grid[at, :-1] = toks
+            grid[at, -1] = lens
+            self._upload(dst, grid)
 
         return self._run_prefill_rounds(plans, emits, stage)
 
@@ -1532,10 +1611,16 @@ class Engine:
         emits = {r.rid: r.m + c == r.target_context for r, c in prefill_items}
         self._block_tables_device()
 
-        def stage(dst, toks, lens, starts):
-            # one coalesced upload per round: [toks | lens | starts]
-            self._upload(dst, np.concatenate(
-                [toks, lens[:, None], starts[:, None]], axis=1))
+        def stage(dst, at, toks, lens, starts, slots):
+            # one coalesced upload per round: [toks | lens | starts | slot];
+            # an inert row reads any slot's table and writes nothing
+            grid = np.zeros(tuple(dst.shape), np.int32)
+            grid[:, -1] = np.arange(len(grid))
+            grid[at, :-3] = toks
+            grid[at, -3] = lens
+            grid[at, -2] = starts
+            grid[at, -1] = slots
+            self._upload(dst, grid)
 
         return self._run_prefill_rounds(plans, emits, stage)
 
@@ -1671,7 +1756,8 @@ class Engine:
         pass, whichever attempt made them; ``phase_stats`` and ``wall``
         are measured time, spent by an aborted attempt all the same; and
         ``prefill_rounds``/``decode_steps``/``prefill_tokens``/
-        ``prefill_grid_tokens`` move only after the commit."""
+        ``prefill_grid_tokens``/``prefill_rounds_by_rows`` move only
+        after the commit."""
         txn = begin_step_txn(
             scheduler=self.sched, allocator=self.allocator,
             store=self.swap_store,

@@ -15,7 +15,13 @@ A ``StepGraph`` turns one such step into one launch:
   cuBLAS algorithms: nothing may compile or load inside a capture), then
   captures it into a ``torch.cuda.CUDAGraph``; that first call returns
   the eager outputs, and every later call is one ``replay()`` whose
-  outputs are the captured ones, overwritten by each replay;
+  outputs are the captured ones, overwritten by each replay.  A step may
+  name a cheaper ``warm`` function to run eagerly in its place, one that
+  launches every kernel at every shape the step does (the first layer of
+  a stack of identical layers) and whose writes the step repeats; the
+  first call then ends with a replay, so it still runs the step once.
+  ``prepare()`` captures ahead of use and runs no step: an engine's
+  ``warmup`` over inputs that do nothing;
 * on the CPU every call runs the same function eagerly over the same
   static buffers -- a dispatch by the tensors' device, as in
   ``kernels/*/ops.py``, so the CPU tests exercise all of the buffer
@@ -35,7 +41,8 @@ an engine lives in reference cycles (its graphs' step functions close
 over it), so a dead one is freed by that collector, and freeing its
 graphs, events and buffers inside another engine's capture invalidates
 the capture.  Each capture collects first, then runs with the collector
-disabled.
+disabled (``collector_held``); an engine's ``warmup`` holds it once
+across all its captures, and those inside collect nothing more.
 
 Kernel launch counters.  A kernel wrapper counts its launches where it
 launches (``launches``, and ``launches_by_variant`` where it has one);
@@ -46,6 +53,7 @@ kernel), and every replay adds them again: the counters keep meaning
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 from typing import Any, Callable, Dict, Hashable, Optional, Sequence, Tuple
@@ -93,19 +101,37 @@ def add_counts(counters: Sequence[Any], moved: Sequence[Counts],
             c.launches_by_variant[k] += sign * v
 
 
+@contextlib.contextmanager
+def collector_held():
+    """Python's cyclic collector run once, then held off until the block
+    ends; nothing where it is off already (inside an outer hold)."""
+    if not gc.isenabled():
+        yield
+        return
+    gc.collect()          # free dead engines before, not during
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
 class StepGraph:
     """One step function over static input buffers of one shape (see the
     module docstring).  ``fn(*inputs)`` returns the step's outputs;
     ``state()`` returns the tensors outside ``inputs`` that the function
     reads or writes in place (pools, block tables, cache leaves): a graph
     captured against them must only ever replay against the same objects,
-    which every call checks."""
+    which every call checks.  ``warm(*inputs)``, where given, runs eagerly
+    in the step's place before the capture (module docstring)."""
 
     def __init__(self, name: str, fn: Callable[..., Any],
                  inputs: Sequence[torch.Tensor], owner: "StepGraphs",
-                 state: Callable[[], Sequence[torch.Tensor]] = tuple):
+                 state: Callable[[], Sequence[torch.Tensor]] = tuple,
+                 warm: Optional[Callable[..., Any]] = None):
         self.name = name
         self.fn = fn
+        self.warm = warm
         self.inputs = tuple(inputs)
         self.owner = owner
         self.state = state
@@ -118,26 +144,46 @@ class StepGraph:
     def shape(self) -> str:
         return " ".join(str(tuple(t.shape)) for t in self.inputs)
 
-    def __call__(self) -> Any:
+    def _captures(self) -> bool:
+        """Whether calls replay a graph (a card, no mesh) or run eagerly."""
         now = tuple(self.state())
         invariant(len(now) == len(self._bound)
                   and all(a is b for a, b in zip(now, self._bound)),
                   f"{self.name}: the pools or cache leaves it was built "
                   "against were replaced")
-        if self.owner.eager or self.inputs[0].device.type != "cuda":
+        return not self.owner.eager and self.inputs[0].device.type == "cuda"
+
+    def __call__(self) -> Any:
+        if not self._captures():
             with torch.no_grad():
                 self.owner.eager_calls += 1
                 return self.fn(*self.inputs)
         if self.graph is None:
-            return self._capture()
+            eager = self._capture()
+            if self.warm is None:
+                return eager
+            self._replay()                # the first call runs the step
+            return self.outputs
+        self._replay()
+        self.owner.replays += 1
+        return self.outputs
+
+    def prepare(self) -> None:
+        """Ready the graph ahead of its first use, over inputs that do
+        nothing (zero lengths, no active row): on a card, capture it after
+        its eager warm-up and run no step; elsewhere one eager call."""
+        if not self._captures():
+            self()
+        elif self.graph is None:
+            self._capture()
+
+    def _replay(self) -> None:
         try:
             self.graph.replay()
         except RuntimeError as e:
             raise StepGraphError(f"{self.name} {self.shape}: replay failed: "
                                  f"{e}") from e
-        self.owner.replays += 1
         add_counts(self.owner.counters, self._moved)
-        return self.outputs
 
     def _capture(self) -> Any:
         owner, dev = self.owner, self.inputs[0].device
@@ -146,23 +192,23 @@ class StepGraph:
         t0 = time.perf_counter()
         side.wait_stream(main)
         with torch.no_grad():
-            with torch.cuda.stream(side):
-                eager = self.fn(*self.inputs)   # builds/loads the kernels
+            before = read_counts(owner.counters)
+            with torch.cuda.stream(side):       # builds/loads the kernels
+                eager = (self.warm or self.fn)(*self.inputs)
             owner.eager_calls += 1
+            if self.warm is not None:     # set-up, not the step: uncounted
+                add_counts(owner.counters, counts_moved(
+                    before, read_counts(owner.counters)), sign=-1)
             before = read_counts(owner.counters)
             graph = torch.cuda.CUDAGraph()
-            collecting = gc.isenabled()
-            gc.collect()          # free dead engines before, not during
-            gc.disable()
             try:
-                with torch.cuda.graph(graph, pool=owner.pool(), stream=side):
+                with collector_held(), torch.cuda.graph(
+                        graph, pool=owner.pool(), stream=side):
                     outputs = self.fn(*self.inputs)
             except Exception as e:   # any failure inside the capture
                 raise StepGraphError(f"{self.name} {self.shape}: capture "
                                      f"failed: {e}") from e
             finally:
-                if collecting:
-                    gc.enable()
                 # a capture runs no kernel: take its counts back out
                 self._moved = counts_moved(before,
                                            read_counts(owner.counters))
@@ -202,17 +248,14 @@ class StepGraphs:
         return 0 if self.eager else len(self.graphs)
 
     def get(self, key: Hashable,
-            build: Callable[[], Tuple[Callable[..., Any],
-                                      Sequence[torch.Tensor],
-                                      Callable[[], Sequence[torch.Tensor]]]]
-            ) -> StepGraph:
+            build: Callable[[], Tuple[Any, ...]]) -> StepGraph:
         """The graph of ``key``, built on first use from ``build()`` ->
-        (fn, static inputs, state)."""
+        (fn, static inputs, state) or (fn, static inputs, state, warm)."""
         g = self.graphs.get(key)
         if g is None:
-            fn, inputs, state = build()
+            fn, inputs, state, *warm = build()
             g = self.graphs[key] = StepGraph(str(key), fn, inputs, self,
-                                             state)
+                                             state, *warm)
         return g
 
     def pool(self):

@@ -74,10 +74,10 @@ def test_replay_equals_eager_call(card, plane, dtype):
                               plane="paged" if plane == "pooled"
                               else "batched"),
                  device="cuda").warmup()
-    assert eng.num_graphs == len(eng.buckets) + 1
+    assert eng.num_graphs == len(eng.rungs) * len(eng.buckets) + 1
     assert all(g.graph is not None for g in eng.graphs.graphs.values())
     out = _chip_smoke().replay_vs_eager(torch, eng, seed=7, device="cuda")
-    assert eng.graphs.replays == len(eng.buckets) + 1
+    assert eng.graphs.replays == len(eng.rungs) * len(eng.buckets) + 1
     for what, c in out.items():
         assert c["ids_equal"] and c["bit_equal"], (what, c)
 
@@ -117,7 +117,7 @@ def test_faulted_swap_serve_replays_every_step(card, warm):
     assert res.recovery_stats["rollbacks"] > 0
     assert res.metrics.num_partial_preempts > 0
     built = eng.num_graphs - n0            # captured during the run
-    assert eng.num_graphs <= len(eng.buckets) + 1
+    assert eng.num_graphs <= len(eng.rungs) * len(eng.buckets) + 1
     assert built == (0 if warm else eng.num_graphs)
     assert all(g.graph is not None for g in eng.graphs.graphs.values())
     assert eng.graphs.eager_calls == e0 + built

@@ -90,12 +90,13 @@ def test_dispatch_is_bit_reproducible_on_card(card, name, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_replay_equals_eager_call(card, dtype, moe_impl):
     """``chip_smoke.py`` phase 20's comparison on the pooled plane: each
-    bucket's prefill replay and the decode replay (ids, the advanced
-    cohort and every pool byte) equal the eager functions on clones."""
+    (row rung, bucket) prefill replay and the decode replay (ids, the
+    advanced cohort and every pool byte) equal the eager functions on
+    clones."""
     cfg = _reduced("qwen2-moe-a2.7b", dtype)
     params = M.init_params(cfg, 0, device="cuda")
     eng = _engine(cfg, params, moe_impl=moe_impl)
-    assert eng.num_graphs == len(eng.buckets) + 1
+    assert eng.num_graphs == len(eng.rungs) * len(eng.buckets) + 1
     out = _chip_smoke().replay_vs_eager(torch, eng, seed=13, device="cuda")
     for what, c in out.items():
         assert c["ids_equal"] and c["bit_equal"], (what, c)

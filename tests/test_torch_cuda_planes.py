@@ -6,9 +6,11 @@ same functions on cloned random state, byte for byte; and reduced
 TinyLlama served on ``batched`` (``impl="paged"``), ``batched`` with the
 deferred append and ``legacy``, with the reference's tokens, B1 launched
 layers x decode steps only where ``impl="paged"``, and the legacy plane's
-decode replayed while its prefill runs eagerly.  Every test is marked
-``cuda`` and skips where there is none.  This file imports neither JAX
-nor the JAX package:
+decode replayed while its prefill runs eagerly.  Then the pooled
+plane's packed prefill graphs, one per (row rung, bucket), captured from
+the largest grid down, each replay against its eager call.  Every test
+is marked ``cuda`` and skips where there is none.  This file imports
+neither JAX nor the JAX package:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda_planes.py
 """
@@ -148,3 +150,32 @@ def test_served_planes_replay_and_match_the_reference(card, ekw):
         assert res.outputs[r.rid] == generate_reference(
             cfg, params, r.prompt, r.output_len, cache_len=64,
             device="cuda"), r.rid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packed_prefill_replays_equal_eager_calls(card, dtype):
+    """The pooled plane's prefill graphs, one per (row rung, bucket):
+    ``warmup`` captures them from the largest grid to the smallest, then
+    the decode graph; each replay of a packed grid (distinct random slots,
+    some rows of length 0) gives the ids and every pool byte of the eager
+    call on clones with those slots' block tables
+    (``chip_smoke.replay_vs_eager``)."""
+    cfg = _reduced(dtype)
+    params = M.init_params(cfg, 0, device="cuda")
+    eng = Engine(cfg, params, make_scheduler("vllm", 512, S=256),
+                 EngineConfig(nslots=8, cache_len=64, chunk=16, page_size=8,
+                              plane="paged"),
+                 device="cuda").warmup()
+    assert eng.rungs == [1, 8]
+    keys = list(eng.graphs.graphs)
+    assert len(keys) == len(eng.rungs) * len(eng.buckets) + 1
+    assert keys[-1] == "decode"
+    sizes = [r * (w - 3) for r, w in
+             (eng.graphs.graphs[k].inputs[0].shape for k in keys[:-1])]
+    assert sizes == sorted(sizes, reverse=True)
+    assert all(g.graph is not None for g in eng.graphs.graphs.values())
+    out = _chip_smoke().replay_vs_eager(torch, eng, seed=17, device="cuda")
+    assert sorted(out) == sorted(keys)
+    for what, c in out.items():
+        assert c["ids_equal"] and c["bit_equal"], (what, c)

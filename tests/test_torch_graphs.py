@@ -98,23 +98,31 @@ def _strip(b):
 # the graph count: warmup builds them all, run builds none
 # --------------------------------------------------------------------- #
 
+def prefill_keys(family):
+    """The prefill graphs of 4 slots and the ladder (8, 16): the pooled
+    plane's row rungs 1 and 4; the slot plane's one grid of every slot."""
+    rungs = (1, 4) if family == "dense" else (4,)
+    return [f"prefill/{r}x{b}" for r in rungs for b in (8, 16)]
+
+
 @pytest.mark.parametrize("family,plane", [("dense", "paged"),
                                           ("rwkv", "batched"),
                                           ("rwkv", "paged")])
 def test_warmup_builds_every_step_graph(dense, rwkv, family, plane):
-    """``warmup()`` builds one graph per ladder bucket plus the decode
-    graph, on the pooled plane and on the RWKV6 slot plane, and a
-    preemption-free run builds none (``test_warmup_precompiles_every_
-    signature``'s counterpart); ``num_compiles`` stays 0."""
+    """``warmup()`` builds one graph per (row rung, ladder bucket) plus
+    the decode graph -- on the pooled plane the rungs 1 and 4 of 4 slots,
+    on the RWKV6 slot plane the one full grid -- and a preemption-free
+    run builds none (``test_warmup_precompiles_every_signature``'s
+    counterpart); ``num_compiles`` stays 0."""
     models = dense if family == "dense" else rwkv
     eng = engine("torch", models, M_kv=200, plane=plane,
                  page_size=8 if family == "dense" else 1)
     assert eng.num_graphs == 0
     eng.warmup()
     n0 = eng.num_graphs
-    assert n0 == len(eng.buckets) + 1 == 3
-    assert sorted(eng.graphs.graphs) == ["decode", "prefill/16",
-                                         "prefill/8"]
+    assert n0 == len(eng.rungs) * len(eng.buckets) + 1
+    assert sorted(eng.graphs.graphs) == sorted(
+        ["decode"] + prefill_keys(family))
     res = eng.run(requests(TRequest, spec(models[1].vocab_size, n=4,
                                           seed=1)))
     assert eng.num_graphs == n0
@@ -123,19 +131,29 @@ def test_warmup_builds_every_step_graph(dense, rwkv, family, plane):
 
 
 def test_graph_count_does_not_grow_with_the_workload(dense):
-    """Without a warmup the graphs are built at first use, and a small
-    and a large workload (swap churn) end with the same count, at most
-    one per bucket plus the decode (``test_paged_compile_count_
-    constant``'s counterpart)."""
+    """Without a warmup the graphs are built at first use, one per step
+    shape a round or step hits and never again, so a small and a large
+    workload (swap churn) each end with one graph per prefill shape they
+    ran plus the decode, within the (row rung, bucket) set
+    (``test_paged_compile_count_constant``'s counterpart; the large
+    workload's rounds hit a rung the small one's do not)."""
     counts = {}
     for tag, (n, seed) in {"small": (5, 2), "large": (11, 5)}.items():
         eng = engine("torch", dense, M_kv=50, preempt_mode="swap")
+        shapes, build = set(), eng._prefill_graph
+
+        def traced(bucket, rows, build=build, shapes=shapes):
+            shapes.add((rows, bucket))
+            return build(bucket, rows)
+        eng._prefill_graph = traced
         res = eng.run(requests(TRequest, spec(dense[1].vocab_size, n=n,
                                               seed=seed, max_i=40)))
         assert res.metrics.num_preemptions > 0
+        assert eng.num_graphs == len(shapes) + 1, (tag, shapes)
+        assert eng.prefill_rounds > len(shapes), tag
         counts[tag] = eng.num_graphs
-    assert counts["small"] == counts["large"] <= len(eng.buckets) + 1, \
-        counts
+    assert counts["small"] <= counts["large"] \
+        <= len(eng.rungs) * len(eng.buckets) + 1, counts
 
 
 # --------------------------------------------------------------------- #
@@ -314,7 +332,33 @@ def test_chip_smoke_replay_vs_eager_on_cpu(dense, rwkv, family, plane):
     eng = engine("torch", models, M_kv=256, plane=plane,
                  page_size=8 if family == "dense" else 1).warmup()
     out = cs.replay_vs_eager(torch, eng, seed=5, device="cpu")
-    assert sorted(out) == ["decode", "prefill/16", "prefill/8"]
+    assert sorted(out) == sorted(["decode"] + prefill_keys(family))
     for what, c in out.items():
         assert c["ids_equal"] and c["bit_equal"] and c["close"], (what, c)
     assert eng._bt_cache is None and eng._decode_state is None
+
+
+def test_chip_smoke_moe_round_times_on_cpu(monkeypatch):
+    """Phase 22's round timing at reduced size, its clock stubbed: it
+    drives the full rung's graph (every slot a row, row b slot b) and the
+    eager dense and sparse dispatch over the same grid."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "event_ms",
+                        lambda torch, fn, iters=10, warm=2: (fn(), 0.0)[1])
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(),
+                              dtype="float32")
+    params = M.init_params(cfg, 0, device="cpu")
+    eng = TEngine(cfg, params, t_sched("vllm", 512, S=256),
+                  TEngineConfig(nslots=8, cache_len=64, chunk=16,
+                                page_size=8, plane="paged"),
+                  device="cpu").warmup()
+    out = cs.moe_round_times(torch, eng, cfg, params)
+    assert sorted(out) == ["decode_graph_ms", "prefill_eager_dense_ms",
+                           "prefill_eager_sparse_ms", "prefill_graph_ms"]
+    grid = eng._prefill_graph(eng.buckets[-1], 8).inputs[0]
+    assert grid.shape == (8, eng.buckets[-1] + 3)
+    assert torch.equal(grid[:, -1], torch.arange(8, dtype=torch.int32))
+    assert bool((grid[:, -3] == eng.buckets[-1]).all())

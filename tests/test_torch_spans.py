@@ -144,7 +144,7 @@ def test_profiler_on_records_nested_ranges(model):
 def test_prefill_counters_against_a_hand_planned_batch(model):
     """Both prompts enter the first step whole (S = 128): rounds of
     (16, 16), (16, 4) and (8,) tokens, padded to buckets 16, 16 and 8
-    on a grid of 4 slots."""
+    on grids of the row rungs 4, 4 and 1 (of 4 slots)."""
     eng = engine(model).warmup()
     assert eng.buckets == [8, 16]
     for r in reqs(model[0]):
@@ -152,25 +152,30 @@ def test_prefill_counters_against_a_hand_planned_batch(model):
     eng.step()
     assert eng.prefill_rounds == 3
     assert eng.prefill_tokens == 40 + 20
-    assert eng.prefill_grid_tokens == NSLOTS * (16 + 16 + 8)
+    assert eng.prefill_grid_tokens == 4 * 16 + 4 * 16 + 1 * 8
+    assert eng.prefill_rounds_by_rows == {4: 2, 1: 1}
     while eng.sched.has_work():             # decodes only from here
         eng.step()
     assert (eng.prefill_rounds, eng.prefill_tokens,
-            eng.prefill_grid_tokens) == (3, 60, 160)
+            eng.prefill_grid_tokens, eng.prefill_rounds_by_rows) \
+        == (3, 60, 136, {4: 2, 1: 1})
 
 
 def test_counters_still_in_warmup_and_aborted_attempts(model):
     eng = engine(model).warmup()
     assert (eng.prefill_rounds, eng.prefill_tokens,
-            eng.prefill_grid_tokens) == (0, 0, 0)
+            eng.prefill_grid_tokens, eng.prefill_rounds_by_rows) \
+        == (0, 0, 0, {})
     lens = ((40, 3), (20, 4), (33, 2), (9, 5), (27, 3))
     serve(eng, reqs(model[0], lens))
-    clean = (eng.prefill_rounds, eng.prefill_tokens, eng.prefill_grid_tokens)
+    clean = (eng.prefill_rounds, eng.prefill_tokens, eng.prefill_grid_tokens,
+             eng.prefill_rounds_by_rows)
     faulted = engine(model, faults=FaultSpec(seed=5, p_alloc=0.8)).warmup()
     serve(faulted, reqs(model[0], lens))
     assert faulted.recovery_stats[SK.ROLLBACKS] > 0
     assert (faulted.prefill_rounds, faulted.prefill_tokens,
-            faulted.prefill_grid_tokens) == clean
+            faulted.prefill_grid_tokens,
+            faulted.prefill_rounds_by_rows) == clean
     assert clean[1] >= sum(n for n, _ in lens)
     assert clean[2] > clean[1]
 
