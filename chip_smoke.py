@@ -242,12 +242,19 @@ Phases — each raises on failure, so any failure exits non-zero:
    seed 0) in fp32 at ``MOE_FP32_LAYERS`` of its 24 layers (the fp32
    weights at full depth are 60.6 GB) and in bf16 at full depth, and
    qwen3-moe-30b-a3b at full widths (128 experts, top-8, 32 q over 4 kv
-   heads, qk-norm) at ``MOE3_LAYERS`` of 48 layers in fp32.  Each engine's
-   replays must be bit-equal to eager calls on cloned random state (phase
-   20's method); each run must replay its graphs alone and launch B1 and
-   B2 once per layer of every decode step and prefill round through its
-   dtype's variants; fp32 tokens must equal ``generate_reference`` (dense
-   dispatch) for every request, bf16 ones are counted.  Printed, not
+   heads, qk-norm) at ``MOE3_LAYERS`` of 48 layers in fp32, then in the
+   grouped dispatch (``moe_impl="grouped"``: the Triton kernels of
+   ``kernels/moe_grouped``, as the benchmark serves the model) in fp32 on
+   the same weights and in bf16.  Each engine's replays must be bit-equal
+   to eager calls on cloned random state (phase 20's method); each run
+   must replay its graphs alone and launch B1 and B2 once per layer of
+   every decode step and prefill round through its dtype's variants, and
+   the grouped kernels once per layer of each under ``"grouped"`` and
+   never otherwise (their counter zeroed just before the run); fp32
+   tokens must equal ``generate_reference`` (dense dispatch) for every
+   request (under ``"grouped"``, or part only where the reference's
+   top-2 gap is below 1e-4, phase 10's tie rule), bf16 ones are
+   counted.  Printed, not
    gated: tokens/s, the wall of a decode-only batch, the decode graph's
    replay time against the weight-read bound (the params' own bytes but
    the embedding table's, over 3.35 TB/s; the dense dispatch reads all 64
@@ -405,13 +412,32 @@ Phases — each raises on failure, so any failure exits non-zero:
    bf16 product before every launch.  Every output must be bit-equal to
    the first launch's, and that one within ``TOL`` of the plain version;
    prints the launches and the differing ones per variant.
+30. The grouped MoE kernels (``kernels/moe_grouped``, Triton: route,
+   layout, the gate/up and down products, combine) at Qwen3-30B-A3B's
+   widths (d 2048, 128 experts of 768, top-8; random weights from a
+   seed), after phase 22: in fp32 and bf16, a 4,096-token call with 30 %
+   of its tokens inert against the plain version (``ref``): each live
+   token's largest error within ``GROUPED_TOL`` of the plain output's
+   largest value (fp32 1e-5, bf16 2e-2), but for at most one token in
+   512 whose K-th and (K+1)-th router logits lie within a step of the
+   dtype (``GROUPED_TIE``), and the inert tokens' output exactly zero;
+   its first 128 tokens called alone must pass the same check and be
+   bit-equal to the same rows of the whole call.  Timed with phase 4's
+   method at 128 tokens (the benchmark cell's decode step) in both
+   dtypes and at 1,024 and 4,096 in bf16, every token live: beside the
+   plain version, ``torch._grouped_mm`` for the same products given the
+   layout (a yardstick; none in fp32, which it refuses), the dense
+   dispatch, each kernel's device time (``torch.profiler``) and the
+   bound (the router and every reached expert's weights read once, x
+   and the output, over 3.35 TB/s; or the operations over the dtype's
+   peak, fp32's as 3xTF32 products, phase 4's rule for B2 and B3).
 
 Each phase prints the seconds since the start when it is done; phase
 20's three engines run after phase 18's fp32 and bf16 serves and phase
 15's bf16 one, on their weights; phase 21's TinyLlama runs after phase
 20's fp32 and bf16 engines, its RWKV6-7B runs after phase 19; phase 23
-runs after phase 22, then phase 24, phase 25, phase 26, phase 27,
-phase 28 and phase 29 last.
+runs after phase 22 and phase 30, then phase 24, phase 25, phase 26,
+phase 27, phase 28 and phase 29 last.
 
 The last two lines of standard output are the kernels' JSON line (one
 entry per kernel and variant: ``paged_decode`` is B1's bf16
@@ -424,8 +450,10 @@ entry per kernel and variant: ``paged_decode`` is B1's bf16
 serving shapes, ``paged_decode_hymba`` / ``flash_attention_hymba`` B1 on
 hymba's ring and B3 with its window, ``..._d256`` B1-B3 at PaliGemma's
 head dim 256, ``..._musicgen`` B1 / B2 at MusicGen's shapes, ``wkv6``
-B4's column-split ``colsplit`` kernel) and ``{"ok": true, "device":
-{...}}``.
+B4's column-split ``colsplit`` kernel, ``moe_grouped`` /
+``moe_grouped_fp32`` the grouped MoE layer's Triton kernels in bf16 /
+fp32 at the benchmark's decode step, launched by phase 22's grouped
+serves) and ``{"ok": true, "device": {...}}``.
 ``--report PATH`` also writes every measurement as JSON.  Without a CUDA
 device, or outside a checkout of the repository, the script exits with
 code 1 and prints no result.
@@ -473,6 +501,9 @@ KERNELS = {
     "wkv6": (
         "src/repro_torch/kernels/rwkv_scan/csrc/wkv6.cu",
         "src/repro/kernels/rwkv_scan/rwkv_scan.py:75"),
+    # Triton; the JAX package computes its MoE layer with XLA's products
+    "moe_grouped": (
+        "src/repro_torch/kernels/moe_grouped/moe_grouped.py", "none"),
 }
 
 
@@ -1120,8 +1151,8 @@ def bound(nbytes: float, ops: float, dtype: str):
 
 
 def attention_bound(nbytes: float, ops: float, dtype: str) -> dict:
-    """B2's and B3's bound: in bf16 ``bound``; in fp32 the work as their
-    3xTF32 kernels do it (``TF32_PRODUCTS`` TF32 products for each
+    """B2's, B3's and the grouped MoE kernels' bound: in bf16 ``bound``;
+    in fp32 the work as their 3xTF32 kernels do it (``TF32_PRODUCTS`` TF32 products for each
     product, at the TF32 rate), with the fp32 CUDA cores' bound beside
     it as ``bound_ms_fp32_cores``."""
     if dtype != "float32":
@@ -2928,18 +2959,24 @@ def moe_round_times(torch, eng, cfg, params):
     return out
 
 
-def moe_serve(torch, pa, cfg, params, label, replays=True, refs=None):
-    """One MoE serve of ``smoke_server``'s engine and workload: replays
-    bit-equal to eager calls on cloned random state (``replays``), then
-    the run through the graphs with B1 and B2 launched once per layer of
-    every decode step and prefill round through the dtype's variants, and
-    the tokens against ``generate_reference`` (dense dispatch; required
-    equal in fp32, counted in bf16)."""
+def moe_serve(torch, pa, cfg, params, label, replays=True, refs=None,
+              moe_impl="dense"):
+    """One MoE serve of ``smoke_server``'s engine and workload in the
+    ``moe_impl`` dispatch: replays bit-equal to eager calls on cloned
+    random state (``replays``), then the run through the graphs with B1
+    and B2 launched once per layer of every decode step and prefill round
+    through the dtype's variants, the grouped MoE kernels once per layer
+    of each under ``"grouped"`` and never otherwise, and the tokens
+    against ``generate_reference`` (dense dispatch; required equal in
+    fp32, counted in bf16; under ``"grouped"`` an fp32 request may part
+    only where the reference's top-2 logit gap is below ``TIE_GAP``)."""
+    from repro_torch.kernels.moe_grouped.moe_grouped import moe_grouped_cuda
     from repro_torch.launch.serve import SMOKE_ENGINE, smoke_server
+    from repro_torch.models import model as M
     from repro_torch.serving import generate_reference
     dtype = cfg.dtype
     t0 = time.perf_counter()
-    eng, reqs = smoke_server(cfg, params, device=DEVICE)
+    eng, reqs = smoke_server(cfg, params, device=DEVICE, moe_impl=moe_impl)
     torch.cuda.synchronize()
     built_s = time.perf_counter() - t0
     cmp = {}
@@ -2951,7 +2988,8 @@ def moe_serve(torch, pa, cfg, params, label, replays=True, refs=None):
         print(f"  {label}: {len(cmp)} replays bit-equal to their eager "
               "calls on cloned random state")
     torch.cuda.synchronize()
-    zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda)
+    zero_counts(pa.paged_decode_cuda, pa.paged_prefill_cuda,
+                moe_grouped_cuda)
     before = graph_counts(eng)
     t0 = time.perf_counter()
     res = eng.run(reqs)
@@ -2960,7 +2998,15 @@ def moe_serve(torch, pa, cfg, params, label, replays=True, refs=None):
     graphs = check_graph_run(eng, before, label)
     L = cfg.num_layers
     launches = {"paged_decode": pa.paged_decode_cuda.launches,
-                "paged_prefill": pa.paged_prefill_cuda.launches}
+                "paged_prefill": pa.paged_prefill_cuda.launches,
+                "moe_grouped": moe_grouped_cuda.launches}
+    want_grouped = (L * (eng.prefill_rounds + eng.decode_steps)
+                    if moe_impl == "grouped" else 0)
+    check(launches["moe_grouped"] == want_grouped,
+          f"{label}: moe_grouped launched {launches['moe_grouped']} times, "
+          f"expected {want_grouped} ({moe_impl} dispatch, {L} layers x "
+          f"{eng.prefill_rounds} prefill rounds + {eng.decode_steps} decode "
+          "steps)")
     variants = dict(pa.paged_prefill_cuda.launches_by_variant)
     dvariants = dict(pa.paged_decode_cuda.launches_by_variant)
     check(launches["paged_prefill"] == L * eng.prefill_rounds > 0,
@@ -2977,7 +3023,8 @@ def moe_serve(torch, pa, cfg, params, label, replays=True, refs=None):
     tokens = sum(len(o) for o in res.outputs.values())
     out = {"wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
            "built_s": built_s, "graphs": graphs, "replay_vs_eager": cmp,
-           "launches": launches, "prefill_variants": variants,
+           "moe_impl": moe_impl, "launches": launches,
+           "prefill_variants": variants,
            "decode_variants": dvariants,
            "prefill_rounds": eng.prefill_rounds,
            "decode_steps": eng.decode_steps,
@@ -3018,9 +3065,22 @@ def moe_serve(torch, pa, cfg, params, label, replays=True, refs=None):
     print(f"{label} reference: {same}/{len(reqs)} requests token-identical "
           f"({time.perf_counter() - t0:.1f} s)"
           + (f"; first differences (rid: position) {first}" if first else ""))
-    check(same == len(reqs) or dtype != "float32",
-          f"{label}: tokens differ from generate_reference: {first}")
-    out.update(same_tokens=same, first_diffs=first)
+    ties = {}
+    if first and dtype == "float32" and moe_impl == "grouped":
+        # the grouped and the dense dispatch sum each product in another
+        # order: a greedy token may flip where the top two logits tie
+        ties = divergences(torch, M, cfg, params, reqs, res.outputs, refs,
+                           cache_len=SMOKE_ENGINE.cache_len)
+        print(f"  {label}: (position, reference top-2 gap) where requests "
+              f"part: {ties}")
+        check(all(g < TIE_GAP for _, g in ties.values()),
+              f"{label}: tokens leave generate_reference away from a "
+              f"top-2 tie (gap >= {TIE_GAP}): {ties}")
+    else:
+        check(same == len(reqs) or dtype != "float32",
+              f"{label}: tokens differ from generate_reference: {first}")
+    out.update(same_tokens=same, first_diffs=first, tie_gaps=ties,
+               references=refs)
     if dtype == "bfloat16":
         out["margins"] = bf16_margins(torch, cfg, params, reqs, res.outputs,
                                       refs, label + " vs its reference")
@@ -3030,8 +3090,10 @@ def moe_serve(torch, pa, cfg, params, label, replays=True, refs=None):
 def phase_moe(torch, pa, M, get_config):
     """Phase 22: qwen2-moe at full width on ``smoke_server``'s engine and
     workload, fp32 at ``MOE_FP32_LAYERS`` layers and bf16 at full depth,
-    and qwen3-moe at full widths and ``MOE3_LAYERS`` layers in fp32;
-    every earlier phase's engines and weights are gone by now."""
+    and qwen3-moe at full widths and ``MOE3_LAYERS`` layers in fp32 in the
+    dense dispatch, then in the grouped one in fp32 (on the same weights,
+    against the same references) and in bf16; every earlier phase's
+    engines and weights are gone by now."""
     import gc
     from repro_torch.launch.serve import SMOKE_MOE3_ARCH, SMOKE_MOE_ARCH
     gc.collect()          # engines live in reference cycles: free them
@@ -3039,23 +3101,263 @@ def phase_moe(torch, pa, M, get_config):
     torch.cuda.reset_peak_memory_stats()
     out = {}
     base = get_config(SMOKE_MOE_ARCH)
-    for key, cfg in (
+    qwen3 = get_config(SMOKE_MOE3_ARCH)
+    for key, cfg, impls in (
             ("qwen2_fp32", dataclasses.replace(
-                base, dtype="float32", num_layers=MOE_FP32_LAYERS)),
+                base, dtype="float32", num_layers=MOE_FP32_LAYERS),
+             ("dense",)),
             ("qwen3_fp32", dataclasses.replace(
-                get_config(SMOKE_MOE3_ARCH), dtype="float32",
-                num_layers=MOE3_LAYERS)),
-            ("qwen2_bf16", dataclasses.replace(base, dtype="bfloat16"))):
+                qwen3, dtype="float32", num_layers=MOE3_LAYERS),
+             ("dense", "grouped")),
+            ("qwen3_bf16", dataclasses.replace(
+                qwen3, dtype="bfloat16", num_layers=MOE3_LAYERS),
+             ("grouped",)),
+            ("qwen2_bf16", dataclasses.replace(base, dtype="bfloat16"),
+             ("dense",))):
         params = M.init_params(cfg, seed=0, device=DEVICE)
-        label = f"MoE {cfg.name} {cfg.dtype} at {cfg.num_layers} layers"
-        out[key] = moe_serve(torch, pa, cfg, params, label)
-        del params
+        refs = None
+        for impl in impls:
+            label = (f"MoE {cfg.name} {cfg.dtype} at {cfg.num_layers} "
+                     f"layers, {impl} dispatch")
+            tag = key if impl == "dense" else key.replace("_", "_grouped_")
+            out[tag] = moe_serve(torch, pa, cfg, params, label, refs=refs,
+                                 moe_impl=impl)
+            refs = out[tag].pop("references")
+        del params, refs
         gc.collect()
         torch.cuda.empty_cache()
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     print(f"phase 22 peak device memory allocated: "
           f"{out['max_memory_allocated'] / 2**30:.2f} GiB")
     return out
+
+
+# --------------------------------------------------------------------- #
+# phase 30: the grouped MoE kernels (kernels/moe_grouped) at full width
+# --------------------------------------------------------------------- #
+
+#: Qwen3-30B-A3B's expert layer, as the benchmark serves it: d, an
+#: expert's width f, experts E, experts a token K
+GROUPED_WIDTHS = (2048, 768, 128, 8)
+#: tokens a call: the benchmark cell's decode step (128 slots), a
+#: 1,024-row prefill round and the scheduler's 4,096-token round
+GROUPED_TOKENS = (128, 1024, 4096)
+#: share of the checked calls' tokens marked inert (a packed grid's
+#: padding)
+GROUPED_INERT = 0.3
+#: a token is off where its largest error exceeds this share of the plain
+#: output's largest value: fp32, 3xTF32 sums over d and f against float32
+#: ones in another order; bf16, g, silu(g), h and the output each rounded
+#: to the dtype
+GROUPED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: a token's routing is a near-tie where its K-th and (K+1)-th router
+#: logits lie within this share of the K-th (of 1 where it is smaller):
+#: one bf16 step, or the fp32 sums' order; a logit rounded the other way
+#: there sends the token to another expert
+GROUPED_TIE = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+
+
+def grouped_case(torch, T, dtype, seed, widths=GROUPED_WIDTHS,
+                 inert=GROUPED_INERT, device=DEVICE):
+    """One grouped MoE call's inputs: x (T, d), the router (d, E) and the
+    stacked experts (E, d, f) / (E, f, d) as fan-in scaled normals from
+    ``seed``, and ``valid`` with a share ``inert`` of the tokens off."""
+    d, f, E, K = widths
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def normal(*shape, fan):
+        return (torch.randn(shape, generator=gen, device=device)
+                * fan ** -0.5).to(getattr(torch, dtype))
+    w = (normal(d, E, fan=d), normal(E, d, f, fan=d),
+         normal(E, d, f, fan=d), normal(E, f, d, fan=f))
+    x = torch.randn((T, d), generator=gen, device=device).to(
+        getattr(torch, dtype))
+    valid = torch.rand((T,), generator=gen, device=device) >= inert
+    return {"x": x, "w": w, "valid": valid, "K": K, "E": E,
+            "dtype": dtype}
+
+
+def check_grouped(torch, fn, gref, case, what) -> dict:
+    """``fn`` (``moe_grouped_cuda``'s signature) on ``case`` against the
+    plain version (``gref.moe_grouped_reference``): every live token
+    within ``GROUPED_TOL`` but for near-ties of its routing
+    (``GROUPED_TIE``), at most ``max(1, T // 512)`` of those, and every
+    inert token's output exactly zero."""
+    x, w, valid, K, E = (case[k] for k in ("x", "w", "valid", "K", "E"))
+    dtype, T = case["dtype"], x.shape[0]
+    kw = dict(top_k=K, num_experts=E, valid=valid)
+    got = fn(x, *w, **kw)
+    want = gref.moe_grouped_reference(x, *w, **kw)
+    scale = float(want.float().abs().max())
+    err = (got.float() - want.float()).abs().amax(-1)
+    off = (err > GROUPED_TOL[dtype] * scale) & valid
+    top = gref.rowwise_mm(x, w[0]).to(x.dtype).float().topk(K + 1).values
+    tie = (top[:, K - 1] - top[:, K]) \
+        <= GROUPED_TIE[dtype] * top[:, K - 1].abs().clamp(min=1.0)
+    n_off, n_far = int(off.sum()), int((off & ~tie).sum())
+    inside = valid & ~off
+    live_err = float(err[inside].max()) if bool(inside.any()) else 0.0
+    inert_zero = bool((got[~valid] == 0).all())
+    print(f"  moe_grouped {what}: max abs err {live_err:.3g} of {scale:.3g} "
+          f"over the live tokens in tolerance; {n_off} of {T} off, {n_far} "
+          f"of them away from a near-tie of their routing "
+          f"({int(tie.sum())} near-ties); inert tokens zero: {inert_zero}")
+    check(n_far == 0 and n_off <= max(1, T // 512) and inert_zero,
+          f"moe_grouped {what}: {n_off} tokens off ({n_far} away from a "
+          f"near-tie), inert tokens zero: {inert_zero}")
+    return {"max_abs_err": live_err, "scale": scale, "tokens_off": n_off,
+            "near_ties": int(tie.sum()), "output": got}
+
+
+def grouped_bound(case, reached: int) -> dict:
+    """The least time of one call at the card's peaks: operations (the
+    router's 2 d E a token, 2 x 3 d f a routed row; in fp32 as 3xTF32
+    products, ``attention_bound``) and bytes (the router, every reached
+    expert's weights once, x and the output once)."""
+    x, wg = case["x"], case["w"][1]
+    T, d = x.shape
+    E, _, f = wg.shape
+    ops = 2.0 * d * E * T + 2.0 * 3 * d * f * T * case["K"]
+    nbytes = x.element_size() * (d * E + 3.0 * d * f * reached + 2.0 * T * d)
+    return {**attention_bound(nbytes, ops, case["dtype"]), "bytes": nbytes,
+            "ops": ops}
+
+
+def kernel_device_ms(torch, fn, prefix: str, iters: int = 10) -> dict:
+    """Device ms a call of each kernel whose name starts with ``prefix``,
+    from ``torch.profiler`` over ``iters`` calls of ``fn`` (no flush);
+    {} where the profiler sees no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        if e.key.startswith(prefix) and t:
+            out[e.key] = t / 1e3 / iters
+    return out
+
+
+def grouped_mm_call(torch, case, ids):
+    """The layer's products through ``torch._grouped_mm`` over the rows
+    laid out by expert (the layout made outside the call), SiLU-gated,
+    scattered back and summed over each token's K rows."""
+    x, (_, wg, wu, wo), K = case["x"], case["w"], case["K"]
+    T, d = x.shape
+    flat = ids.reshape(-1).long()
+    order = torch.sort(flat, stable=True).indices
+    offs = torch.cumsum(torch.bincount(flat, minlength=wg.shape[0]),
+                        0).to(torch.int32)
+    xs = x[order // K].contiguous()
+
+    def call():
+        g = torch._grouped_mm(xs, wg, offs=offs)
+        u = torch._grouped_mm(xs, wu, offs=offs)
+        o = torch._grouped_mm(torch.nn.functional.silu(g) * u, wo, offs=offs)
+        y = torch.empty_like(o)
+        y[order] = o
+        return y.view(T, K, d).sum(1)
+    return call
+
+
+def time_grouped(torch, mg, gref, case, dense_cfg) -> dict:
+    """One call, every token live, timed (phase 4's method: CUDA events,
+    L2 flushed before each) beside its plain version,
+    ``torch._grouped_mm`` for its products (``library_ms``: a yardstick;
+    None where the call refuses the dtype), the dense dispatch
+    (``models.moe.apply_moe``: every expert on every token) and its bound;
+    and each of its kernels' device time."""
+    from repro_torch.models import moe
+    x, w, K, E = case["x"], case["w"], case["K"], case["E"]
+    T = x.shape[0]
+    ids, _ = gref.route_reference(x, w[0], K, E)
+    reached = int((torch.bincount(ids.reshape(-1).long(), minlength=E)
+                   > 0).sum())
+    kw = dict(top_k=K, num_experts=E)
+    call = lambda: mg.moe_grouped_cuda(x, *w, **kw)  # noqa: E731
+    t = {"dtype": case["dtype"], "tokens": T, "experts_reached": reached,
+         "ms": time_ms(torch, call, iters=20),
+         "plain_ms": time_ms(torch, lambda: gref.moe_grouped_reference(
+             x, *w, **kw), iters=2, warm=1),
+         **grouped_bound(case, reached)}
+    t["kernel_ms"] = kernel_device_ms(torch, call, "moe_grouped_")
+    t["library_ms"] = None
+    try:
+        t["library_ms"] = time_ms(torch, grouped_mm_call(torch, case, ids),
+                                  iters=20)
+    except (RuntimeError, TypeError, AttributeError) as e:
+        t["library_error"] = str(e).splitlines()[0][:200]
+    lp = dict(zip(("router", "wi_gate", "wi_up", "wo"), w))
+    t["dense_ms"] = time_ms(torch, lambda: moe.apply_moe(lp, dense_cfg,
+                                                         x[None]), iters=5)
+    return t
+
+
+def phase_moe_grouped(torch, get_config):
+    """Phase 30: the grouped MoE kernels at Qwen3-30B-A3B's widths
+    (``GROUPED_WIDTHS``), after phase 22: in fp32 and bf16, a call of
+    ``GROUPED_TOKENS[-1]`` tokens with inert ones among them against its
+    plain version (``check_grouped``), and its first
+    ``GROUPED_TOKENS[0]`` tokens called alone, checked too and bit-equal
+    to the same rows of the whole call; then each dtype timed at
+    ``GROUPED_TOKENS[0]`` tokens and bf16 at every size
+    (``time_grouped``)."""
+    import gc
+    from repro_torch.kernels.moe_grouped import moe_grouped as mg
+    from repro_torch.kernels.moe_grouped import ref as gref
+    from repro_torch.launch.serve import SMOKE_MOE3_ARCH
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(SMOKE_MOE3_ARCH)
+    check((full.d_model, full.moe_d_ff, full.num_experts,
+           full.experts_per_token) == GROUPED_WIDTHS,
+          f"{SMOKE_MOE3_ARCH}'s expert layer is not GROUPED_WIDTHS")
+    errs, times = {}, {}
+    small, big = GROUPED_TOKENS[0], GROUPED_TOKENS[-1]
+    for dtype in ("float32", "bfloat16"):
+        case = grouped_case(torch, big, dtype, seed=37)
+        errs[f"{dtype}_T{big}"] = check_grouped(
+            torch, mg.moe_grouped_cuda, gref, case, f"{dtype} T{big}")
+        whole = errs[f"{dtype}_T{big}"].pop("output")
+        part = {**case, "x": case["x"][:small].contiguous(),
+                "valid": case["valid"][:small].contiguous()}
+        errs[f"{dtype}_T{small}"] = check_grouped(
+            torch, mg.moe_grouped_cuda, gref, part, f"{dtype} T{small}")
+        alone = errs[f"{dtype}_T{small}"].pop("output")
+        check(torch.equal(alone, whole[:small]),
+              f"moe_grouped {dtype}: the first {small} rows called alone "
+              f"differ from the same rows of the {big}-token call")
+        print(f"  moe_grouped {dtype}: the first {small} rows alone are "
+              f"bit-equal to the same rows of the {big}-token call")
+        del whole, alone
+        dense_cfg = dataclasses.replace(full, dtype=dtype, num_layers=1)
+        for T in (GROUPED_TOKENS if dtype == "bfloat16" else (small,)):
+            times[f"{dtype}_T{T}"] = time_grouped(
+                torch, mg, gref, {**case, "x": case["x"][:T].contiguous()},
+                dense_cfg)
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
+    for what, t in times.items():
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
+        print(f"moe_grouped ({what}, d {GROUPED_WIDTHS[0]}, f "
+              f"{GROUPED_WIDTHS[1]}, E {GROUPED_WIDTHS[2]}, K "
+              f"{GROUPED_WIDTHS[3]}, {t['experts_reached']} experts "
+              f"reached): {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
+              f"library (torch._grouped_mm) {lib}; dense dispatch "
+              f"{t['dense_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}: {t['bytes']:.3g} B, {t['ops']:.3g} ops)"
+              f"{cores_note(t)}; by kernel "
+              + ", ".join(f"{k} {v:.4f}" for k, v in t["kernel_ms"].items()))
+    return {"errors": errs, "times": times}
 
 
 # --------------------------------------------------------------------- #
@@ -5128,6 +5430,11 @@ def main(argv=None) -> int:
         del inp
         moe = phase_moe(torch, pa, M, get_config)
         lap("MoE serve")
+        grouped = phase_moe_grouped(torch, get_config)
+        errs["moe_grouped"] = grouped["errors"]
+        times["moe_grouped"] = grouped["times"]["bfloat16_T128"]
+        times["moe_grouped_fp32"] = grouped["times"]["float32_T128"]
+        lap("grouped MoE kernels at full width")
         hybrid = phase_hybrid(torch, pa, fa, fref, ref, pa_ops, M,
                               get_config)
         times.update({k: v for k, v in hybrid["times"].items()
@@ -5223,6 +5530,18 @@ def main(argv=None) -> int:
          hybrid["reference_launches_fp32"],
          hybrid["errors"]["flash_attention"]["main_float32"],
          "hymba prefill S3100 H25 Hkv5 window 2048"),
+        # the grouped MoE layer (phases 22 and 30): launches from
+        # qwen3-moe's grouped serves, errors at T 128 beside T 4096's
+        ("moe_grouped", "moe_grouped", "triton", "bfloat16",
+         moe["qwen3_grouped_bf16"]["launches"]["moe_grouped"],
+         max(errs["moe_grouped"][f"bfloat16_T{t}"]["max_abs_err"]
+             for t in (GROUPED_TOKENS[0], GROUPED_TOKENS[-1])),
+         "qwen3-moe-30b decode step T128 d2048 f768 E128 K8"),
+        ("moe_grouped_fp32", "moe_grouped", "triton", "float32",
+         moe["qwen3_grouped_fp32"]["launches"]["moe_grouped"],
+         max(errs["moe_grouped"][f"float32_T{t}"]["max_abs_err"]
+             for t in (GROUPED_TOKENS[0], GROUPED_TOKENS[-1])),
+         "qwen3-moe-30b decode step T128 d2048 f768 E128 K8"),
     ]
     # B1-B3 at head dim 256 (PaliGemma) and B1/B2 at MusicGen's shapes
     # (phase 24): B1/B2's launches from the paged serves, B3's from the
@@ -5298,6 +5617,7 @@ def main(argv=None) -> int:
               f"H{t['shape'][2]} D{t['shape'][3]}): {t['ms']:.4f} ms; plain "
               f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']}: {t['bytes']:.3g} B, {t['ops']:.3g} ops)")
+    times["moe_grouped_more"] = grouped["times"]
     times["flash_attention_more"] = flash_more
     times["wkv6_more"] = wkv_more
     times["paged_decode_more"] = decode_more

@@ -29,6 +29,11 @@ print:
 * Python's garbage collections in the window: count, longest and total
   pause by generation; while the profiler collects, each is a range named
   ``gc.gen<n>``, so a gap it causes is named by it;
+* the grouped MoE dispatch's row accumulators over the whole run, read
+  once at its end (``moe_grouped.ops.row_counters`` of
+  ``Engine.moe_stats``: ``moe_routed_rows``, ``moe_experts_reached_share``,
+  ``moe_expert_load_max_over_mean``, and the share by layer), where the
+  engine has them;
 * what the engine holds at the window's end and grows with the requests
   it finished: the pool's live pages, those in block tables and those in
   the prefix registry alone, the registry's trie nodes, the requests
@@ -182,6 +187,7 @@ def main(argv=None) -> int:
 
     held: dict = {}
     pauses = GcPauses()
+    from repro_torch.kernels.moe_grouped.ops import row_counters
     from repro_torch.serving.engine import Engine
     txn = TxnTimes(Engine)
     drive, start, finish = S.Driver.run, T.Tracer.start, T.Tracer.finish
@@ -204,6 +210,9 @@ def main(argv=None) -> int:
         held["begin_txn"] = txn.summary(n0)
         held["window"] = per_step(after, before, len(rec.step_walls))
         held["prefill"] = prefill_summary(after, before)
+        held["counters"] = dict(rec.counters)
+        held["moe"] = row_counters(getattr(self.eng, "moe_stats", None),
+                                   self.eng.cfg.num_experts)
         if "at_trace" in held:
             snap, n0 = held.pop("at_trace")
             held["sub_window"] = per_step(after, snap,
@@ -227,7 +236,8 @@ def main(argv=None) -> int:
               "trace": args.trace, "root": str(root),
               "correct": res["correct"], "metrics": res["metrics"],
               "device": res["device"], "window": held.get("window"),
-              "prefill": held.get("prefill"),
+              "prefill": held.get("prefill"), "moe": held.get("moe"),
+              "counters": held.get("counters"),
               "capture_s": held.get("capture_s"),
               "num_graphs": held.get("num_graphs"),
               "held_at_end": held.get("held_at_end"),
@@ -240,6 +250,8 @@ def main(argv=None) -> int:
           file=sys.stderr)
     print(f"prefill rounds by grid rows and pad share, window: "
           f"{held.get('prefill')}", file=sys.stderr)
+    print(f"grouped MoE row accumulators, whole run: {held.get('moe')}",
+          file=sys.stderr)
     print(f"held at the window's end: {held.get('held_at_end')}; step "
           f"snapshot: {held.get('begin_txn')}; gc: {report['gc_pauses']}",
           file=sys.stderr)
@@ -260,6 +272,7 @@ def main(argv=None) -> int:
             report["gaps"] = P.gap_labels(data, k=15)
             report["echoes"] = sorted({n for n, _, _ in data.device
                                        if n.startswith(P.PREFIX)})
+        report["device_ops"] = data.top_ops(20)
         report["busy_s"] = data.busy_s()
         report["window_s"] = data.window_s
         report["breakdown_gaps"] = data.idle_gaps()

@@ -282,15 +282,19 @@ def _rwkv_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 
 def _mlp_or_moe(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                moe_impl: str) -> torch.Tensor:
+                moe_impl: str, valid: Optional[torch.Tensor] = None,
+                stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The block's MLP: the MoE dispatch ``moe_impl`` on the MoE family,
-    else the gated MLP."""
+    else the gated MLP.  ``valid`` (the live tokens) and ``stats`` (the
+    layer's row accumulators) reach the grouped dispatch only."""
     if cfg.num_experts:
         if moe_impl not in moe_mod.DISPATCH:
             raise ValueError(f"unknown moe_impl {moe_impl!r}")
+        kw = dict(valid=valid, stats=stats) if moe_impl == "grouped" else {}
         # plain activations come back plain (``moe_impl="ep"`` returns a
         # DTensor): the serving engine over a mesh keeps them plain
-        return plain_like(moe_mod.DISPATCH[moe_impl](lp["moe"], cfg, x), x)
+        return plain_like(moe_mod.DISPATCH[moe_impl](lp["moe"], cfg, x,
+                                                     **kw), x)
     return gated_mlp(lp["mlp"], x, act="gelu" if cfg.family == "vlm"
                      else "silu")
 

@@ -37,13 +37,24 @@ top-k with softmax-after-topk (Qwen style); padding experts (qwen2-moe
   every rank takes the first rank's expert results, so that the ranks
   agree where a duplicate row overflows a capacity (JAX's controller
   reads the first device's replica).
+* ``apply_moe_grouped``: the dropless grouped dispatch, which has no JAX
+  counterpart (``kernels.moe_grouped``: hand-written Triton kernels on a
+  card, their plain version on the CPU).  Each token's K routed rows are
+  laid out by expert on the device and run through grouped products over
+  each expert's rows, reading the stacked weights in place; a token's K
+  outputs are summed in k order, with no atomics.  Tokens marked inert
+  (``valid`` false: the padding of a prefill grid, a decode row with no
+  request) route to no expert and cost no expert work.  Row-independent
+  bit for bit and free of host syncs, so the engine packs its prefill
+  grid and captures it in step graphs; ``stats``, where given, counts the
+  routed rows per expert on the device.
 
-Every product is a plain ``torch.matmul``: the JAX package computes the
-MoE layer outside any Pallas kernel.
+Every product of the other dispatches is a plain ``torch.matmul``: the JAX
+package computes the MoE layer outside any Pallas kernel.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +64,7 @@ from repro_torch.distributed.context import (P, all_to_all, axis_size,
                                              dp_axes_of, get_mesh, reshape,
                                              shard_map_compat, spmd,
                                              to_dtensor)
+from repro_torch.kernels.moe_grouped import ops as grouped_ops
 from repro_torch.models.common import (Params, dense_init, gated_mlp,
                                        gated_mlp_init)
 
@@ -272,7 +284,27 @@ def apply_moe_ep(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return y
 
 
+def apply_moe_grouped(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None,
+                      stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dropless grouped dispatch; x (B, S, d) -> (B, S, d).  ``valid``
+    (B, S) bool marks the live tokens (None: all); ``stats`` is the
+    layer's ``(2E + 2,)`` int64 row accumulators (``Engine.moe_stats``),
+    or None.  The same routing as ``route`` (the lower expert first among
+    equal logits); an inert token's routed part is zero."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    y = grouped_ops.moe_grouped(
+        xt, params["router"], params["wi_gate"], params["wi_up"],
+        params["wo"], top_k=cfg.experts_per_token,
+        num_experts=cfg.num_experts,
+        valid=None if valid is None else valid.reshape(B * S),
+        stats=stats)
+    return _shared(params, cfg, xt, y).reshape(B, S, d)
+
+
 #: moe_impl -> dispatch, as ``repro.models.model._mlp_or_moe`` picks it
+#: (``"grouped"`` is the port's own)
 DISPATCH = {"dense": apply_moe, "sparse": apply_moe_sparse,
-            "ep": apply_moe_ep}
+            "ep": apply_moe_ep, "grouped": apply_moe_grouped}
 

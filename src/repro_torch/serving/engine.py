@@ -235,8 +235,10 @@ class EngineConfig:
     #                               mesh's "model" axis; needs set_mesh)
     moe_impl: str = "dense"       # MoE dispatch: "dense" (chunk-invariant,
     #                               for parity), "sparse" (capacity
-    #                               buffers) or "ep" (experts sharded over
+    #                               buffers), "ep" (experts sharded over
     #                               the mesh's "model" axis; needs set_mesh)
+    #                               or "grouped" (dropless, each expert
+    #                               over its own rows; chunk-invariant)
     swap_bytes: Optional[int] = None   # host swap-store capacity (None =
     #                                    unbounded); a full store makes the
     #                                    victim fall back to recompute
@@ -407,12 +409,22 @@ class Engine:
             spmd.check_split(cfg.padded_experts, "moe_impl='ep': experts",
                              self.mesh, "model")
             self.params = spmd.place_experts(cfg, params, self.mesh)
+        # the grouped MoE dispatch's row accumulators on the device, one
+        # row a layer: [routed rows by expert | calls that reached the
+        # expert | min(experts, routed rows) a call | spare, for 16-byte
+        # rows]; the step graphs add to them and nothing reads them
+        # before the run ends (``kernels.moe_grouped.ops.row_counters``)
+        self.moe_stats: Optional[torch.Tensor] = None
+        if self._pooled and ecfg.moe_impl == "grouped" and cfg.num_experts:
+            self.moe_stats = torch.zeros(
+                (cfg.num_layers, 2 * cfg.padded_experts + 2),
+                dtype=torch.int64, device=device)
         if self._pooled:
             self.k_pools, self.v_pools = init_pools(
                 cfg, self.allocator.num_pages, pg, nslots=ecfg.nslots,
                 device=device)
             self._paged_prefill, self._paged_decode = build_paged_fns(
-                cfg, moe_impl=ecfg.moe_impl)
+                cfg, moe_impl=ecfg.moe_impl, moe_stats=self.moe_stats)
             self.cache = None
         else:
             self.k_pools = self.v_pools = None
@@ -459,7 +471,7 @@ class Engine:
         # capacity-based MoE dispatch ("sparse", "ep"), whose tokens share
         # the experts' capacity over the whole grid, as in the JAX engine
         packs = self._pooled and (not cfg.num_experts
-                                  or ecfg.moe_impl == "dense")
+                                  or ecfg.moe_impl in ("dense", "grouped"))
         self.rungs = _row_rungs(ecfg.nslots) if packs else [ecfg.nslots]
         # host seconds of the step by phase, one key a span
         # (``serving.spans``: attach_s, prefill_s, upload_s, replay_s, ...)

@@ -30,7 +30,7 @@ step's inputs, so a steady cohort needs no upload between replays.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -72,9 +72,13 @@ def prefill_layer(cfg: ModelConfig, lp: Any, x: torch.Tensor,
                   positions: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, block_tables: torch.Tensor,
                   starts: torch.Tensor, lengths: torch.Tensor,
-                  moe_impl: str = "dense") -> torch.Tensor:
+                  moe_impl: str = "dense",
+                  valid: Optional[torch.Tensor] = None,
+                  stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer of ``prefill_fn``: x (B, c, d) -> x after the layer; the
-    chunk's K/V rows are written into the layer's pools by B2."""
+    chunk's K/V rows are written into the layer's pools by B2.  ``valid``
+    (B, c) marks the chunk's real tokens and ``stats`` is the layer's MoE
+    row accumulators, both for the grouped dispatch."""
     B, c = x.shape[:2]
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn._project_qkv(lp["attn"], cfg, h, positions)
@@ -83,17 +87,19 @@ def prefill_layer(cfg: ModelConfig, lp: Any, x: torch.Tensor,
         k_pool, v_pool, block_tables, starts, lengths)
     x = x + out.reshape(B, c, cfg.q_dim) @ lp["attn"]["wo"]
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + M._mlp_or_moe(cfg, lp, h, moe_impl)
+    return x + M._mlp_or_moe(cfg, lp, h, moe_impl, valid, stats)
 
 
 def decode_layer(cfg: ModelConfig, lp: Any, x: torch.Tensor,
                  ctx: torch.Tensor, dest: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, block_tables: torch.Tensor,
-                 ctx_lens: torch.Tensor, moe_impl: str = "dense"
-                 ) -> torch.Tensor:
+                 ctx_lens: torch.Tensor, moe_impl: str = "dense",
+                 valid: Optional[torch.Tensor] = None,
+                 stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer of ``decode_fn``: x (B, 1, d) -> x after the layer; the
     new token's K/V row is written at pool slot ``dest`` (B,), then B1
-    attends over ``ctx_lens`` (B,) tokens of the row's pages."""
+    attends over ``ctx_lens`` (B,) tokens of the row's pages.  ``valid``
+    (B, 1) marks the active rows (``prefill_layer``)."""
     B = x.shape[0]
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn._project_qkv(lp["attn"], cfg, h, ctx[:, None])
@@ -103,13 +109,17 @@ def decode_layer(cfg: ModelConfig, lp: Any, x: torch.Tensor,
                               block_tables, ctx_lens)
     x = x + (out.reshape(B, cfg.q_dim) @ lp["attn"]["wo"])[:, None]
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + M._mlp_or_moe(cfg, lp, h, moe_impl)
+    return x + M._mlp_or_moe(cfg, lp, h, moe_impl, valid, stats)
 
 
-def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense"
+def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense",
+                    moe_stats: Optional[torch.Tensor] = None
                     ) -> Tuple[Callable, Callable]:
     """Returns ``(prefill_fn, decode_fn)`` over pooled KV; an MoE block's
-    MLP is the ``moe_impl`` dispatch (``models.moe``).
+    MLP is the ``moe_impl`` dispatch (``models.moe``).  Under the grouped
+    dispatch the grid's padding and the inactive decode rows route to no
+    expert, and layer l adds its routed rows to ``moe_stats[l]`` where
+    given.
 
     prefill_fn(params, k_pools, v_pools, tokens (B, bucket),
                starts (B,), lengths (B,), block_tables (B, maxp))
@@ -126,6 +136,10 @@ def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense"
                          f"got {cfg.family!r}")
     M.check_supported(cfg)
     vocab = cfg.vocab_size
+    grouped = moe_impl == "grouped" and bool(cfg.num_experts)
+
+    def _stats(l: int) -> Optional[torch.Tensor]:
+        return None if moe_stats is None else moe_stats[l]
 
     def _finish(params: Any, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -139,10 +153,13 @@ def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense"
         lengths = lengths.contiguous()
         positions = starts[:, None] + torch.arange(c, device=tokens.device,
                                                    dtype=torch.int32)
+        valid = (torch.arange(c, device=tokens.device)[None, :]
+                 < lengths[:, None]) if grouped else None
         x, _ = M._embed(cfg, params, tokens.long(), positions)
         for l, lp in enumerate(M.unstack_layers(params)):
             x = prefill_layer(cfg, lp, x, positions, k_pools[l], v_pools[l],
-                              block_tables, starts, lengths, moe_impl)
+                              block_tables, starts, lengths, moe_impl,
+                              valid, _stats(l))
         last = torch.clamp(lengths.long() - 1, min=0)
         x_last = x[torch.arange(B, device=x.device), last]
         return _finish(params, x_last)
@@ -164,7 +181,8 @@ def build_paged_fns(cfg: ModelConfig, moe_impl: str = "dense"
         x, _ = M._embed(cfg, params, tokens.long()[:, None], ctx[:, None])
         for l, lp in enumerate(M.unstack_layers(params)):
             x = decode_layer(cfg, lp, x, ctx, dest, k_pools[l], v_pools[l],
-                             block_tables, ctx_lens, moe_impl)
+                             block_tables, ctx_lens, moe_impl,
+                             active[:, None], _stats(l))
         return _finish(params, x[:, 0])
 
     return prefill_fn, decode_fn

@@ -73,11 +73,14 @@ class StepGraphError(RuntimeError):
 
 def kernel_counters() -> Tuple[Any, ...]:
     """The kernel wrappers whose launch counters the serving steps move:
-    B1 and B2 (the pooled plane) and B4 (the slot plane)."""
+    B1 and B2 (the pooled plane), B4 (the slot plane) and the grouped MoE
+    layer."""
+    from repro_torch.kernels.moe_grouped.moe_grouped import moe_grouped_cuda
     from repro_torch.kernels.paged_attention.paged_attention import (
         paged_decode_cuda, paged_prefill_cuda)
     from repro_torch.kernels.rwkv_scan.rwkv_scan import wkv6_cuda
-    return (paged_decode_cuda, paged_prefill_cuda, wkv6_cuda)
+    return (paged_decode_cuda, paged_prefill_cuda, wkv6_cuda,
+            moe_grouped_cuda)
 
 
 def read_counts(counters: Sequence[Any]) -> Tuple[Counts, ...]:

@@ -139,7 +139,8 @@ def test_kernel_launches_and_host_staging_counters():
     ``host_transfer_ops`` counts only staged collectives that ran."""
     calls = ca.custom_calls()
     assert set(calls) == {"paged_decode_cuda", "paged_prefill_cuda",
-                          "wkv6_cuda", "flash_attention_cuda"}
+                          "wkv6_cuda", "flash_attention_cuda",
+                          "moe_grouped_cuda"}
     assert all(isinstance(n, int) for n in calls.values())
     assert all(v > 0 for v in ca.host_transfer_ops().values())
 
